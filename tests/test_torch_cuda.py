@@ -1,0 +1,178 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Run on a machine with an NVIDIA GPU and the CUDA toolkit (the JAX test
+conftest is skipped: that machine has no JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Without a card every test here skips (the check is made inside each test,
+so every worker collects the same tests)."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from graingraphnn_torch.kernels import edge_stage, editor_fused
+from graingraphnn_torch.ops import period_conv
+from graingraphnn_torch.rollout import device_driver as dd
+from graingraphnn_torch.rollout import device_rollout as dr
+from graingraphnn_torch.rollout import topology_jit as tj
+from graingraphnn_torch.train import checkpoint
+
+pytestmark = pytest.mark.cuda
+ATOL, RTOL = 1e-4, 1e-4
+
+
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def random_conv(seed, Fs, Fd, G, C, dev):
+    conv = period_conv.PeriodConv(Fs, Fd, C, G)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    return conv.to(dev)
+
+
+@pytest.mark.parametrize("K,Ns,Nd,Fs,Fd", [(3, 1043, 2086, 107, 104),
+                                           (3, 2086, 2086, 104, 104),
+                                           (16, 2086, 1043, 104, 107),
+                                           (5, 77, 131, 19, 8)])
+def test_edge_stage_kernel_matches_plain(K, Ns, Nd, Fs, Fd):
+    dev = card()
+    G, C = 4, 96
+    rng = np.random.default_rng(K + Nd)
+    conv = random_conv(K, Fs, Fd, G, C, dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = (rng.uniform(size=(Nd, K)) < 0.8).astype(np.float32)
+    mask[::9] = 0.0
+    mask = t(mask)
+    before = edge_stage.launches
+    out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln, mask,
+                                            num_gates=G, out_channels=C)
+    ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln, mask,
+                                              num_gates=G, out_channels=C)
+    torch.cuda.synchronize()
+    assert edge_stage.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    # dispatch by device: CUDA tensors go to the kernel
+    again = period_conv.apply_period_conv(conv, xs, xd, nbr, ln, mask,
+                                          num_gates=G, out_channels=C)
+    assert edge_stage.launches == before + 2
+    torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+def test_edge_stage_kernel_refuses_what_it_cannot_take():
+    dev = card()
+    conv = random_conv(0, 11, 8, 4, 8, dev)
+    xs, xd = torch.rand(9, 11, device=dev), torch.rand(7, 8, device=dev)
+    nbr = torch.zeros(7, 17, dtype=torch.int32, device=dev)
+    f = torch.ones(7, 17, device=dev)
+    with pytest.raises(ValueError, match="K<=16"):
+        edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, f, f,
+                                          num_gates=4, out_channels=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_stage.apply_period_conv_cuda(
+            conv, xs.double(), xd, nbr[:, :3].contiguous(), f[:, :3], f[:, :3],
+            num_gates=4, out_channels=8)
+
+
+@pytest.fixture(scope="module")
+def state120():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, edges, mask, lxd, patch = dd.load_fixture()
+    st, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch, device="cuda")
+    return st
+
+
+@pytest.mark.parametrize("seed,n_switch,n_elim", [(0, 8, 2), (1, 24, 4),
+                                                  (2, 0, 8), (3, 30, 0)])
+def test_editor_kernel_matches_plain(state120, seed, n_switch, n_elim):
+    dev = card()
+    st = state120
+    rng = np.random.default_rng(seed)
+    E, Q = st.E_pp.cpu().numpy(), st.E_pq.cpu().numpy()
+    logits = np.full(E.shape[1], dr.NEG, np.float32)
+    logits[E[0] >= 0] = -50.0
+    cand = np.nonzero((E[0] < E[1]) & (E[0] >= 0))[0]
+    logits[cand[rng.choice(len(cand), n_switch, replace=False)]] = \
+        rng.uniform(5.0, 15.0, n_switch)
+    grains, counts = np.unique(Q[1][Q[1] >= 0], return_counts=True)
+    ge = np.full(tj.MAX_ELIM, -1, np.int32)
+    ge[:n_elim] = rng.choice(grains[np.argsort(counts, kind="stable")][:12],
+                             n_elim, replace=False)
+    NG, NJ = st.xg.shape[0], st.xj.shape[0]
+    y_grain = np.stack([rng.uniform(-0.5, 0.5, NG), np.zeros(NG)], 1)
+    ts = tj.TopoState(
+        E_pp=st.E_pp, E_pq=st.E_pq, xj=st.xj,
+        y_joint=torch.from_numpy(
+            rng.uniform(-0.9, 0.9, (NJ, 2)).astype(np.float32)).to(dev),
+        mask_g=st.mask_g, mask_j=st.mask_j, append_ptr=st.n_pp)
+    before = editor_fused.launches
+    chip_smoke.check_editor_case(
+        ts, torch.from_numpy(logits).to(dev), torch.from_numpy(ge).to(dev),
+        torch.from_numpy(y_grain.astype(np.float32)).to(dev), 0.6, NG)
+    assert editor_fused.launches == before + 1
+
+
+def test_span_on_the_card_matches_the_cpu_span(state120):
+    dev = card()
+    path = "artifacts/40um/"
+    reg, _, _ = checkpoint.load_model(path + "regressor0", dev)
+    cls, _, _ = checkpoint.load_model(path + "classifier1", dev)
+    reg_c, _, _ = checkpoint.load_model(path + "regressor0", "cpu")
+    cls_c, _, _ = checkpoint.load_model(path + "classifier1", "cpu")
+    st = state120
+    st_c = dr.DeviceRolloutState(**{k: v.cpu() for k, v in vars(st).items()})
+    e0, k0 = edge_stage.launches, editor_fused.launches
+    s1, aux1 = dr.device_step(reg, cls, st, c_threshold=0.99)
+    assert (edge_stage.launches - e0, editor_fused.launches - k0) == (12, 1)
+    s0, aux0 = dr.device_step(reg_c, cls_c, st_c, c_threshold=0.99)
+    for f in ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp"):
+        assert torch.equal(getattr(s1, f).cpu(), getattr(s0, f)), f
+    torch.testing.assert_close(s1.xj.cpu(), s0.xj, atol=1e-5, rtol=0)
+    assert torch.equal(aux1["switching"].cpu(), aux0["switching"])
+
+
+def test_editor_kernel_matches_plain_on_a_forced_elimination(state120):
+    dev = card()
+    st = state120
+    ts = tj.TopoState(E_pp=st.E_pp, E_pq=st.E_pq, xj=st.xj,
+                      y_joint=torch.zeros_like(st.xj[:, :2]),
+                      mask_g=st.mask_g, mask_j=st.mask_j, append_ptr=st.n_pp)
+    chain = chip_smoke.forced_out_chain(ts)
+    assert chain
+    for s, logits, ge, yg in chain:
+        (_, _, extra), _ = chip_smoke.check_editor_case(
+            chip_smoke._to(s, dev), logits.to(dev), ge.to(dev), yg.to(dev),
+            0.6, st.xg.shape[0])
+    assert int((extra >= 0).sum()) == 1
+
+
+def test_span_makes_no_host_sync(state120):
+    """The span loop never waits for the device: PyTorch's sync debug mode
+    turns any synchronizing call inside device_step into an error."""
+    dev = card()
+    reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", dev)
+    cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", dev)
+    st, _ = dr.device_step(reg, cls, state120, c_threshold=0.99)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            st, _ = dr.device_step(reg, cls, st, c_threshold=0.99)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
