@@ -2,14 +2,18 @@
 
     python3 chip_smoke.py            # every phase, one card
 
-Phases: (1) the device, (2) building both CUDA kernels from csrc/, (3) the
-fused PeriodConv edge-stage kernel against its plain version at the
-rollout's three conv shapes, (4) the topology-editor kernel against its
-plain version on the first span's editor inputs and on forced scenarios,
-(5) a 20-span device-resident rollout of the 120 um fixture graph with the
-shipped checkpoints through both kernels, with launch counts, throughput
-and a CPU reference span. Prints one JSON line per phase, the kernels line,
-and last {"ok": true, "device": {...}}. Any failure exits non-zero.
+Phases: (1) the device, (2) building the CUDA sources in csrc/, (3) the
+fused PeriodConv edge stage against its plain version at the rollout's
+three conv shapes, and each of its two kernels (node_proj, edge_attn)
+alone against its own plain version, timed beside it, (4) both
+instantiations of the topology-editor kernel (state staged in shared
+memory, state in device memory) against its plain version on the first
+span's editor inputs and on forced scenarios, (5) a 20-span
+device-resident rollout of the 120 um fixture graph with the shipped
+checkpoints through all three kernels, with launch counts, throughput, the
+editor timed on each span's own inputs, and a CPU reference span. Prints
+one JSON line per phase, the kernels line, and last {"ok": true,
+"device": {...}}. Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ C_THRESHOLD = 0.99
 ATOL, RTOL = 1e-4, 1e-4       # fp32 kernel vs plain, sums reordered
 EDITOR_ATOL = 1e-6
 PEAK_FP32 = 67e12             # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32X3 = 495e12 / 3      # H100 SXM TF32 tensor cores, 3 products per fp32 one
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 REPLACES = {
     "push": "graingraphnn_tpu/kernels/edge_stage.py:58",
@@ -51,7 +56,30 @@ def emit(**kw):
 
 
 def cuda_ms(fn, n=50, warmup=3):
-    """Mean device time of fn() over n calls, from CUDA events."""
+    """Mean device time of fn() over n calls: the calls are captured into
+    one CUDA graph and replayed between two CUDA events, so the host's time
+    to issue them (the Python wrappers) is not counted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def eager_ms(fn, n=50, warmup=3):
+    """Mean time of fn() over n calls issued from Python, between two CUDA
+    events: the larger of the device's time and the host's time to issue
+    the calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -88,22 +116,31 @@ def phase_build():
     emit(phase="build", seconds=time.perf_counter() - t0, sources=log)
 
 
-def conv_cost(x_src, x_dst, nbr_mask, G, C):
-    """(flops, bytes) the conv needs on these inputs: the shift-decomposed
-    form, live edges only; each input read once, the output written once."""
+def node_proj_cost(x_src, x_dst, GC):
+    """(flops, bytes) of the four node projections: inputs and weights read
+    once, the [N, 2 GC] outputs written once."""
     (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
-    GC = G * C
-    live = float(nbr_mask.sum())
-    K = nbr_mask.shape[1]
-    flops = (2 * 2 * Ns * Fs * GC + 2 * 2 * Nd * Fd * GC
-             + live * GC * (2 * C + 26))
-    bytes_ = 4 * (Ns * Fs + Nd * Fd + 3 * Nd * K + 2 * (Fs + Fd) * GC
-                  + G * C * C + 6 * GC + Nd * GC)
+    flops = 2 * 2 * GC * (Ns * Fs + Nd * Fd)
+    bytes_ = 4 * (Ns * Fs + Nd * Fd + 2 * GC * (Fs + Fd) + 4 * GC
+                  + 2 * GC * (Ns + Nd))
     return flops, bytes_
 
 
-def bound(flops, bytes_):
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, bytes_ / PEAK_BYTES * 1e3
+def edge_attn_cost(x_src, x_dst, nbr_mask, G, C):
+    """(flops, bytes) of the edge kernel on these inputs: live edges only;
+    the projections, positions, tables and weights it needs read once, the
+    output written once."""
+    Ns, Nd, GC = x_src.shape[0], x_dst.shape[0], G * C
+    live = float(nbr_mask.sum())
+    K = nbr_mask.shape[1]
+    flops = live * GC * (2 * C + 26)
+    bytes_ = 4 * (3 * Ns + 3 * Nd + 3 * Nd * K + 2 * Ns * GC + 2 * Nd * GC
+                  + 6 * GC + G * C * C + 2 * GC + Nd * GC)
+    return flops, bytes_
+
+
+def bound(flops, bytes_, peak=PEAK_FP32):
+    t_ops, t_bytes = flops / peak * 1e3, bytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -126,9 +163,27 @@ def decoder_conv_inputs(reg, sample):
     }
 
 
+def close(name, out, ref):
+    """Max abs and relative error of out against ref; raises past
+    ATOL + RTOL |ref| or on a non-finite value."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{name}: non-finite output")
+    diff = (out - ref).abs()
+    if bool((diff > ATOL + RTOL * ref.abs()).any()):
+        raise RuntimeError(f"{name}: max abs err {diff.max().item()} over "
+                           f"atol {ATOL} rtol {RTOL}")
+    return (diff.max().item(),
+            (diff / ref.abs().clamp_min(1e-3)).max().item())
+
+
 def phase_edge_stage(reg, state):
+    """Per conv shape: the fused conv (both kernels, as the rollout calls
+    it) against its plain version, then each kernel alone against its own
+    plain version, timed beside it. Returns {(kernel, F_src, F_dst): row}."""
     sample, _ = dr.make_sample(state)
     G, C = cells.NUM_GATES, reg.hp.layer_size
+    GC = G * C
     kw = dict(num_gates=G, out_channels=C)
     rows = {}
     for name, (conv, xs, xd, nbr, ln, m) in decoder_conv_inputs(
@@ -136,44 +191,77 @@ def phase_edge_stage(reg, state):
         # the real masks, and a copy with every 7th row fully masked
         m_cut = m.clone()
         m_cut[::7] = 0.0
-        err = rel = 0.0
+        err = {"conv": 0.0, "node_proj": 0.0, "edge_attn": 0.0}
+        rel = dict(err)
         for mask in (m, m_cut):
             out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln,
                                                     mask, **kw)
             ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln,
                                                       mask, **kw)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out).all():
-                raise RuntimeError(f"edge stage {name}: non-finite output")
-            diff = (out - ref).abs()
-            tol = ATOL + RTOL * ref.abs()
-            if bool((diff > tol).any()):
-                raise RuntimeError(
-                    f"edge stage {name}: max abs err {diff.max().item()} "
-                    f"over atol {ATOL} rtol {RTOL}")
-            err = max(err, diff.max().item())
-            rel = max(rel, (diff / ref.abs().clamp_min(1e-3)).max().item())
-        ms = cuda_ms(lambda: edge_stage.apply_period_conv_cuda(
-            conv, xs, xd, nbr, ln, m, **kw))
-        plain_ms = cuda_ms(lambda: period_conv.apply_period_conv_plain(
-            conv, xs, xd, nbr, ln, m, **kw), n=20)
-        flops, bytes_ = conv_cost(xs, xd, m, G, C)
-        bound_ms, bound_by = bound(flops, bytes_)
-        K = nbr.shape[1]
-        rows[name] = dict(
-            name=f"edge_stage_{name}", route="cuda",
-            source="graingraphnn_torch/csrc/edge_stage.cu",
-            replaces=REPLACES[name], shape_key=(K, xs.shape[1], xd.shape[1]),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None,
+            e, r = close(f"edge stage {name}", out, ref)
+            err["conv"], rel["conv"] = max(err["conv"], e), max(rel["conv"], r)
+            proj_ref = period_conv.node_projections_plain(conv, xs, xd)
+            for k, (o, pr) in enumerate(zip(
+                    edge_stage.node_proj_cuda(conv, xs, xd), proj_ref)):
+                e, r = close(f"node_proj {name} output {k}", o, pr)
+                err["node_proj"] = max(err["node_proj"], e)
+                rel["node_proj"] = max(rel["node_proj"], r)
+            out = edge_stage.edge_attn_cuda(conv, xs, xd, nbr, ln, mask,
+                                            proj_ref, **kw)
+            ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask,
+                                              proj_ref, **kw)
+            e, r = close(f"edge_attn {name}", out, ref)
+            err["edge_attn"] = max(err["edge_attn"], e)
+            rel["edge_attn"] = max(rel["edge_attn"], r)
+        proj = period_conv.node_projections_plain(conv, xs, xd)
+        w_src = torch.cat([conv.key.w, conv.value.w], 1)
+        b_src = torch.cat([conv.key.b, conv.value.b])
+        w_dst = torch.cat([conv.query.w, conv.skip.w], 1)
+        b_dst = torch.cat([conv.query.b, conv.skip.b])
+        t = {
+            "conv": cuda_ms(lambda: edge_stage.apply_period_conv_cuda(
+                conv, xs, xd, nbr, ln, m, **kw)),
+            "conv_eager": eager_ms(lambda: edge_stage.apply_period_conv_cuda(
+                conv, xs, xd, nbr, ln, m, **kw)),
+            "node_proj": cuda_ms(lambda: edge_stage.node_proj_cuda(
+                conv, xs, xd)),
+            "node_proj_plain": cuda_ms(
+                lambda: period_conv.node_projections_plain(conv, xs, xd)),
+            "node_proj_library": cuda_ms(lambda: (
+                torch.addmm(b_src, xs, w_src), torch.addmm(b_dst, xd, w_dst))),
+            "edge_attn": cuda_ms(lambda: edge_stage.edge_attn_cuda(
+                conv, xs, xd, nbr, ln, m, proj, **kw)),
+            "edge_attn_plain": cuda_ms(lambda: period_conv.edge_attn_plain(
+                conv, xs, xd, nbr, ln, m, proj, **kw), n=20),
+        }
+        K, Fs, Fd = nbr.shape[1], xs.shape[1], xd.shape[1]
+        np_flops, np_bytes = node_proj_cost(xs, xd, GC)
+        np_bound, np_by = bound(np_flops, np_bytes, PEAK_TF32X3)
+        ea_flops, ea_bytes = edge_attn_cost(xs, xd, m, G, C)
+        ea_bound, ea_by = bound(ea_flops, ea_bytes)
+        src = "graingraphnn_torch/csrc/edge_stage.cu"
+        rows[("node_proj", Fs, Fd)] = dict(
+            name=f"node_proj_{name}", route="cuda", source=src,
+            replaces=REPLACES[name], max_abs_err=err["node_proj"],
+            ms=t["node_proj"], plain_ms=t["node_proj_plain"],
+            bound_ms=np_bound, bound_by=np_by,
+            library_ms=t["node_proj_library"],
+            bound_fp32_ms=np_flops / PEAK_FP32 * 1e3,
+            check=f"pass: atol {ATOL} rtol {RTOL}")
+        rows[("edge_attn", Fs, Fd)] = dict(
+            name=f"edge_attn_{name}", route="cuda", source=src,
+            replaces=REPLACES[name], max_abs_err=err["edge_attn"],
+            ms=t["edge_attn"], plain_ms=t["edge_attn_plain"],
+            bound_ms=ea_bound, bound_by=ea_by, library_ms=None,
             check=f"pass: atol {ATOL} rtol {RTOL}, also fully masked rows")
         emit(phase="edge_stage", conv=name, K=K, Ns=xs.shape[0],
-             Nd=xd.shape[0], F_src=xs.shape[1], F_dst=xd.shape[1],
-             live_edges=float(m.sum()), max_abs_err=err,
-             max_rel_err=rel, atol=ATOL, rtol=RTOL,
-             ms=ms, plain_ms=plain_ms, gflop=flops / 1e9, mbytes=bytes_ / 1e6,
-             bound_ms=bound_ms, bound_by=bound_by,
-             achieved_tflops=flops / ms / 1e9)
+             Nd=xd.shape[0], F_src=Fs, F_dst=Fd, live_edges=float(m.sum()),
+             max_abs_err=err, max_rel_err=rel, atol=ATOL, rtol=RTOL,
+             ms=t, node_proj_gflop=np_flops / 1e9,
+             node_proj_mbytes=np_bytes / 1e6, node_proj_bound_ms=np_bound,
+             node_proj_tflops=np_flops / t["node_proj"] / 1e9,
+             edge_attn_gflop=ea_flops / 1e9, edge_attn_bound_ms=ea_bound,
+             edge_attn_tflops=ea_flops / t["edge_attn"] / 1e9)
     return rows
 
 
@@ -211,6 +299,27 @@ def forced_editor_inputs(tstate, seed, n_switch, n_elim):
     return (tstate, torch.tensor(logits, device=dev),
             torch.tensor(ge, device=dev),
             torch.tensor(y_grain, dtype=torch.float32, device=dev))
+
+
+def clustered_switch_inputs(tstate, grains=range(0, 60, 7)):
+    """Switches on every u<v jj edge touching the rings of a few grains, so
+    later events share joints with earlier ones and the lookahead decides
+    how each switch reconnects."""
+    E, Q = tstate.E_pp.cpu(), tstate.E_pq.cpu()
+    logits = torch.full((E.shape[1],), -50.0)
+    logits[E[0] < 0] = dr.NEG
+    p = 12.0
+    for g in grains:
+        ring = Q[0][Q[1] == g]
+        hit = ((E[0] >= 0) & (E[0] < E[1]) & (logits < 0)
+               & (torch.isin(E[0], ring) | torch.isin(E[1], ring)))
+        cols = torch.nonzero(hit).flatten()
+        logits[cols] = p - 0.1 * torch.arange(len(cols), dtype=torch.float32)
+        p -= 0.1 * len(cols)
+    dev, NG = tstate.E_pp.device, tstate.mask_g.shape[0]
+    return (tstate, logits.to(dev),
+            torch.full((tj.MAX_ELIM,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((NG, 2), device=dev))
 
 
 def _to(ts, dev):
@@ -275,12 +384,13 @@ def forced_out_chain(tstate, max_grains=40):
     return []
 
 
-def check_editor_case(ts, logits, ge, yg, thr, NG):
+def check_editor_case(ts, logits, ge, yg, thr, NG, force_global=False):
     """The editor kernel against its plain version on CPU copies of the same
     inputs and the same probabilities: integer outputs bit-equal, floats
     within EDITOR_ATOL. Returns (plain outputs, float max abs err)."""
     prob = torch.sigmoid(logits)          # one tensor for both versions
-    s_k, sw_k, ex_k = editor_fused.update_from_prob(ts, prob, ge, yg, thr, NG)
+    s_k, sw_k, ex_k = editor_fused.update_from_prob(
+        ts, prob, ge, yg, thr, NG, force_global=force_global)
     torch.cuda.synchronize()
     s_p, sw_p, ex_p = editor_fused.update_from_prob(
         _to(ts, "cpu"), prob.cpu(), ge.cpu(), yg.cpu(), thr, NG)
@@ -299,12 +409,24 @@ def check_editor_case(ts, logits, ge, yg, thr, NG):
     return (s_p, sw_p, ex_p), err
 
 
+def editor_ms(args, NG, force_global=False, n=20):
+    """Device time of one editor launch on args = (state, logits, ge,
+    y_grain, threshold), from CUDA events."""
+    ts, logits, ge, yg, thr = args
+    prob = torch.sigmoid(logits)
+    return cuda_ms(lambda: editor_fused.update_from_prob(
+        ts, prob, ge, yg, thr, NG, force_global=force_global), n=n)
+
+
 def phase_editor(reg, cls, state):
+    """Both instantiations against the plain version on every case, and
+    their device times on the first span's inputs."""
     dev = state.E_pp.device
     first = editor_inputs(reg, cls, state)
     cases = [("span1", first, C_THRESHOLD),
              ("forced_a", forced_editor_inputs(first[0], 0, 8, 2), 0.6),
-             ("forced_b", forced_editor_inputs(first[0], 1, 24, 4), 0.6)]
+             ("forced_b", forced_editor_inputs(first[0], 1, 24, 4), 0.6),
+             ("clustered", clustered_switch_inputs(first[0]), 0.6)]
     chain = forced_out_chain(first[0])
     if not chain:
         raise RuntimeError("editor: no forced-elimination chain found")
@@ -312,83 +434,129 @@ def phase_editor(reg, cls, state):
         a.to(dev) if isinstance(a, torch.Tensor) else _to(a, dev)
         for a in args), 0.6) for i, args in enumerate(chain)]
     NG = state.xg.shape[0]
+    ts = first[0]
+    nbytes = editor_fused.staged_bytes(ts.E_pp.shape[1], ts.E_pq.shape[1],
+                                       ts.xj.shape[0], NG)
+    if nbytes > editor_fused.STAGED_MAX_BYTES:
+        raise RuntimeError(f"editor: the 120 um state takes {nbytes} bytes, "
+                           "over the staged limit")
     err = 0.0
     for name, (ts, logits, ge, yg), thr in cases:
-        (s_p, sw_p, ex_p), e = check_editor_case(ts, logits, ge, yg, thr, NG)
-        err = max(err, e)
-        emit(phase="editor", case=name, ints_equal=True, max_abs_err=e,
+        for force_global in (False, True):
+            (s_p, sw_p, ex_p), e = check_editor_case(ts, logits, ge, yg, thr,
+                                                     NG, force_global)
+            err = max(err, e)
+        emit(phase="editor", case=name, instantiations=["staged", "global"],
+             ints_equal=True, max_abs_err=e,
              switches=int((sw_p[:, 0] >= 0).sum()),
              grains_deleted=int((ts.mask_g.cpu() != s_p.mask_g).sum()),
              extra=int((ex_p >= 0).sum()))
     if not int((ex_p >= 0).sum()):
         raise RuntimeError("editor: the forced elimination did not happen")
+    args = (*first, C_THRESHOLD)
+    ms = editor_ms(args, NG)
+    ms_global = editor_ms(args, NG, force_global=True)
     ts, logits, ge, yg = first
-    ms = cuda_ms(lambda: editor_fused.update_fused(ts, logits, ge, yg,
-                                                   C_THRESHOLD, NG), n=20)
-    ts_cpu = _to(ts, "cpu")
     t0 = time.perf_counter()
-    editor_fused.update_fused(ts_cpu, logits.cpu(), ge.cpu(), yg.cpu(),
-                              C_THRESHOLD, NG)
+    editor_fused.update_fused(_to(ts, "cpu"), logits.cpu(), ge.cpu(),
+                              yg.cpu(), C_THRESHOLD, NG)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    # state read once and written once; the work is a dependent chain
-    state_bytes = 4 * (2 * ts.E_pp.numel() + 2 * ts.E_pq.numel()
-                       + 2 * ts.xj.numel() + 2 * ts.y_joint.numel()
-                       + 2 * ts.mask_g.numel() + 2 * ts.mask_j.numel()
-                       + logits.numel() + yg.shape[0] + ge.numel())
-    bound_ms, bound_by = bound(0.0, state_bytes)
-    emit(phase="editor_time", ms=ms, plain_cpu_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by)
+    emit(phase="editor_time", first_span_ms=ms, first_span_ms_global=ms_global,
+         plain_cpu_ms=plain_ms, staged_bytes=nbytes)
     return dict(name="editor", route="cuda",
                 source="graingraphnn_torch/csrc/editor.cu",
-                replaces=REPLACES["editor"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None,
+                replaces=REPLACES["editor"], max_abs_err=err,
+                ms_first_span=ms, ms_first_span_global=ms_global,
+                plain_ms_first_span=plain_ms, library_ms=None,
+                staged_bytes=nbytes,
                 check=f"pass: integers bit-equal, floats atol {EDITOR_ATOL}, "
-                      f"{len(cases)} cases")
+                      f"{len(cases)} cases x 2 instantiations")
+
+
+def editor_bound(args):
+    """The editor's state read once and written once; the work is a
+    dependent chain, so this bound is far below its time."""
+    ts, logits, ge, yg, _thr = args
+    nbytes = 4 * (2 * ts.E_pp.numel() + 2 * ts.E_pq.numel()
+                  + 2 * ts.xj.numel() + 2 * ts.y_joint.numel()
+                  + 2 * ts.mask_g.numel() + 2 * ts.mask_j.numel()
+                  + logits.numel() + yg.shape[0] + ge.numel())
+    return bound(0.0, nbytes)
 
 
 def phase_rollout(reg, cls, state, n_spans):
+    """The counted main-path run: every launch count set to 0 just before,
+    read just after. The editor's inputs of each span are kept (copied on
+    the card as they pass) and each is timed after the run."""
     run = dr.make_rollout(reg, cls, n_steps=n_spans, c_threshold=C_THRESHOLD)
-    run(state)                                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    edge_stage.launches = 0
-    edge_stage.shape_launches.clear()
-    editor_fused.launches = 0
-    t0 = time.perf_counter()
-    final, aux = run(state)                      # the counted main-path run
+    run(state)                    # warm-up, the same run: its peak memory
     torch.cuda.synchronize()
-    dts = [time.perf_counter() - t0]
-    launches = {"edge_stage": edge_stage.launches,
-                "edge_stage_by_shape": dict(edge_stage.shape_launches),
-                "editor": editor_fused.launches}
     peak = torch.cuda.max_memory_allocated()
-    for _ in range(3):
+    spans = []
+    update_fused = editor_fused.update_fused
+
+    def keep(ts, logits, ge, yg, thr, NG, **kw):
+        spans.append((tj.TopoState(**{k: v.clone() for k, v in
+                                      vars(ts).items()}),
+                      logits.clone(), ge.clone(), yg.clone(), thr))
+        return update_fused(ts, logits, ge, yg, thr, NG, **kw)
+
+    edge_stage.reset_counts()
+    editor_fused.reset_counts()
+    editor_fused.update_fused = keep
+    try:
+        final, aux = run(state)                  # the counted main-path run
+        torch.cuda.synchronize()
+    finally:
+        editor_fused.update_fused = update_fused
+    launches = {"node_proj": edge_stage.launches["node_proj"],
+                "edge_attn": edge_stage.launches["edge_attn"],
+                "by_shape": dict(edge_stage.shape_launches),
+                "editor_staged": editor_fused.launches["staged"],
+                "editor_global": editor_fused.launches["global"]}
+    dts = []
+    for _ in range(4):
         t0 = time.perf_counter()
         run(state)
         torch.cuda.synchronize()
         dts.append(time.perf_counter() - t0)
-    if launches["edge_stage"] != 12 * n_spans or launches["editor"] != n_spans:
+    want = {"node_proj": 12 * n_spans, "edge_attn": 12 * n_spans,
+            "editor_staged": n_spans, "editor_global": 0}
+    if any(launches[k] != v for k, v in want.items()):
         raise RuntimeError(f"launch counts {launches} for {n_spans} spans")
     for name, t in vars(final).items():
         if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"rollout: non-finite {name}")
+    NG = state.xg.shape[0]
+    span_ms = [editor_ms(a, NG, n=5) for a in spans]
+    span_ms_global = [editor_ms(a, NG, force_global=True, n=5) for a in spans]
+    plain_ms = []
+    for ts, logits, ge, yg, thr in spans:
+        args = (_to(ts, "cpu"), logits.cpu(), ge.cpu(), yg.cpu(), thr, NG)
+        t0 = time.perf_counter()
+        update_fused(*args)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    editor = dict(ms=sum(span_ms) / len(span_ms),
+                  ms_global=sum(span_ms_global) / len(span_ms_global),
+                  plain_ms=sum(plain_ms) / len(plain_ms),
+                  bound=editor_bound(spans[0]))
     edges = float(aux["message_edges"].sum())
     dt = min(dts)
     emit(phase="rollout", spans=n_spans, edges=edges, seconds=dts,
          edges_per_s=edges / dt, ms_per_span=dt / n_spans * 1e3,
          peak_mem_bytes=peak, launches={
-             "edge_stage": launches["edge_stage"],
-             "edge_stage_by_shape": {str(k): v for k, v in
-                                     launches["edge_stage_by_shape"].items()},
-             "editor": launches["editor"]},
+             k: ({str(kk): vv for kk, vv in v.items()} if k == "by_shape"
+                 else v) for k, v in launches.items()},
+         editor_span_ms=span_ms, editor_span_ms_global=span_ms_global,
          ring_overflow=int(aux["ring_overflow"].sum()),
          pp_overflow=int(aux["pp_overflow"].sum()),
          elim_saturated=int(aux["elim_saturated"].sum()),
          switches=int((aux["switching"][..., 0] >= 0).sum()),
          grain_events=int((aux["grain_events"] >= 0).sum()),
          live_grains=int(final.mask_g.sum()), live_joints=int(final.mask_j.sum()))
-    return launches
+    return launches, editor
 
 
 def phase_profile(reg, cls, state, n_spans, top=14):
@@ -461,24 +629,28 @@ def main():
 
     conv_rows = phase_edge_stage(reg, state)
     editor_row = phase_editor(reg, cls, state)
-    launches = phase_rollout(reg, cls, state, N_SPANS)
+    launches, editor = phase_rollout(reg, cls, state, N_SPANS)
     if args.profile:
         phase_profile(reg, cls, state, N_SPANS)
     reg_cpu, _, _ = checkpoint.load_model("artifacts/40um/regressor0", "cpu")
     cls_cpu, _, _ = checkpoint.load_model("artifacts/40um/classifier1", "cpu")
     phase_reference(reg, cls, state, reg_cpu, cls_cpu)
 
-    kernels = []
-    for row in conv_rows.values():
-        row = dict(row)
-        row["launches"] = launches["edge_stage_by_shape"].get(
-            row.pop("shape_key"), 0)
-        kernels.append(row)
-    kernels.append(dict(editor_row, launches=launches["editor"]))
+    kernels = [dict(row, launches=launches["by_shape"].get(key, 0))
+               for key, row in conv_rows.items()]
+    bound_ms, bound_by = editor["bound"]
+    kernels.append(dict(
+        editor_row, ms=editor["ms"], ms_global=editor["ms_global"],
+        plain_ms=editor["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+        launches=launches["editor_staged"] + launches["editor_global"],
+        launches_staged=launches["editor_staged"],
+        launches_global=launches["editor_global"]))
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):
                 raise RuntimeError(f"{k['name']}: {key} = {k[key]}")
+        if k["launches"] < 1:
+            raise RuntimeError(f"{k['name']}: not launched on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)
 

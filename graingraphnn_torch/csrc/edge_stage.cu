@@ -13,23 +13,35 @@
 //
 // Design: the shift decomposition. x_j' Wk = x_j Wk + (shift - x_i[:3]) Wk[:3]
 // with shift in {-1, 0, 1}^3, so the F-wide projections run once per NODE
-// (node_proj2: K, V over sources, Q, skip over destinations) and the edge
-// kernel (edge_attn) gathers projected rows and adds a rank-3 correction.
-// One block per tile of destination rows, one thread per output column;
-// the per-gate logit sums and the softmax over K go through shared memory
-// in a fixed order; the block-diagonal l2 product keeps one accumulator per
-// edge of the tile in registers and reads each Wl2 element once per tile.
-// Masked slots are skipped in the l2 product (their alpha is exactly 0).
+// and the edge kernel (edge_attn) gathers projected rows and adds a rank-3
+// correction. Two kernels per conv:
 //
-// Bound on this card: operations. In fp32 without tensor cores the l2
-// product (2 * G*C * C per live edge) and the node projections
-// (2 * F * G*C per node and projection) dominate; the bytes moved (node
-// features, ELL tables, weights, output) are a few MB per call. The
-// design removes the per-edge F-wide projections the TPU kernel recomputes
-// (about 7x fewer operations at these widths); the inner loops are bound by
-// shared-memory reads, which a later tensor-core version removes.
+// node_proj: the four node projections (K, V over sources, Q, skip over
+//   destinations) as ONE grouped launch; the block index picks the product
+//   and its 64 x 128 output tile. Bound: bytes (the [N, 2 GC] outputs) at
+//   the tensor cores' rate. The tile's x rows and W columns over the whole
+//   depth (F zero-padded to a multiple of 8) come into shared memory by
+//   cp.async, with row strides that make every fragment load
+//   conflict-free; 4 warps each take a 32 x 64 sub-tile on mma.sync
+//   m16n8k8 in 3xTF32 (csrc/mma_tf32.cuh): each operand is split into
+//   hi + lo TF32 parts at the fragment load, and lo*hi + hi*lo + hi*hi go
+//   into fp32 accumulators, which keeps near-fp32 error. The tile goes out
+//   through shared memory in rows of 16-byte stores. ~101 KB of shared
+//   memory per block leaves two blocks per SM, whose loads and products
+//   overlap.
+//
+// edge_attn: one block per tile of destination rows, one thread per output
+//   column; the per-gate logit sums and the softmax over K go through
+//   shared memory in a fixed order; the block-diagonal l2 product keeps one
+//   accumulator per edge of the tile in registers and reads each Wl2
+//   element once per tile. Masked slots are skipped in the l2 product
+//   (their alpha is exactly 0). Bound: operations (2 * G*C * C per live
+//   edge for l2); the inner loops are bound by shared-memory reads.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -38,44 +50,141 @@ constexpr int MAX_GC = 512;     // G * C output columns
 constexpr int MAX_G = 8;
 constexpr int MAX_K = 16;       // neighbor slots per row
 constexpr int EDGES = 16;       // edge slots per edge_attn block
-constexpr int PROJ_ROWS = 16;   // node rows per node_proj2 block
-constexpr int PROJ_THREADS = 128;
 constexpr float NEG = -1e30f;
 
-// y1 = x W1 + b1 and y2 = x W2 + b2 for one tile of rows; W [F, GC].
-__global__ void __launch_bounds__(PROJ_THREADS) node_proj2(
-    const float* __restrict__ x, int N, int F,
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ w2, const float* __restrict__ b2, int GC,
-    float* __restrict__ y1, float* __restrict__ y2) {
-  __shared__ float xs[PROJ_ROWS][MAX_F];
-  const int row0 = blockIdx.x * PROJ_ROWS;
-  const int nrows = min(PROJ_ROWS, N - row0);
-  for (int t = threadIdx.x; t < PROJ_ROWS * F; t += blockDim.x) {
-    const int r = t / F, f = t % F;
-    xs[r][f] = r < nrows ? x[(size_t)(row0 + r) * F + f] : 0.f;
-  }
-  __syncthreads();
-  for (int col = threadIdx.x; col < GC; col += blockDim.x) {
-    float a1[PROJ_ROWS], a2[PROJ_ROWS];
-#pragma unroll
-    for (int r = 0; r < PROJ_ROWS; ++r) a1[r] = a2[r] = 0.f;
-    for (int f = 0; f < F; ++f) {
-      const float u = w1[(size_t)f * GC + col];
-      const float v = w2[(size_t)f * GC + col];
-#pragma unroll
-      for (int r = 0; r < PROJ_ROWS; ++r) {
-        a1[r] += xs[r][f] * u;
-        a2[r] += xs[r][f] * v;
+// node_proj tiling
+constexpr int NP_BM = 64;                 // rows of a block tile
+constexpr int NP_BN = 128;                // columns of a block tile
+constexpr int NP_THREADS = 128;           // 4 warps in 2 x 2, each a quarter tile
+constexpr int NP_MI = NP_BM / 2 / 16;     // m16 products per warp
+constexpr int NP_NI = NP_BN / 2 / 8;      // n8 products per warp
+constexpr int NP_XS = MAX_F + 4;          // x row stride: fragment rows 4 banks apart
+constexpr int NP_WS = NP_BN + 8;          // W row stride: fragment k rows 8 banks apart
+constexpr int NP_SMEM = (NP_BM * NP_XS + MAX_F * NP_WS) * (int)sizeof(float);
+constexpr int NP_BLOCKS = 232448 / (NP_SMEM + 1024);   // blocks an SM holds
+static_assert(NP_BN <= NP_XS && NP_BLOCKS >= 1, "node_proj tiles");
+
+struct Proj {                             // y [N, GC] = x [N, F] w [F, GC] + b
+  const float* x; const float* w; const float* b; float* y; int N, F;
+};
+struct ProjSet {
+  Proj p[4];
+  int tiles[4];                           // block tiles of each product
+  int GC;
+};
+
+// One NP_BM x NP_BN tile of one of the grouped products, in 3xTF32.
+__global__ void __launch_bounds__(NP_THREADS, NP_BLOCKS) node_proj(ProjSet P) {
+  extern __shared__ __align__(16) float np_smem[];
+  float* xs = np_smem;                    // [NP_BM][NP_XS]
+  float* ws = np_smem + NP_BM * NP_XS;    // [MAX_F][NP_WS]
+  int t = blockIdx.x, pi = 0;
+  while (pi < 3 && t >= P.tiles[pi]) t -= P.tiles[pi++];
+  const Proj pr = P.p[pi];
+  const int GC = P.GC, F = pr.F, Fp = (F + 7) & ~7;
+  const int ncol = (GC + NP_BN - 1) / NP_BN;
+  const int row0 = (t / ncol) * NP_BM, col0 = (t % ncol) * NP_BN;
+  const int nrows = min(NP_BM, pr.N - row0), ncols = min(NP_BN, GC - col0);
+
+  // x rows [row0, row0 + NP_BM) and W columns [col0, col0 + NP_BN) over the
+  // depth Fp, zero-padded; 16-byte copies where the rows allow them
+  const bool xvec = F % 4 == 0 && (reinterpret_cast<uintptr_t>(pr.x) & 15) == 0;
+  const bool wvec = GC % 4 == 0 && (reinterpret_cast<uintptr_t>(pr.w) & 15) == 0;
+  for (int i = threadIdx.x; i < NP_BM * (Fp / 4); i += NP_THREADS) {
+    const int r = i / (Fp / 4), f = (i % (Fp / 4)) * 4;
+    float* dst = xs + r * NP_XS + f;
+    const float* src = pr.x + (size_t)(row0 + r) * F + f;
+    if (xvec && r < nrows && f < F) {
+      cp_async16(dst, src);
+    } else {
+      for (int u = 0; u < 4; ++u) {
+        if (r < nrows && f + u < F) cp_async4(dst + u, src + u);
+        else dst[u] = 0.f;
       }
     }
-    const float c1 = b1[col], c2 = b2[col];
-#pragma unroll
-    for (int r = 0; r < PROJ_ROWS; ++r) {
-      if (r < nrows) {
-        y1[(size_t)(row0 + r) * GC + col] = a1[r] + c1;
-        y2[(size_t)(row0 + r) * GC + col] = a2[r] + c2;
+  }
+  for (int i = threadIdx.x; i < Fp * (NP_BN / 4); i += NP_THREADS) {
+    const int f = i / (NP_BN / 4), c = (i % (NP_BN / 4)) * 4;
+    float* dst = ws + f * NP_WS + c;
+    const float* src = pr.w + (size_t)f * GC + col0 + c;
+    if (wvec && f < F && c + 4 <= ncols) {
+      cp_async16(dst, src);
+    } else {
+      for (int u = 0; u < 4; ++u) {
+        if (f < F && c + u < ncols) cp_async4(dst + u, src + u);
+        else dst[u] = 0.f;
       }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = (warp >> 1) * (NP_BM / 2), wc = (warp & 1) * (NP_BN / 2);
+  const bool idle = wr >= nrows || wc >= ncols;   // sub-tile all padding
+  float acc[NP_MI][NP_NI][4];
+#pragma unroll
+  for (int mi = 0; mi < NP_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NP_NI; ++ni)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[mi][ni][u] = 0.f;
+
+  for (int k0 = 0; k0 < Fp && !idle; k0 += 8) {
+    uint32_t ah[NP_MI][4], al[NP_MI][4];
+#pragma unroll
+    for (int mi = 0; mi < NP_MI; ++mi) {
+      const float* xa = xs + (wr + mi * 16 + g) * NP_XS + k0 + tq;
+      split_tf32(xa[0], ah[mi][0], al[mi][0]);
+      split_tf32(xa[8 * NP_XS], ah[mi][1], al[mi][1]);
+      split_tf32(xa[4], ah[mi][2], al[mi][2]);
+      split_tf32(xa[8 * NP_XS + 4], ah[mi][3], al[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NP_NI; ++ni) {
+      const float* wb = ws + (k0 + tq) * NP_WS + wc + ni * 8 + g;
+      uint32_t bh[2], bl[2];
+      split_tf32(wb[0], bh[0], bl[0]);
+      split_tf32(wb[4 * NP_WS], bh[1], bl[1]);
+#pragma unroll
+      for (int mi = 0; mi < NP_MI; ++mi) {
+        mma_tf32(acc[mi][ni], al[mi], bh);
+        mma_tf32(acc[mi][ni], ah[mi], bl);
+        mma_tf32(acc[mi][ni], ah[mi], bh);
+      }
+    }
+  }
+
+  // epilogue: the tile through shared memory (in place of x), then its
+  // rows out with the bias, 16 bytes a thread where aligned
+  __syncthreads();
+  float* os = xs;
+  if (!idle) {
+#pragma unroll
+    for (int mi = 0; mi < NP_MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NP_NI; ++ni)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          os[(wr + mi * 16 + g + (u >> 1) * 8) * NP_XS + wc + ni * 8 + 2 * tq + (u & 1)] =
+              acc[mi][ni][u];
+  }
+  __syncthreads();
+  const bool yvec = GC % 4 == 0 && ((reinterpret_cast<uintptr_t>(pr.y) |
+                                     reinterpret_cast<uintptr_t>(pr.b)) & 15) == 0;
+  for (int i = threadIdx.x; i < NP_BM * (NP_BN / 4); i += NP_THREADS) {
+    const int r = i / (NP_BN / 4), c = (i % (NP_BN / 4)) * 4;
+    if (r >= nrows || c >= ncols) continue;
+    const float* o = os + r * NP_XS + c;
+    const float* b = pr.b + col0 + c;
+    float* y = pr.y + (size_t)(row0 + r) * GC + col0 + c;
+    if (yvec && c + 4 <= ncols) {
+      const float4 bb = *reinterpret_cast<const float4*>(b);
+      *reinterpret_cast<float4*>(y) =
+          make_float4(o[0] + bb.x, o[1] + bb.y, o[2] + bb.z, o[3] + bb.w);
+    } else {
+      for (int u = 0; u < 4 && c + u < ncols; ++u) y[u] = o[u] + b[u];
     }
   }
 }
@@ -213,6 +322,52 @@ __global__ void __launch_bounds__(MAX_GC) edge_attn(
   }
 }
 
+int launch_node_proj(const float* x_src, int Ns, int Fs, const float* x_dst,
+                     int Nd, int Fd, const float* wq, const float* bq,
+                     const float* wk, const float* bk, const float* wv,
+                     const float* bv, const float* wsk, const float* bsk,
+                     int GC, float* kn, float* vn, float* q, float* sk,
+                     cudaStream_t s) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        node_proj, cudaFuncAttributeMaxDynamicSharedMemorySize, NP_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  ProjSet P{{{x_src, wk, bk, kn, Ns, Fs}, {x_src, wv, bv, vn, Ns, Fs},
+             {x_dst, wq, bq, q, Nd, Fd}, {x_dst, wsk, bsk, sk, Nd, Fd}},
+            {0, 0, 0, 0}, GC};
+  const int ncol = (GC + NP_BN - 1) / NP_BN;
+  int total = 0;
+  for (int i = 0; i < 4; ++i) {
+    P.tiles[i] = (P.p[i].N + NP_BM - 1) / NP_BM * ncol;
+    total += P.tiles[i];
+  }
+  if (total > 0) node_proj<<<total, NP_THREADS, NP_SMEM, s>>>(P);
+  return 0;
+}
+
+void launch_edge_attn(const float* x_src, int Ns, int Fs, const float* x_dst,
+                      int Nd, int Fd, const int* nbr, const float* elen,
+                      const float* nmask, int K, const float* kn,
+                      const float* vn, const float* q, const float* sk,
+                      const float* wk, const float* wv, const float* wl2,
+                      const float* bl2, const float* we, int G, int C,
+                      float* out, cudaStream_t s) {
+  if (Nd <= 0) return;
+  const int rows = EDGES / K;
+  const int threads = (G * C + 31) / 32 * 32;
+  edge_attn<<<(Nd + rows - 1) / rows, threads, 0, s>>>(
+      x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, rows, kn, vn, q, sk,
+      wk, wv, wl2, bl2, we, G, C, out);
+}
+
+bool takes(int Fs, int Fd, int G, int C, int K) {
+  return Fs <= MAX_F && Fd <= MAX_F && Fs >= 3 && Fd >= 3 &&
+         G * C <= MAX_GC && G <= MAX_G && K >= 1 && K <= MAX_K;
+}
+
 }  // namespace
 
 extern "C" {
@@ -221,9 +376,10 @@ const char* ggnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Fused conv forward. kn/vn [Ns, GC] and q/sk [Nd, GC] are scratch the
-// caller allocates; out [Nd, GC]. Weights in the JAX package's layout:
-// w [F, GC], b [GC], wl2 [G, C, C], bl2 [G, C], we [GC].
+// Fused conv forward: node_proj then edge_attn, two launches. kn/vn
+// [Ns, GC] and q/sk [Nd, GC] are scratch the caller allocates; out
+// [Nd, GC]. Weights in the JAX package's layout: w [F, GC], b [GC],
+// wl2 [G, C, C], bl2 [G, C], we [GC].
 int edge_stage_forward(
     const float* x_src, int Ns, int Fs, const float* x_dst, int Nd, int Fd,
     const int* nbr, const float* elen, const float* nmask, int K,
@@ -231,24 +387,45 @@ int edge_stage_forward(
     const float* wv, const float* bv, const float* wsk, const float* bsk,
     const float* wl2, const float* bl2, const float* we, int G, int C,
     float* kn, float* vn, float* q, float* sk, float* out, void* stream) {
-  const int GC = G * C;
-  if (Fs > MAX_F || Fd > MAX_F || Fs < 3 || Fd < 3 || GC > MAX_GC ||
-      G > MAX_G || K < 1 || K > MAX_K)
-    return cudaErrorInvalidValue;
+  if (!takes(Fs, Fd, G, C, K)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();   // clear any stale error
-  if (Ns > 0)
-    node_proj2<<<(Ns + PROJ_ROWS - 1) / PROJ_ROWS, PROJ_THREADS, 0, s>>>(
-        x_src, Ns, Fs, wk, bk, wv, bv, GC, kn, vn);
-  if (Nd > 0) {
-    node_proj2<<<(Nd + PROJ_ROWS - 1) / PROJ_ROWS, PROJ_THREADS, 0, s>>>(
-        x_dst, Nd, Fd, wq, bq, wsk, bsk, GC, q, sk);
-    const int rows = EDGES / K;
-    const int threads = (GC + 31) / 32 * 32;
-    edge_attn<<<(Nd + rows - 1) / rows, threads, 0, s>>>(
-        x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, rows, kn, vn, q,
-        sk, wk, wv, wl2, bl2, we, G, C, out);
-  }
+  const int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wq, bq, wk,
+                                   bk, wv, bv, wsk, bsk, G * C, kn, vn, q, sk, s);
+  if (err) return err;
+  launch_edge_attn(x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn, vn,
+                   q, sk, wk, wv, wl2, bl2, we, G, C, out, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The node projections alone (one node_proj launch): kn = x_src wk + bk,
+// vn = x_src wv + bv, q = x_dst wq + bq, sk = x_dst wsk + bsk.
+int edge_node_proj(
+    const float* x_src, int Ns, int Fs, const float* x_dst, int Nd, int Fd,
+    const float* wq, const float* bq, const float* wk, const float* bk,
+    const float* wv, const float* bv, const float* wsk, const float* bsk,
+    int GC, float* kn, float* vn, float* q, float* sk, void* stream) {
+  if (!takes(Fs, Fd, 1, GC, 1)) return cudaErrorInvalidValue;
+  cudaGetLastError();
+  const int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wq, bq, wk,
+                                   bk, wv, bv, wsk, bsk, GC, kn, vn, q, sk,
+                                   static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The edge kernel alone (one edge_attn launch) on given projections.
+int edge_attn_forward(
+    const float* x_src, int Ns, int Fs, const float* x_dst, int Nd, int Fd,
+    const int* nbr, const float* elen, const float* nmask, int K,
+    const float* kn, const float* vn, const float* q, const float* sk,
+    const float* wk, const float* wv, const float* wl2, const float* bl2,
+    const float* we, int G, int C, float* out, void* stream) {
+  if (!takes(Fs, Fd, G, C, K)) return cudaErrorInvalidValue;
+  cudaGetLastError();
+  launch_edge_attn(x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn, vn,
+                   q, sk, wk, wv, wl2, bl2, we, G, C, out,
+                   static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

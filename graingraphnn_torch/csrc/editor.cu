@@ -10,24 +10,42 @@
 // cleanup); drop collapsed edges from the switch list; run the switches;
 // finish with a two-sided cleanup.
 //
-// Bound on this card: latency. The edit is a chain of dependent steps,
-// each a few scalar decisions fed by a scan over E_pp (~6.4k columns at
-// 120 um) or E_pq (~6.3k). The operations and bytes are tiny (the whole
-// state is ~200 KB); the time is the chain's length times the latency of
-// one step. Design: ONE block of EDITOR_THREADS threads with the state in
-// device memory (L1/L2-resident after first touch). Every thread runs the
-// same control flow on the same scalar values; each scan (first-k search,
-// count, arg-max, masked rewrite) is spread over the block with a
-// chunked prefix sum and __syncthreads(); single-element writes are made
-// by thread 0 followed by a barrier. No other block runs, so nothing is
-// ever launched per event. Staging the state in shared memory is left for
-// a later version.
+// Bound on this card: latency and instruction issue. The edit is a chain
+// of dependent steps, each a few scalar decisions fed by a scan over E_pp
+// (~6.4k columns at 120 um) or E_pq (~6.3k). The operations and bytes are
+// tiny (the state is ~120 KB); the time is the chain's length times the
+// cost of one step: its scans' reads and instructions, spread over the
+// block, plus its barriers. Design: ONE block of EDITOR_THREADS threads
+// (512 measured fastest; 256 and 1024 slower). Every thread runs the same
+// control flow on the same scalar values; each scan (first-k search,
+// count, rewrite) is spread over the block with a chunked prefix sum and
+// __syncthreads(). Block-uniform state (the state's description, the
+// switch lists, first-k results) lives once in shared memory, written by
+// thread 0 behind a barrier, so no thread keeps large per-thread arrays
+// in local memory. E_pq's junction row only changes to -1, so an index
+// of each junction's E_pq columns, built once per launch, answers the
+// switch's queries about junctions by walking a list of ~3 columns.
+// Per switch: the two grain rings and the two border tests from that
+// index (a scan where a key is not a junction), ONE pass for the two
+// joint-neighbor first-k queries (the pair shares its reads), a
+// warp-parallel lookahead with no barrier, and ONE pass for the writes to
+// E_pp. The candidate switches come from one compaction and a rank-based
+// top-max_switch selection; a ring collapse finds the grains across all
+// its ring edges in two atomicMin passes. One body, two instantiations of
+// the kernel by where the arrays live: editor_kernel<true> copies E_pp,
+// E_pq, the joint positions and keeps the ring counts, the candidate list
+// and the junction index in dynamic shared memory (206,872 bytes at
+// 120 um), runs every scan there and writes the state back once at its
+// end; editor_kernel<false> keeps them in device memory, for states too
+// large for a block's shared memory. The wrapper picks by the state's
+// size.
 //
 // Build with -fmad=false: the switch reposition and the displacement
 // rollback are float32 arithmetic whose results the plain version
 // computes without contraction.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 
 #ifndef EDITOR_THREADS
 #define EDITOR_THREADS 512
@@ -44,36 +62,56 @@ constexpr int MAX_MS = 64;         // max_switch the kernel takes
 constexpr int MAX_GE = 16;         // grain-event budget the kernel takes
 constexpr int MAX_TWOSIDED = 8;
 constexpr int KMAX = 64;           // longest first-k query
-constexpr int BIG = 1 << 30;
 constexpr float JOINT_SCALE = 5.0f;
 
 static_assert(NT % WARP == 0 && NWARP <= WARP && KMAX <= NT, "block shape");
 
-__shared__ int s_fk[KMAX];         // first-k results
-__shared__ int s_np[RING];         // ring junctions of the grain in collapse
-__shared__ int s_red[NWARP];       // per-warp partials
-__shared__ float s_redf[NWARP];
-
-struct Ed {                        // editor state, in device memory
+struct Ed {                        // editor state
   int* pp0; int* pp1; int EP;      // E_pp rows (source, destination joint)
   int* pq0; int* pq1; int EQ;      // E_pq rows (joint, grain)
-  float* xj; int NJ; int xs;       // joint features, row stride xs
+  float* px; float* py; int ps;    // joint j's position at px[j * ps]
+  int NJ;
+  float* xj; int xs;               // joint features in device memory
   float* yj;                       // [NJ, 2] predicted displacement
   int* mg; int NG;                 // grain mask
   int* mj;                         // joint mask
-  int* cnt;                        // [num_grains] scratch
-  int ptr;                         // append cursor (same in every thread)
+  int* cnt;                        // [num_grains] ring counts
+  float* cp; int* cc;              // [EP] candidate switches (prob, column)
+  int* jo; int* jc;                // E_pq columns by junction (index_junctions)
+  int ptr;                         // append cursor
 };
+
+// Block-uniform state lives in shared memory, one copy for the block: the
+// editor state's description and every list the control flow keeps.
+// Each is written by thread 0 (or one entry per thread) behind a barrier.
+__shared__ Ed s_S;
+__shared__ int s_fk[4 * KMAX];     // first-k results of up to four queries
+__shared__ int s_red[4 * NWARP];   // per-warp partials of up to four sums
+__shared__ int s_np[RING];         // ring junctions of the grain in collapse
+__shared__ int s_L2[RING];         // its ring edges, in ring-slot order
+__shared__ int s_Nq[RING];         // the grain across each ring edge
+__shared__ int s_c1[RING], s_c2[RING];   // first two E_pq columns of each ring junction
+__shared__ int s_ev[RING];         // the collapse's switches
+__shared__ int s_forces[2 * RING]; // the grains they force out
+__shared__ int s_L1[MAX_MS];       // the candidate switches, in order
+__shared__ int s_L1c[MAX_MS];      // those still live after eliminations
+__shared__ int s_fs[2 * MAX_MS];   // the grains they force out
+__shared__ int s_va[KMAX], s_vb[KMAX];   // endpoints of a switch list
+__shared__ int s_tg[KMAX], s_drop[KMAX]; // two-sided cleanup targets, deletions
 
 __device__ __forceinline__ int gi(const int* v, int n, int i) {
   return (i >= 0 && i < n) ? v[i] : 0;
 }
-__device__ __forceinline__ float& posx(Ed& S, int j) { return S.xj[(size_t)j * S.xs]; }
-__device__ __forceinline__ float& posy(Ed& S, int j) { return S.xj[(size_t)j * S.xs + 1]; }
+__device__ __forceinline__ float& posx(Ed& S, int j) { return S.px[(size_t)j * S.ps]; }
+__device__ __forceinline__ float& posy(Ed& S, int j) { return S.py[(size_t)j * S.ps]; }
 __device__ __forceinline__ float gfx(Ed& S, int j) { return (j >= 0 && j < S.NJ) ? posx(S, j) : 0.f; }
 __device__ __forceinline__ float gfy(Ed& S, int j) { return (j >= 0 && j < S.NJ) ? posy(S, j) : 0.f; }
 __device__ __forceinline__ void put(int* v, int n, int i, int val) {
   if (i >= 0 && i < n) v[i] = val;
+}
+// v[i] of three values held in registers (i in 0..2).
+__device__ __forceinline__ int at3(int v0, int v1, int v2, int i) {
+  return i == 0 ? v0 : (i == 1 ? v1 : v2);
 }
 
 // Image of p nearest pc on the unit torus.
@@ -82,50 +120,133 @@ __device__ __forceinline__ float wrap_s(float p, float pc) {
   return (p - (rel > 0.5f ? 1.f : 0.f)) + (rel < -0.5f ? 1.f : 0.f);
 }
 
-__device__ int block_sum(int v) {
-  for (int o = WARP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  if ((threadIdx.x & (WARP - 1)) == 0) s_red[threadIdx.x / WARP] = v;
+// Exclusive block-wide prefix sums (in thread order) of Q per-thread
+// counts c[Q] into r[Q], and their totals into tot[Q]. One barrier: the
+// caller passes another before s_red is written again.
+template <int Q>
+__device__ void block_scan(const int* c, int* r, int* tot) {
+  const int lane = threadIdx.x & (WARP - 1), wid = threadIdx.x / WARP;
+  int inc[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) inc[q] = c[q];
+  for (int o = 1; o < WARP; o <<= 1) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int y = __shfl_up_sync(FULL, inc[q], o);
+      if (lane >= o) inc[q] += y;
+    }
+  }
+  if (lane == WARP - 1)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) s_red[q * NWARP + wid] = inc[q];
   __syncthreads();
-  int t = 0;
-  for (int w = 0; w < NWARP; ++w) t += s_red[w];
-  __syncthreads();
-  return t;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    r[q] = inc[q] - c[q];
+    tot[q] = 0;
+    for (int w = 0; w < NWARP; ++w) {
+      if (w < wid) r[q] += s_red[q * NWARP + w];
+      tot[q] += s_red[q * NWARP + w];
+    }
+  }
 }
 
-// First k ascending indices i < n with pred(i) into s_fk (fill beyond the
-// population); returns the population. Chunked: thread t scans
-// [t*chunk, (t+1)*chunk), a block prefix sum ranks its matches.
+// Two first-k queries over one range in this thread's chunk [lo, hi):
+// q(i) gives query 0's predicate in bit 0 and query 1's in bit 1, from one
+// read of the arrays. Counts the matches and keeps the bits of the first
+// 32 elements ...
+template <class QP>
+__device__ __forceinline__ void chunk_count(QP q, int lo, int hi, int& c0,
+                                            int& c1, unsigned& m0, unsigned& m1) {
+  c0 = c1 = 0;
+  m0 = m1 = 0;
+#pragma unroll 4
+  for (int i = lo; i < hi; ++i) {
+    const int b = q(i);
+    c0 += b & 1;
+    c1 += b >> 1;
+    if (i - lo < 32) {
+      m0 |= (unsigned)(b & 1) << (i - lo);
+      m1 |= (unsigned)(b >> 1) << (i - lo);
+    }
+  }
+}
+
+// ... and writes the matches of query `bit` ranked from r on, up to k: the
+// kept bits, then the predicate again past them.
+template <class QP>
+__device__ __forceinline__ void chunk_write(QP q, int bit, int lo, int hi,
+                                           unsigned m, int r, int k, int* out) {
+  for (; m && r < k; m &= m - 1) out[r++] = lo + __ffs(m) - 1;
+  for (int i = lo + 32; i < hi && r < k; ++i)
+    if ((q(i) >> bit) & 1) out[r++] = i;
+}
+
+// Four first-k queries in one pass and two barriers, two over [0, na) by
+// the bits of qa(i) and two over [0, nb) by those of qb(i): query j puts
+// its first k[j] ascending matches into s_fk[j * KMAX, +k[j]), fill[j]
+// beyond its population. Returns the populations. Chunked: thread t scans
+// [t*chunk, (t+1)*chunk) of each range.
+template <class QA, class QB>
+__device__ int4 first_k4(QA qa, int na, QB qb, int nb, int4 k, int4 fill) {
+  const int t = threadIdx.x;
+  const int cha = (na + NT - 1) / NT, chb = (nb + NT - 1) / NT;
+  const int loa = min(na, t * cha), hia = min(na, loa + cha);
+  const int lob = min(nb, t * chb), hib = min(nb, lob + chb);
+  int c[4], r[4], tot[4];
+  unsigned m[4];
+  chunk_count(qa, loa, hia, c[0], c[1], m[0], m[1]);
+  chunk_count(qb, lob, hib, c[2], c[3], m[2], m[3]);
+  block_scan<4>(c, r, tot);
+  chunk_write(qa, 0, loa, hia, m[0], r[0], k.x, s_fk);
+  chunk_write(qa, 1, loa, hia, m[1], r[1], k.y, s_fk + KMAX);
+  chunk_write(qb, 0, lob, hib, m[2], r[2], k.z, s_fk + 2 * KMAX);
+  chunk_write(qb, 1, lob, hib, m[3], r[3], k.w, s_fk + 3 * KMAX);
+  const int ks[4] = {k.x, k.y, k.z, k.w}, fs[4] = {fill.x, fill.y, fill.z, fill.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (t < ks[j] && t >= tot[j]) s_fk[j * KMAX + t] = fs[j];
+  __syncthreads();
+  return make_int4(tot[0], tot[1], tot[2], tot[3]);
+}
+
+struct Never {                     // the predicates of unused queries
+  __device__ int operator()(int) const { return 0; }
+};
+
+// Two first-k queries over one range, in one pass: the first ka
+// ascending i < n with pa(i) into s_fk[0, ka), the first kb with pb(i)
+// into s_fk[KMAX, +kb). Returns the populations.
+template <class PA, class PB>
+__device__ int2 first_k2(PA pa, PB pb, int n, int ka, int kb, int fill) {
+  const int4 c = first_k4([&](int i) { return (pa(i) ? 1 : 0) | (pb(i) ? 2 : 0); },
+                          n, Never(), 0, make_int4(ka, kb, 0, 0),
+                          make_int4(fill, fill, 0, 0));
+  return make_int2(c.x, c.y);
+}
+
+// One first-k query: the first k ascending i < n with pred(i) into
+// s_fk[0, k); returns the population.
 template <class P>
 __device__ int first_k(P pred, int n, int k, int fill) {
-  const int chunk = (n + NT - 1) / NT;
-  const int lo = min(n, (int)threadIdx.x * chunk), hi = min(n, lo + chunk);
-  int c = 0;
-  for (int i = lo; i < hi; ++i) c += pred(i) ? 1 : 0;
-  const int lane = threadIdx.x & (WARP - 1), wid = threadIdx.x / WARP;
-  int inc = c;
-  for (int o = 1; o < WARP; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == WARP - 1) s_red[wid] = inc;
-  __syncthreads();
-  int rank = inc - c, total = 0;
-  for (int w = 0; w < NWARP; ++w) {
-    if (w < wid) rank += s_red[w];
-    total += s_red[w];
-  }
-  for (int i = lo; i < hi && rank < k; ++i)
-    if (pred(i)) s_fk[rank++] = i;
-  if ((int)threadIdx.x < k && (int)threadIdx.x >= total) s_fk[threadIdx.x] = fill;
-  __syncthreads();
-  return total;
+  return first_k4([&](int i) { return pred(i) ? 1 : 0; }, n, Never(), 0,
+                  make_int4(k, 0, 0, 0), make_int4(fill, 0, 0, 0)).x;
 }
 
-template <class P>
-__device__ int count(P pred, int n) {
-  int c = 0;
-  for (int i = threadIdx.x; i < n; i += NT) c += pred(i) ? 1 : 0;
-  return block_sum(c);
+// Counts of two predicates over [0, n), in one pass.
+template <class PA, class PB>
+__device__ int2 count2(PA pa, PB pb, int n) {
+  int ca = 0, cb = 0;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += NT) {
+    ca += pa(i) ? 1 : 0;
+    cb += pb(i) ? 1 : 0;
+  }
+  const int c[2] = {ca, cb};
+  int r[2], tot[2];
+  block_scan<2>(c, r, tot);
+  __syncthreads();
+  return make_int2(tot[0], tot[1]);
 }
 
 // (p, i) precedes (q, j) in descending-probability, ascending-column order.
@@ -133,88 +254,161 @@ __device__ __forceinline__ bool before(float p, int i, float q, int j) {
   return p > q || (p == q && i < j);
 }
 
-// Block-wide first (p, i) in that order; every thread gets the result.
-__device__ void block_best(float& p, int& i) {
-  for (int o = WARP / 2; o > 0; o >>= 1) {
-    const float q = __shfl_xor_sync(FULL, p, o);
-    const int j = __shfl_xor_sync(FULL, i, o);
-    if (before(q, j, p, i)) { p = q; i = j; }
-  }
-  if ((threadIdx.x & (WARP - 1)) == 0) {
-    s_redf[threadIdx.x / WARP] = p;
-    s_red[threadIdx.x / WARP] = i;
-  }
-  __syncthreads();
-  for (int w = 0; w < NWARP; ++w)
-    if (before(s_redf[w], s_red[w], p, i)) { p = s_redf[w]; i = s_red[w]; }
-  __syncthreads();
-}
-
 // First two true positions of three flags, 0 where absent.
-__device__ __forceinline__ void first2_of3(const bool* b, int& f, int& s) {
-  f = b[0] ? 0 : (b[1] ? 1 : (b[2] ? 2 : 0));
-  s = (b[1] && f < 1) ? 1 : ((b[2] && f < 2) ? 2 : 0);
+__device__ __forceinline__ void first2_of3(bool b0, bool b1, bool b2, int& f, int& s) {
+  f = b0 ? 0 : (b1 ? 1 : (b2 ? 2 : 0));
+  s = (b1 && f < 1) ? 1 : ((b2 && f < 2) ? 2 : 0);
 }
 
-__device__ __forceinline__ int index_or0(const int* q, int v) {
-  return q[0] == v ? 0 : (q[1] == v ? 1 : (q[2] == v ? 2 : 0));
+// The E_pq columns of each junction j in [0, NJ), ascending, into
+// jc[jo[j], jo[j + 1]). E_pq's junction row only ever changes to -1 (a
+// deleted column), so a listed column is live while pq0 still names j,
+// and a junction's first-k query is a walk of its short list.
+__device__ __noinline__ void index_junctions(Ed& S) {
+  const int t = threadIdx.x, NJ = S.NJ;
+  int* const jo = S.jo;
+  int* const jc = S.jc;
+  const int* const pq0 = S.pq0;
+  for (int j = t; j <= NJ; j += NT) jo[j] = 0;
+  __syncthreads();
+  for (int i = t; i < S.EQ; i += NT) {
+    const int j = pq0[i];
+    if (j >= 0 && j < NJ) atomicAdd(&jo[j], 1);
+  }
+  __syncthreads();
+  // inclusive prefix sums of the counts: the end of each list
+  const int ch = (NJ + NT - 1) / NT;
+  const int lo = min(NJ, t * ch), hi = min(NJ, lo + ch);
+  int c = 0, r, tot;
+  for (int j = lo; j < hi; ++j) c += jo[j];
+  block_scan<1>(&c, &r, &tot);
+  for (int j = lo; j < hi; ++j) {
+    r += jo[j];
+    jo[j] = r;
+  }
+  if (t == 0) jo[NJ] = tot;
+  __syncthreads();
+  // each column at the end of its list, counting down: jo[j] ends at the
+  // list's start
+  for (int i = t; i < S.EQ; i += NT) {
+    const int j = pq0[i];
+    if (j >= 0 && j < NJ) jc[atomicSub(&jo[j], 1) - 1] = i;
+  }
+  __syncthreads();
+  for (int j = t; j < NJ; j += NT) {           // each list ascending
+    for (int a = jo[j] + 1; a < jo[j + 1]; ++a) {
+      const int v = jc[a];
+      int b = a - 1;
+      for (; b >= jo[j] && jc[b] > v; --b) jc[b + 1] = jc[b];
+      jc[b + 1] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// The first three live E_pq columns of junction j in [0, NJ), ascending,
+// `fill` beyond: first_k(pq0 == j, 3, fill) from the index.
+__device__ __forceinline__ void junction_first3(const Ed& S, int j, int fill,
+                                                int& c0, int& c1, int& c2) {
+  c0 = c1 = c2 = fill;
+  int n = 0;
+  for (int e = S.jo[j]; e < S.jo[j + 1] && n < 3; ++e) {
+    const int i = S.jc[e];
+    if (S.pq0[i] != j) continue;
+    if (n == 0) c0 = i;
+    else if (n == 1) c1 = i;
+    else c2 = i;
+    ++n;
+  }
+}
+
+// Whether junction j in [0, NJ) has a live E_pq column to `grain`.
+__device__ __forceinline__ bool junction_has(const Ed& S, int j, int grain) {
+  for (int e = S.jo[j]; e < S.jo[j + 1]; ++e) {
+    const int i = S.jc[e];
+    if (S.pq0[i] == j && S.pq1[i] == grain) return true;
+  }
+  return false;
 }
 
 // One neighbor switch of jj column e; events[pos..n_events) is the
-// lookahead. Writes the grains it forces out (-1 when none).
-__device__ __noinline__ void switch_one(Ed& S, int e, const int* events, int K,
-                                        int pos, int n_events, int elim_grain,
-                                        int& force1, int& force2) {
+// lookahead. Returns the grains it forces out (-1 when none).
+__device__ __noinline__ int2 switch_one(Ed& S, int e, const int* events, int K,
+                                        int pos, int n_events, int elim_grain) {
   const int EP = S.EP, EQ = S.EQ;
-  const int p1 = gi(S.pp0, EP, e), p2 = gi(S.pp1, EP, e);
+  int* const pp0 = S.pp0;
+  int* const pp1 = S.pp1;
+  int* const pq0 = S.pq0;
+  int* const pq1 = S.pq1;
+  const int p1 = gi(pp0, EP, e), p2 = gi(pp1, EP, e);
   bool valid = e >= 0 && p1 >= 0 && p2 >= 0;
   const int p1s = valid ? p1 : 0, p2s = valid ? p2 : 0;
 
-  int a[3], b[3], c[2], d[2];
-  first_k([&](int i) { return S.pq0[i] == p1s; }, EQ, 3, EQ - 1);
-  for (int t = 0; t < 3; ++t) a[t] = s_fk[t];
-  first_k([&](int i) { return S.pq0[i] == p2s; }, EQ, 3, EQ - 1);
-  for (int t = 0; t < 3; ++t) b[t] = s_fk[t];
-  first_k([&](int i) { return S.pp0[i] == p1s && S.pp1[i] != p2s; }, EP, 2, EP - 1);
-  c[0] = s_fk[0]; c[1] = s_fk[1];
-  first_k([&](int i) { return S.pp0[i] == p2s && S.pp1[i] != p1s; }, EP, 2, EP - 1);
-  d[0] = s_fk[0]; d[1] = s_fk[1];
-
-  int q1[3], q2[3];
-  for (int t = 0; t < 3; ++t) { q1[t] = gi(S.pq1, EQ, a[t]); q2[t] = gi(S.pq1, EQ, b[t]); }
-  bool in2[3], in1[3], nin2[3], nin1[3];
-  int s2 = 0, s1 = 0;
-  for (int t = 0; t < 3; ++t) {
-    in2[t] = q1[t] == q2[0] || q1[t] == q2[1] || q1[t] == q2[2];
-    in1[t] = q2[t] == q1[0] || q2[t] == q1[1] || q2[t] == q1[2];
-    nin2[t] = !in2[t];
-    nin1[t] = !in1[t];
-    s2 += in2[t];
-    s1 += in1[t];
+  // the grain rings (3 each) and other joint neighbors (2 each) of both
+  // endpoints: the rings from the junction index where both endpoints are
+  // junctions (else by a scan), the neighbors by a scan, in one pass
+  int a0, a1, a2, b0, b1, b2, c0, c1, d0, d1;
+  auto pp_pair = [&](int i) {
+    const int u = pp0[i], v = pp1[i];
+    return (u == p1s && v != p2s ? 1 : 0) | (u == p2s && v != p1s ? 2 : 0);
+  };
+  if (p1s < S.NJ && p2s < S.NJ) {
+    junction_first3(S, p1s, EQ - 1, a0, a1, a2);
+    junction_first3(S, p2s, EQ - 1, b0, b1, b2);
+    first_k4(pp_pair, EP, Never(), 0, make_int4(2, 2, 0, 0),
+             make_int4(EP - 1, EP - 1, 0, 0));
+    c0 = s_fk[0]; c1 = s_fk[1]; d0 = s_fk[KMAX]; d1 = s_fk[KMAX + 1];
+  } else {
+    first_k4([&](int i) {
+               const int v = pq0[i];
+               return (v == p1s ? 1 : 0) | (v == p2s ? 2 : 0);
+             }, EQ, pp_pair, EP, make_int4(3, 3, 2, 2),
+             make_int4(EQ - 1, EQ - 1, EP - 1, EP - 1));
+    a0 = s_fk[0]; a1 = s_fk[1]; a2 = s_fk[2];
+    b0 = s_fk[KMAX]; b1 = s_fk[KMAX + 1]; b2 = s_fk[KMAX + 2];
+    c0 = s_fk[2 * KMAX]; c1 = s_fk[2 * KMAX + 1];
+    d0 = s_fk[3 * KMAX]; d1 = s_fk[3 * KMAX + 1];
   }
-  valid = valid && s2 == 2 && s1 == 2;
+  const int q10 = gi(pq1, EQ, a0), q11 = gi(pq1, EQ, a1), q12 = gi(pq1, EQ, a2);
+  const int q20 = gi(pq1, EQ, b0), q21 = gi(pq1, EQ, b1), q22 = gi(pq1, EQ, b2);
+  auto in_q2 = [&](int q) { return q == q20 || q == q21 || q == q22; };
+  auto in_q1 = [&](int q) { return q == q10 || q == q11 || q == q12; };
+  const bool i20 = in_q2(q10), i21 = in_q2(q11), i22 = in_q2(q12);
+  const bool i10 = in_q1(q20), i11 = in_q1(q21), i12 = in_q1(q22);
+  valid = valid && i20 + i21 + i22 == 2 && i10 + i11 + i12 == 2;
 
   int sh0, sh1, e1, e2, unused;
-  first2_of3(in2, sh0, sh1);
-  first2_of3(nin2, e1, unused);
-  first2_of3(nin1, e2, unused);
-  const int shrink_q1 = q1[sh0], shrink_q2 = q1[sh1];
-  const int expand_q1 = q1[e1], expand_q2 = q2[e2];
-  int qs10 = a[sh0], qs11 = a[sh1];
-  int qs20 = b[index_or0(q2, shrink_q1)], qs21 = b[index_or0(q2, shrink_q2)];
+  first2_of3(i20, i21, i22, sh0, sh1);
+  first2_of3(!i20, !i21, !i22, e1, unused);
+  first2_of3(!i10, !i11, !i12, e2, unused);
+  const int shrink_q1 = at3(q10, q11, q12, sh0), shrink_q2 = at3(q10, q11, q12, sh1);
+  const int expand_q1 = at3(q10, q11, q12, e1), expand_q2 = at3(q20, q21, q22, e2);
+  auto index_or0 = [&](int v) { return q20 == v ? 0 : (q21 == v ? 1 : (q22 == v ? 2 : 0)); };
+  int qs10 = at3(a0, a1, a2, sh0), qs11 = at3(a0, a1, a2, sh1);
+  int qs20 = at3(b0, b1, b2, index_or0(shrink_q1));
+  int qs21 = at3(b0, b1, b2, index_or0(shrink_q2));
 
-  const int fn1 = gi(S.pp1, EP, c[0]), fn2 = gi(S.pp1, EP, d[0]);
-  const bool border1 = count([&](int i) { return S.pq0[i] == fn1 && S.pq1[i] == shrink_q1; }, EQ) > 0;
-  const bool border2 = count([&](int i) { return S.pq0[i] == fn2 && S.pq1[i] == shrink_q1; }, EQ) > 0;
-  int pn10 = border1 ? c[0] : c[1], pn11 = border1 ? c[1] : c[0];
-  int pn20 = border2 ? d[0] : d[1], pn21 = border2 ? d[1] : d[0];
-  const int sq1_p1 = gi(S.pp1, EP, pn10), sq2_p1 = gi(S.pp1, EP, pn11);
-  const int sq1_p2 = gi(S.pp1, EP, pn20), sq2_p2 = gi(S.pp1, EP, pn21);
+  const int fn1 = gi(pp1, EP, c0), fn2 = gi(pp1, EP, d0);
+  bool border1, border2;           // fn1, fn2 border shrink_q1
+  if (fn1 >= 0 && fn1 < S.NJ && fn2 >= 0 && fn2 < S.NJ) {
+    border1 = junction_has(S, fn1, shrink_q1);
+    border2 = junction_has(S, fn2, shrink_q1);
+  } else {
+    const int2 border = count2(
+        [&](int i) { return pq0[i] == fn1 && pq1[i] == shrink_q1; },
+        [&](int i) { return pq0[i] == fn2 && pq1[i] == shrink_q1; }, EQ);
+    border1 = border.x > 0;
+    border2 = border.y > 0;
+  }
+  int pn10 = border1 ? c0 : c1, pn11 = border1 ? c1 : c0;
+  int pn20 = border2 ? d0 : d1, pn21 = border2 ? d1 : d0;
+  const int sq1_p1 = gi(pp1, EP, pn10), sq2_p1 = gi(pp1, EP, pn11);
+  const int sq1_p2 = gi(pp1, EP, pn20), sq2_p2 = gi(pp1, EP, pn21);
 
   const bool degenerate = sq1_p1 == sq1_p2 || sq2_p1 == sq2_p2;
   valid = valid && (elim_grain >= 0 || !degenerate);
-  force1 = (valid && sq1_p1 == sq1_p2 && shrink_q1 != elim_grain) ? shrink_q1 : -1;
-  force2 = (valid && sq2_p1 == sq2_p2 && shrink_q2 != elim_grain) ? shrink_q2 : -1;
+  const int force1 = (valid && sq1_p1 == sq1_p2 && shrink_q1 != elim_grain) ? shrink_q1 : -1;
+  const int force2 = (valid && sq2_p1 == sq2_p2 && shrink_q2 != elim_grain) ? shrink_q2 : -1;
 
   // periodic midpoint reposition
   const float x1x = gfx(S, p1s), x1y = gfy(S, p1s);
@@ -223,16 +417,23 @@ __device__ __noinline__ void switch_one(Ed& S, int e, const int* events, int K,
   const float cy = 0.5f * (x1y + wrap_s(x2y, x1y));
   const float n2x = wrap_s(cx, x2x), n2y = wrap_s(cy, x2y);
 
-  // lookahead over the remaining events (this one included)
-  bool h0 = false, h1 = false, h2 = false, h3 = false;
-  for (int k = pos; k < min(n_events, K); ++k) {
-    if (events[k] < 0) continue;
-    const int na = gi(S.pp0, EP, events[k]), nb = gi(S.pp1, EP, events[k]);
-    h0 = h0 || na == sq1_p2 || nb == sq1_p2;
-    h1 = h1 || na == sq2_p2 || nb == sq2_p2;
-    h2 = h2 || na == sq1_p1 || nb == sq1_p1;
-    h3 = h3 || na == sq2_p1 || nb == sq2_p1;
+  // lookahead over the remaining events (this one included): lane l of
+  // every warp takes events pos + l, pos + 32 + l, ...; the warp ORs the
+  // four flags, so every thread holds them without a barrier
+  int h = 0;
+  const int n_look = min(n_events, K);
+  for (int k0 = pos; k0 < n_look; k0 += WARP) {
+    const int k = k0 + (int)(threadIdx.x & (WARP - 1));
+    if (k < n_look && events[k] >= 0) {
+      const int na = gi(pp0, EP, events[k]), nb = gi(pp1, EP, events[k]);
+      h |= (na == sq1_p2 || nb == sq1_p2) ? 1 : 0;
+      h |= (na == sq2_p2 || nb == sq2_p2) ? 2 : 0;
+      h |= (na == sq1_p1 || nb == sq1_p1) ? 4 : 0;
+      h |= (na == sq2_p1 || nb == sq2_p1) ? 8 : 0;
+    }
   }
+  for (int o = WARP / 2; o > 0; o >>= 1) h |= __shfl_xor_sync(FULL, h, o);
+  const bool h0 = h & 1, h1 = h & 2, h2 = h & 4, h3 = h & 8;
   bool swap = true;
   if (h0 && !h1) swap = false;
   if (h1 && !h0) swap = true;
@@ -252,54 +453,65 @@ __device__ __noinline__ void switch_one(Ed& S, int e, const int* events, int K,
   (void)pn10;
   (void)pn21;
 
-  if (!valid) return;
+  if (!valid) return make_int2(force1, force2);
   if (threadIdx.x == 0) {
     if (p1s < S.NJ) { posx(S, p1s) = cx; posy(S, p1s) = cy; }
     if (p2s < S.NJ) { posx(S, p2s) = n2x; posy(S, p2s) = n2y; }
-    put(S.pq1, EQ, qs11, expand_q2);
-    put(S.pq1, EQ, qs20, expand_q1);
-    put(S.pp0, EP, pn11, p2s);
-    put(S.pp0, EP, pn20, p1s);
+    put(pq1, EQ, qs11, expand_q2);
+    put(pq1, EQ, qs20, expand_q1);
+  }
+  // One pass over E_pp: the two single writes to pp0, then the two pp1
+  // rewrites in order. Each column's new value depends on that column
+  // alone, so applying the steps column by column is applying them pass
+  // by pass: the second rewrite reads pp1 as the first left it.
+#pragma unroll 4
+  for (int i = threadIdx.x; i < EP; i += NT) {
+    int u = pp0[i], v = pp1[i];
+    const int u0 = u, v0 = v;
+    if (i == pn11) u = p2s;
+    if (i == pn20) u = p1s;
+    if (u == sq1_p2_f && v == p2s) v = p1s;
+    if (u == sq2_p1_f && v == p1s) v = p2s;
+    if (u != u0) pp0[i] = u;
+    if (v != v0) pp1[i] = v;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < EP; i += NT)
-    if (S.pp0[i] == sq1_p2_f && S.pp1[i] == p2s) S.pp1[i] = p1s;
-  __syncthreads();
-  for (int i = threadIdx.x; i < EP; i += NT)
-    if (S.pp0[i] == sq2_p1_f && S.pp1[i] == p1s) S.pp1[i] = p2s;
-  __syncthreads();
+  return make_int2(force1, force2);
 }
 
-// Roll back the predicted displacement of every joint the events touch,
-// run the switches in order, then zero those joints' displacement and
-// gradients. forces[2 * K] receives the forced grains.
+// Roll back the predicted displacement of every joint the events (a
+// shared list) touch, run the switches in order, then zero those joints'
+// displacement and gradients. forces[2 * K] (shared) receives the forced
+// grains.
 __device__ __noinline__ void switch_events(Ed& S, const int* events, int K,
                                            int n_events, int elim_grain,
                                            int* forces) {
   const int n_trip = min(n_events, K);
-  int va[KMAX], vb[KMAX];
-  for (int k = 0; k < n_trip; ++k) {
-    const bool ok = events[k] >= 0;
-    va[k] = ok ? gi(S.pp0, S.EP, events[k]) : -1;
-    vb[k] = ok ? gi(S.pp1, S.EP, events[k]) : -1;
+  const int t = threadIdx.x;
+  if (t < n_trip) {
+    const bool ok = events[t] >= 0;
+    s_va[t] = ok ? gi(S.pp0, S.EP, events[t]) : -1;
+    s_vb[t] = ok ? gi(S.pp1, S.EP, events[t]) : -1;
   }
+  for (int k = t; k < 2 * K; k += NT) forces[k] = -1;
+  __syncthreads();
   auto touched = [&](int j) {
     for (int k = 0; k < n_trip; ++k)
-      if (va[k] == j || vb[k] == j) return true;
+      if (s_va[k] == j || s_vb[k] == j) return true;
     return false;
   };
-  for (int j = threadIdx.x; j < S.NJ; j += NT) {
+  for (int j = t; j < S.NJ; j += NT) {
     if (touched(j)) {
       posx(S, j) = posx(S, j) + (-S.yj[2 * j] / JOINT_SCALE);
       posy(S, j) = posy(S, j) + (-S.yj[2 * j + 1] / JOINT_SCALE);
     }
   }
   __syncthreads();
-  for (int k = 0; k < 2 * K; ++k) forces[k] = -1;
-  for (int i = 0; i < n_trip; ++i)
-    switch_one(S, events[i], events, K, i, n_events, elim_grain,
-               forces[2 * i], forces[2 * i + 1]);
-  for (int j = threadIdx.x; j < S.NJ; j += NT) {
+  for (int i = 0; i < n_trip; ++i) {
+    const int2 f = switch_one(S, events[i], events, K, i, n_events, elim_grain);
+    if (t == 0) { forces[2 * i] = f.x; forces[2 * i + 1] = f.y; }
+  }
+  for (int j = t; j < S.NJ; j += NT) {
     if (touched(j)) {
       S.yj[2 * j] = 0.f;
       S.yj[2 * j + 1] = 0.f;
@@ -314,38 +526,44 @@ __device__ __noinline__ void switch_events(Ed& S, const int* events, int K,
 // pair appended at the cursor. Returns whether the grain was deleted.
 __device__ __noinline__ bool delete_grain(Ed& S, int grain) {
   const int EP = S.EP, EQ = S.EQ;
+  int* const pp0 = S.pp0;
+  int* const pp1 = S.pp1;
+  int* const pq0 = S.pq0;
+  int* const pq1 = S.pq1;
   const int g = grain >= 0 ? grain : 0;
-  const int n_ring = first_k([&](int i) { return S.pq1[i] == g; }, EQ, 2, EQ - 1);
+  const int n_ring = first_k([&](int i) { return pq1[i] == g; }, EQ, 2, EQ - 1);
   if (!(grain >= 0 && n_ring == 2)) return false;
-  const int p1 = gi(S.pq0, EQ, s_fk[0]), p2 = gi(S.pq0, EQ, s_fk[1]);
-  const int n1 = first_k([&](int i) { return S.pp0[i] == p1 && S.pp1[i] != p2; }, EP, 1, EP - 1);
-  const int i1 = s_fk[0];
-  const int n2 = first_k([&](int i) { return S.pp0[i] == p2 && S.pp1[i] != p1; }, EP, 1, EP - 1);
-  const int i2 = s_fk[0];
-  if (n1 == 0 || n2 == 0) return false;
-  const int np1 = gi(S.pp1, EP, i1), np2 = gi(S.pp1, EP, i2);
+  const int p1 = gi(pq0, EQ, s_fk[0]), p2 = gi(pq0, EQ, s_fk[1]);
+  const int2 n = first_k2([&](int i) { return pp0[i] == p1 && pp1[i] != p2; },
+                          [&](int i) { return pp0[i] == p2 && pp1[i] != p1; }, EP, 1, 1,
+                          EP - 1);
+  const int i1 = s_fk[0], i2 = s_fk[KMAX];
+  if (n.x == 0 || n.y == 0) return false;
+  const int np1 = gi(pp1, EP, i1), np2 = gi(pp1, EP, i2);
+  const int ptr = S.ptr;
+  __syncthreads();                   // every thread has read S.ptr
   if (threadIdx.x == 0) {
-    put(S.pp0, EP, S.ptr, np1);
-    put(S.pp0, EP, S.ptr + 1, np2);
-    put(S.pp1, EP, S.ptr, np2);
-    put(S.pp1, EP, S.ptr + 1, np1);
+    put(pp0, EP, ptr, np1);
+    put(pp0, EP, ptr + 1, np2);
+    put(pp1, EP, ptr, np2);
+    put(pp1, EP, ptr + 1, np1);
     put(S.mg, S.NG, g, 0);
     put(S.mj, S.NJ, p1, 0);
     put(S.mj, S.NJ, p2, 0);
+    S.ptr = ptr + 2;
   }
-  S.ptr += 2;
   __syncthreads();
   for (int i = threadIdx.x; i < EQ; i += NT) {
-    if (S.pq1[i] == g || S.pq0[i] == p1 || S.pq0[i] == p2) {
-      S.pq0[i] = -1;
-      S.pq1[i] = -1;
+    if (pq1[i] == g || pq0[i] == p1 || pq0[i] == p2) {
+      pq0[i] = -1;
+      pq1[i] = -1;
     }
   }
   for (int i = threadIdx.x; i < EP; i += NT) {
-    const int u = S.pp0[i], v = S.pp1[i];
+    const int u = pp0[i], v = pp1[i];
     if (u == p1 || v == p1 || u == p2 || v == p2) {
-      S.pp0[i] = -1;
-      S.pp1[i] = -1;
+      pp0[i] = -1;
+      pp1[i] = -1;
     }
   }
   __syncthreads();
@@ -354,16 +572,20 @@ __device__ __noinline__ bool delete_grain(Ed& S, int grain) {
 
 // Collapse grain g's junction ring by switching all but two of its ring
 // edges, in ascending predicted darea of the grain across each edge.
-// Writes events[RING] and forces[2 * RING]; returns whether it ran.
-__device__ __noinline__ bool ring_collapse(Ed& S, int g, const float* yg0,
-                                           int* events, int* forces) {
+// Writes s_ev[RING] and s_forces[2 * RING]; returns whether it ran.
+__device__ __noinline__ bool ring_collapse(Ed& S, int g, const float* yg0) {
   const int EP = S.EP, EQ = S.EQ;
-  for (int r = 0; r < RING; ++r) events[r] = -1;
-  for (int r = 0; r < 2 * RING; ++r) forces[r] = -1;
+  int* const pp0 = S.pp0;
+  int* const pp1 = S.pp1;
+  int* const pq0 = S.pq0;
+  int* const pq1 = S.pq1;
+  const int t = threadIdx.x;
+  if (t < RING) s_ev[t] = -1;
+  if (t < 2 * RING) s_forces[t] = -1;
   const int gs = g >= 0 ? g : 0;
-  const int ring_n = first_k([&](int i) { return S.pq1[i] == gs; }, EQ, RING, EQ - 1);
+  const int ring_n = first_k([&](int i) { return pq1[i] == gs; }, EQ, RING, EQ - 1);
   if (!(g >= 0 && ring_n > 0 && ring_n <= RING)) return false;
-  if ((int)threadIdx.x < ring_n) s_np[threadIdx.x] = gi(S.pq0, EQ, s_fk[threadIdx.x]);
+  if (t < ring_n) s_np[t] = gi(pq0, EQ, s_fk[t]);
   __syncthreads();
   auto slot = [&](int v) {
     for (int r = 0; r < ring_n; ++r)
@@ -371,163 +593,257 @@ __device__ __noinline__ bool ring_collapse(Ed& S, int g, const float* yg0,
     return -1;
   };
 
-  // ring edges: jj columns u<v with both ends on the ring
+  // ring edges: jj columns u<v with both ends on the ring, in ascending
+  // order of their ring-slot pair (stable)
   const int n_l2 = first_k([&](int i) {
-    const int u = S.pp0[i], v = S.pp1[i];
+    const int u = pp0[i], v = pp1[i];
     return u < v && slot(u) >= 0 && slot(v) >= 0;
   }, EP, RING, EP - 1);
   if (n_l2 != ring_n) return false;
-  int cols[RING], rank[RING], L2[RING];
-  bool taken[RING];
-  for (int r = 0; r < n_l2; ++r) {
-    cols[r] = s_fk[r];
-    const int i = slot(S.pp0[cols[r]]), j = slot(S.pp1[cols[r]]);
-    const int lo = min(i, j), hi = max(i, j);
-    rank[r] = lo * (2 * RING - lo - 1) / 2 + (hi - lo - 1);
-    taken[r] = false;
+  if (t == 0) {
+    int rank[RING];
+    bool taken[RING];
+    for (int r = 0; r < n_l2; ++r) {
+      const int i = slot(pp0[s_fk[r]]), j = slot(pp1[s_fk[r]]);
+      const int lo = min(i, j), hi = max(i, j);
+      rank[r] = lo * (2 * RING - lo - 1) / 2 + (hi - lo - 1);
+      taken[r] = false;
+    }
+    for (int o = 0; o < n_l2; ++o) {
+      int best = -1;
+      for (int r = 0; r < n_l2; ++r)
+        if (!taken[r] && (best < 0 || rank[r] < rank[best])) best = r;
+      taken[best] = true;
+      s_L2[o] = s_fk[best];
+    }
   }
-  for (int o = 0; o < n_l2; ++o) {           // stable ascending order
-    int best = -1;
-    for (int r = 0; r < n_l2; ++r)
-      if (!taken[r] && (best < 0 || rank[r] < rank[best])) best = r;
-    taken[best] = true;
-    L2[o] = cols[best];
-  }
+  __syncthreads();
 
-  // the grain shared across each ring edge, all distinct
-  int Nq[RING];
+  // the grain shared across each ring edge, all distinct. For every ring
+  // junction at once, its first two E_pq columns (ascending) whose grain
+  // is not g: the least such column, then the least above it, by atomicMin
+  // in two passes; EQ - 1 where there is none (the first-k fill).
+  if (t < ring_n) { s_c1[t] = INT_MAX; s_c2[t] = INT_MAX; }
+  __syncthreads();
+  for (int i = t; i < EQ; i += NT) {
+    if (pq1[i] == gs) continue;
+    const int sl = slot(pq0[i]);
+    if (sl >= 0) atomicMin(&s_c1[sl], i);
+  }
+  __syncthreads();
+  for (int i = t; i < EQ; i += NT) {
+    if (pq1[i] == gs) continue;
+    const int sl = slot(pq0[i]);
+    if (sl >= 0 && i > s_c1[sl]) atomicMin(&s_c2[sl], i);
+  }
+  __syncthreads();
+  auto col = [&](int c) { return c == INT_MAX ? EQ - 1 : c; };
   for (int r = 0; r < n_l2; ++r) {
-    const int ep1 = gi(S.pp0, EP, L2[r]), ep2 = gi(S.pp1, EP, L2[r]);
-    first_k([&](int i) { return S.pq0[i] == ep1 && S.pq1[i] != gs; }, EQ, 2, EQ - 1);
-    const int nq10 = gi(S.pq1, EQ, s_fk[0]), nq11 = gi(S.pq1, EQ, s_fk[1]);
-    first_k([&](int i) { return S.pq0[i] == ep2 && S.pq1[i] != gs; }, EQ, 2, EQ - 1);
-    const int nq20 = gi(S.pq1, EQ, s_fk[0]), nq21 = gi(S.pq1, EQ, s_fk[1]);
+    const int s1 = slot(gi(pp0, EP, s_L2[r])), s2 = slot(gi(pp1, EP, s_L2[r]));
+    const int nq10 = gi(pq1, EQ, col(s_c1[s1])), nq11 = gi(pq1, EQ, col(s_c2[s1]));
+    const int nq20 = gi(pq1, EQ, col(s_c1[s2])), nq21 = gi(pq1, EQ, col(s_c2[s2]));
     const bool first_in = nq10 == nq20 || nq10 == nq21;
     const bool second_in = nq11 == nq20 || nq11 == nq21;
     if (!(first_in || second_in)) return false;
-    Nq[r] = first_in ? nq10 : nq11;
+    if (t == 0) s_Nq[r] = first_in ? nq10 : nq11;
   }
+  __syncthreads();
   for (int r = 0; r < n_l2; ++r)
-    for (int t = r + 1; t < n_l2; ++t)
-      if (Nq[r] == Nq[t]) return false;
+    for (int u = r + 1; u < n_l2; ++u)
+      if (s_Nq[r] == s_Nq[u]) return false;
 
   // ascending predicted darea of the shared grain; the last two stay
-  float key[RING];
-  for (int r = 0; r < n_l2; ++r) {
-    key[r] = (Nq[r] >= 0 && Nq[r] < S.NG) ? yg0[Nq[r]] : 0.f;
-    taken[r] = false;
-  }
   const int n_events = max(n_l2 - 2, 0);
-  for (int o = 0; o < n_events; ++o) {
-    int best = -1;
-    for (int r = 0; r < n_l2; ++r)
-      if (!taken[r] && (best < 0 || key[r] < key[best])) best = r;
-    taken[best] = true;
-    events[o] = L2[best];
+  if (t == 0) {
+    float key[RING];
+    bool taken[RING];
+    for (int r = 0; r < n_l2; ++r) {
+      key[r] = (s_Nq[r] >= 0 && s_Nq[r] < S.NG) ? yg0[s_Nq[r]] : 0.f;
+      taken[r] = false;
+    }
+    for (int o = 0; o < n_events; ++o) {
+      int best = -1;
+      for (int r = 0; r < n_l2; ++r)
+        if (!taken[r] && (best < 0 || key[r] < key[best])) best = r;
+      taken[best] = true;
+      s_ev[o] = s_L2[best];
+    }
   }
-  switch_events(S, events, RING, n_events, gs, forces);
+  __syncthreads();
+  switch_events(S, s_ev, RING, n_events, gs, s_forces);
   return true;
 }
 
 // Delete every grain left with one or two live ring edges (at most
-// `budget`, ascending id). dropped[budget] receives the deleted ids.
-__device__ __noinline__ void two_sided_cleanup(Ed& S, int num_grains,
-                                               int budget, int* dropped) {
-  for (int g = threadIdx.x; g < num_grains; g += NT) S.cnt[g] = 0;
+// `budget`, ascending id) into s_drop[budget] (-1 where none). The ring
+// counts are rebuilt from E_pq with atomics on S.cnt.
+__device__ __noinline__ void two_sided_cleanup(Ed& S, int num_grains, int budget) {
+  int* const cnt = S.cnt;
+  int* const pq1 = S.pq1;
+  for (int g = threadIdx.x; g < num_grains; g += NT) cnt[g] = 0;
   __syncthreads();
   for (int i = threadIdx.x; i < S.EQ; i += NT) {
-    const int v = S.pq1[i];
-    if (v >= 0 && v < num_grains) atomicAdd(&S.cnt[v], 1);
+    const int v = pq1[i];
+    if (v >= 0 && v < num_grains) atomicAdd(&cnt[v], 1);
   }
   __syncthreads();
-  first_k([&](int g) { return S.cnt[g] > 0 && S.cnt[g] <= 2; },
+  first_k([&](int g) { return cnt[g] > 0 && cnt[g] <= 2; },
           num_grains, budget, -1);
-  int targets[KMAX];
-  for (int k = 0; k < budget; ++k) targets[k] = s_fk[k];
+  if ((int)threadIdx.x < budget) s_tg[threadIdx.x] = s_fk[threadIdx.x];
+  __syncthreads();
   for (int k = 0; k < budget; ++k) {
-    const int t = targets[k];
-    dropped[k] = (t >= 0 && delete_grain(S, t)) ? t : -1;
+    const int t = s_tg[k];
+    const bool done = t >= 0 && delete_grain(S, t);
+    if (threadIdx.x == 0) s_drop[k] = done ? t : -1;
   }
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(NT) editor_kernel(
-    Ed S, const float* __restrict__ prob, const float* __restrict__ yg0,
-    const int* __restrict__ ge, int GE, float threshold, int num_grains,
-    int MS, int* ptr_io, int* sw, int* extra, int max_extra) {
+// Candidate switches into s_L1[MS]: live u<v columns over threshold, by
+// descending probability, ties by column, -1 fills. One compaction of the
+// candidates into S.cp/S.cc (in column order), then each candidate's rank
+// among them: those ranked below MS land in s_L1 at their rank.
+__device__ __noinline__ void select_switches(Ed& S, const float* prob,
+                                             float threshold, int MS) {
+  const int t = threadIdx.x;
+  const int* const pp0 = S.pp0;
+  const int* const pp1 = S.pp1;
+  float* const cp = S.cp;
+  int* const cc = S.cc;
+  auto cand = [&](int c) {
+    const int u = pp0[c], v = pp1[c];
+    return prob[c] > threshold && u < v && u >= 0;
+  };
+  const int chunk = (S.EP + NT - 1) / NT;
+  const int lo = min(S.EP, t * chunk), hi = min(S.EP, lo + chunk);
+  int c = 0;
+  for (int i = lo; i < hi; ++i) c += cand(i) ? 1 : 0;
+  int r, n;
+  block_scan<1>(&c, &r, &n);
+  for (int i = lo; i < hi; ++i)
+    if (cand(i)) { cp[r] = prob[i]; cc[r++] = i; }
+  if (t < MS) s_L1[t] = -1;
+  __syncthreads();
+  for (int i = t; i < n; i += NT) {
+    const float p = cp[i];
+    const int col = cc[i];
+    int rank = 0;
+    for (int j = 0; j < n && rank < MS; ++j) rank += before(cp[j], cc[j], p, col);
+    if (rank < MS) s_L1[rank] = col;
+  }
+  __syncthreads();
+}
+
+// The whole edit of one span on the state S (in shared memory).
+__device__ __noinline__ void edit(Ed& S, const float* prob, const float* yg0,
+                                  const int* ge, int GE, float threshold,
+                                  int num_grains, int MS, int* sw, int* extra,
+                                  int max_extra) {
   const int tid = threadIdx.x;
-  S.ptr = *ptr_io;
   for (int i = tid; i < max_extra; i += NT) extra[i] = -1;
   __syncthreads();
-  int n_extra = 0;
+  int n_extra = 0;                   // thread 0 appends to extra
   auto put_extra = [&](const int* vals, int n) {
+    if (tid != 0) return;
     for (int i = 0; i < n; ++i) {
       if (vals[i] < 0) continue;
-      if (tid == 0 && n_extra < max_extra) extra[n_extra] = vals[i];
+      if (n_extra < max_extra) extra[n_extra] = vals[i];
       ++n_extra;
     }
   };
 
-  // candidate switches: live u<v columns over threshold, by descending
-  // probability, ties by column; each round takes the next in that order
-  int L1[MAX_MS];
-  int n1 = 0;
-  float lp = 2.f;
-  int li = -1;
-  for (int k = 0; k < MS; ++k) {
-    float bp = -1.f;
-    int bi = BIG;
-    for (int c = tid; c < S.EP; c += NT) {
-      const float p = prob[c];
-      const int u = S.pp0[c], v = S.pp1[c];
-      if (p > threshold && u < v && u >= 0 && before(lp, li, p, c) &&
-          before(p, c, bp, bi)) {
-        bp = p;
-        bi = c;
-      }
-    }
-    block_best(bp, bi);
-    if (bi >= BIG) break;
-    L1[n1++] = bi;
-    lp = bp;
-    li = bi;
-  }
-  for (int k = n1; k < MS; ++k) L1[k] = -1;
+  index_junctions(S);
+  select_switches(S, prob, threshold, MS);
 
   // grain eliminations
   const int ts_budget = max(MAX_TWOSIDED, GE);
-  int ev[RING], forces[2 * RING], dropped[KMAX];
   for (int i = 0; i < GE; ++i) {
     const int g = ge[i];
     if (g < 0) continue;
-    const bool ok = ring_collapse(S, g, yg0, ev, forces);
-    put_extra(forces, 2 * RING);
+    const bool ok = ring_collapse(S, g, yg0);
+    __syncthreads();
+    put_extra(s_forces, 2 * RING);
     if (!ok) continue;
     delete_grain(S, g);
     for (int k = 0; k < 2 * RING; ++k)
-      if (forces[k] >= 0) delete_grain(S, forces[k]);
-    for (int k = 0; k < RING; ++k)
-      for (int m = 0; m < MS; ++m)
-        if (ev[k] >= 0 && L1[m] == ev[k]) L1[m] = -1;
-    two_sided_cleanup(S, num_grains, ts_budget, dropped);
+      if (s_forces[k] >= 0) delete_grain(S, s_forces[k]);
+    if (tid == 0)
+      for (int k = 0; k < RING; ++k)
+        for (int m = 0; m < MS; ++m)
+          if (s_ev[k] >= 0 && s_L1[m] == s_ev[k]) s_L1[m] = -1;
+    __syncthreads();
+    two_sided_cleanup(S, num_grains, ts_budget);
   }
 
   // pending switches whose column is still live, in order
-  int L1c[MAX_MS];
-  int n_sw = 0;
-  for (int m = 0; m < MS; ++m)
-    if (L1[m] >= 0 && gi(S.pp0, S.EP, L1[m]) >= 0) L1c[n_sw++] = L1[m];
-  for (int m = n_sw; m < MS; ++m) L1c[m] = -1;
-  int fs[2 * MAX_MS];
-  switch_events(S, L1c, MS, n_sw, -1, fs);
-  put_extra(fs, 2 * MS);
+  if (tid == 0) {
+    int n_sw = 0;
+    for (int m = 0; m < MS; ++m)
+      if (s_L1[m] >= 0 && gi(S.pp0, S.EP, s_L1[m]) >= 0) s_L1c[n_sw++] = s_L1[m];
+    for (int m = n_sw; m < MS; ++m) s_L1c[m] = -1;
+    s_red[0] = n_sw;
+  }
+  __syncthreads();
+  const int n_sw = s_red[0];
+  __syncthreads();
+  switch_events(S, s_L1c, MS, n_sw, -1, s_fs);
+  put_extra(s_fs, 2 * MS);
   if (tid == 0) {
     for (int m = 0; m < MS; ++m) {
-      sw[2 * m] = L1c[m] >= 0 ? gi(S.pp0, S.EP, L1c[m]) : -1;
-      sw[2 * m + 1] = L1c[m] >= 0 ? gi(S.pp1, S.EP, L1c[m]) : -1;
+      sw[2 * m] = s_L1c[m] >= 0 ? gi(S.pp0, S.EP, s_L1c[m]) : -1;
+      sw[2 * m + 1] = s_L1c[m] >= 0 ? gi(S.pp1, S.EP, s_L1c[m]) : -1;
     }
   }
-  two_sided_cleanup(S, num_grains, ts_budget, dropped);
-  put_extra(dropped, ts_budget);
+  two_sided_cleanup(S, num_grains, ts_budget);
+  put_extra(s_drop, ts_budget);
+}
+
+// Dynamic shared memory of editor_kernel<true>, in 4-byte words: E_pp,
+// E_pq, positions, ring counts, candidate list, junction index.
+__host__ __device__ size_t staged_words(int EP, int EQ, int NJ, int num_grains) {
+  return 2 * (size_t)EP + 2 * (size_t)EQ + 2 * (size_t)NJ + num_grains +
+         2 * (size_t)EP + (size_t)NJ + 1 + EQ;
+}
+
+// STAGED: the state's arrays are copied into dynamic shared memory, edited
+// there and written back; otherwise they stay in device memory (G holds
+// them and the scratch for the ring counts and candidates).
+template <bool STAGED>
+__global__ void __launch_bounds__(NT) editor_kernel(
+    Ed G, const float* __restrict__ prob, const float* __restrict__ yg0,
+    const int* __restrict__ ge, int GE, float threshold, int num_grains,
+    int MS, int* ptr_io, int* sw, int* extra, int max_extra) {
+  extern __shared__ __align__(16) int ed_smem[];
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_S = G;
+    s_S.ptr = *ptr_io;
+    if (STAGED) {
+      int* m = ed_smem;
+      s_S.pp0 = m; s_S.pp1 = m + G.EP; m += 2 * G.EP;
+      s_S.pq0 = m; s_S.pq1 = m + G.EQ; m += 2 * G.EQ;
+      s_S.px = reinterpret_cast<float*>(m); s_S.py = s_S.px + G.NJ; s_S.ps = 1;
+      m += 2 * G.NJ;
+      s_S.cnt = m; m += num_grains;
+      s_S.cp = reinterpret_cast<float*>(m); s_S.cc = m + G.EP; m += 2 * G.EP;
+      s_S.jo = m; s_S.jc = m + G.NJ + 1;
+    }
+  }
+  __syncthreads();
+  Ed& S = s_S;
+  if (STAGED) {
+    for (int i = tid; i < G.EP; i += NT) { S.pp0[i] = G.pp0[i]; S.pp1[i] = G.pp1[i]; }
+    for (int i = tid; i < G.EQ; i += NT) { S.pq0[i] = G.pq0[i]; S.pq1[i] = G.pq1[i]; }
+    for (int j = tid; j < G.NJ; j += NT) { S.px[j] = posx(G, j); S.py[j] = posy(G, j); }
+    __syncthreads();
+  }
+  edit(S, prob, yg0, ge, GE, threshold, num_grains, MS, sw, extra, max_extra);
+  __syncthreads();
+  if (STAGED) {
+    for (int i = tid; i < G.EP; i += NT) { G.pp0[i] = S.pp0[i]; G.pp1[i] = S.pp1[i]; }
+    for (int i = tid; i < G.EQ; i += NT) { G.pq0[i] = S.pq0[i]; G.pq1[i] = S.pq1[i]; }
+    for (int j = tid; j < G.NJ; j += NT) { posx(G, j) = S.px[j]; posy(G, j) = S.py[j]; }
+  }
   if (tid == 0) *ptr_io = S.ptr;
 }
 
@@ -539,21 +855,44 @@ const char* ggnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Bytes of dynamic shared memory the staged editor takes for a state.
+long long editor_staged_bytes(int EP, int EQ, int NJ, int num_grains) {
+  return 4 * (long long)staged_words(EP, EQ, NJ, num_grains);
+}
+
 // One span's edit in place on the state arrays (pp [2, EP], pq [2, EQ],
 // xj [NJ, xs], yj [NJ, 2], mg [NG], mj [NJ], ptr [1]); writes sw
-// [MS, 2] and extra [max_extra]. cnt is [num_grains] scratch.
+// [MS, 2] and extra [max_extra]. scratch is [num_grains + 2 * EP + NJ +
+// 1 + EQ] int32 for the device-memory instantiation. staged != 0 picks the
+// shared-memory instantiation; a launch it cannot take is an error.
 int editor_update(int* pp, int EP, int* pq, int EQ, float* xj, int NJ,
                   int xs, float* yj, int* mg, int* mj, int NG,
                   const float* prob, const float* yg0, const int* ge, int GE,
                   float threshold, int num_grains, int MS, int* ptr, int* sw,
-                  int* extra, int* cnt, int max_extra, void* stream) {
+                  int* extra, int* scratch, int max_extra, int staged,
+                  void* stream) {
   const int ts_budget = GE > MAX_TWOSIDED ? GE : MAX_TWOSIDED;
   if (MS < 0 || MS > MAX_MS || GE < 0 || GE > MAX_GE || ts_budget > KMAX ||
       xs < 8 || EP < 1 || EQ < 1 || num_grains > NG)
     return cudaErrorInvalidValue;
-  Ed S{pp, pp + EP, EP, pq, pq + EQ, EQ, xj, NJ, xs, yj, mg, NG, mj, cnt, 0};
+  int* const jo = scratch + num_grains + 2 * EP;
+  Ed S{pp, pp + EP, EP, pq, pq + EQ, EQ, xj, xj + 1, xs, NJ, xj, xs, yj,
+       mg, NG, mj, scratch, reinterpret_cast<float*>(scratch + num_grains),
+       scratch + num_grains + EP, jo, jo + NJ + 1, 0};
   cudaGetLastError();   // clear any stale error
-  editor_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = staged ? 4 * staged_words(EP, EQ, NJ, num_grains) : 0;
+  if (staged) {
+    static size_t smem_set = 0;
+    if (smem > smem_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          editor_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_set = smem;
+    }
+  }
+  auto kernel = staged ? editor_kernel<true> : editor_kernel<false>;
+  kernel<<<1, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       S, prob, yg0, ge, GE, threshold, num_grains, MS, ptr, sw, extra,
       max_extra);
   return static_cast<int>(cudaGetLastError());

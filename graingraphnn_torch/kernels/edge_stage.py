@@ -1,6 +1,10 @@
-"""The fused PeriodConv edge stage as a CUDA kernel (csrc/edge_stage.cu):
+"""The fused PeriodConv edge stage as CUDA kernels (csrc/edge_stage.cu):
 `apply_period_conv_cuda` is what ops.period_conv.apply_period_conv runs
-for CUDA tensors. Its plain version is ops.period_conv.apply_period_conv_plain.
+for CUDA tensors, one grouped `node_proj` launch (the four node
+projections, 3xTF32 tensor cores) then one `edge_attn` launch. Its plain
+version is ops.period_conv.apply_period_conv_plain. `node_proj_cuda` and
+`edge_attn_cuda` launch each kernel alone (plain versions:
+period_conv.node_projections_plain and period_conv.edge_attn_plain).
 """
 
 from __future__ import annotations
@@ -11,38 +15,39 @@ import torch
 
 from . import _build
 
-launches = 0   # kernel launches since the caller last set it to 0
-shape_launches: dict = {}   # the same launches by (K, F_src, F_dst)
+# kernel launches since the caller last called reset_counts(), by kernel
+# and by (kernel, F_src, F_dst)
+launches = {"node_proj": 0, "edge_attn": 0}
+shape_launches: dict = {}
 
 SOURCE = "edge_stage"
 NVCC_FLAGS: tuple = ()
 MAX_F, MAX_GC, MAX_G, MAX_K = 128, 512, 8, 16   # limits of csrc/edge_stage.cu
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] * 2   # x_src, x_dst
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int]            # nbr, len, mask, K
-    + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2       # weights, G, C
-    + [ctypes.c_void_p] * 6                             # scratch, out, stream
+    [_P, _I, _I] * 2                   # x_src, x_dst
+    + [_P] * 3 + [_I]                  # nbr, len, mask, K
+    + [_P] * 11 + [_I] * 2             # weights, G, C
+    + [_P] * 6                         # scratch, out, stream
 )
+_PROJ_ARGTYPES = [_P, _I, _I] * 2 + [_P] * 8 + [_I] + [_P] * 5
+_ATTN_ARGTYPES = ([_P, _I, _I] * 2 + [_P] * 3 + [_I] + [_P] * 9 + [_I] * 2
+                  + [_P] * 2)
 
 
-def apply_period_conv_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, *,
-                           num_gates: int, out_channels: int):
-    """Fused-gate periodic conv on the card, fp32. Returns [Nd, G*C]."""
-    global launches
-    G, C = num_gates, out_channels
-    GC = G * C
-    (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
-    tensors = {
-        "x_src": (x_src, (Ns, Fs)), "x_dst": (x_dst, (Nd, Fd)),
-        "nbr": (nbr, (Nd, K)), "edge_len": (edge_len, (Nd, K)),
-        "nbr_mask": (nbr_mask, (Nd, K)),
-        "query.w": (conv.query.w, (Fd, GC)), "query.b": (conv.query.b, (GC,)),
-        "key.w": (conv.key.w, (Fs, GC)), "key.b": (conv.key.b, (GC,)),
-        "value.w": (conv.value.w, (Fs, GC)), "value.b": (conv.value.b, (GC,)),
-        "skip.w": (conv.skip.w, (Fd, GC)), "skip.b": (conv.skip.b, (GC,)),
-        "l2.w": (conv.l2.w, (G, C, C)), "l2.b": (conv.l2.b, (G, C)),
-        "edge.w": (conv.edge.w, (GC,)),
-    }
+def reset_counts():
+    for k in launches:
+        launches[k] = 0
+    shape_launches.clear()
+
+
+def _count(kernel, Fs, Fd):
+    launches[kernel] += 1
+    key = (kernel, Fs, Fd)
+    shape_launches[key] = shape_launches.get(key, 0) + 1
+
+
+def _check(x_src, tensors):
     for name, (t, shape) in tensors.items():
         want = torch.int32 if name == "nbr" else torch.float32
         if t.device.type != "cuda" or t.device != x_src.device:
@@ -51,26 +56,118 @@ def apply_period_conv_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, *,
         if t.dtype != want or not t.is_contiguous() or t.shape != shape:
             raise ValueError(f"edge stage: {name} must be contiguous {want} "
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
-    if not (3 <= Fs <= MAX_F and 3 <= Fd <= MAX_F and GC <= MAX_GC
+
+
+def _limits(Fs, Fd, G, C, K):
+    if not (3 <= Fs <= MAX_F and 3 <= Fd <= MAX_F and G * C <= MAX_GC
             and G <= MAX_G and 1 <= K <= MAX_K):
         raise ValueError(f"edge stage takes F<={MAX_F}, G*C<={MAX_GC}, "
                          f"K<={MAX_K}: got F={Fs},{Fd} G={G} C={C} K={K}")
+
+
+def _proj_tensors(conv, x_src, x_dst, GC):
+    (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
+    return {
+        "x_src": (x_src, (Ns, Fs)), "x_dst": (x_dst, (Nd, Fd)),
+        "query.w": (conv.query.w, (Fd, GC)), "query.b": (conv.query.b, (GC,)),
+        "key.w": (conv.key.w, (Fs, GC)), "key.b": (conv.key.b, (GC,)),
+        "value.w": (conv.value.w, (Fs, GC)), "value.b": (conv.value.b, (GC,)),
+        "skip.w": (conv.skip.w, (Fd, GC)), "skip.b": (conv.skip.b, (GC,)),
+    }
+
+
+def _attn_tensors(conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C):
+    Nd, K = x_dst.shape[0], nbr.shape[1]
+    return {
+        "nbr": (nbr, (Nd, K)), "edge_len": (edge_len, (Nd, K)),
+        "nbr_mask": (nbr_mask, (Nd, K)),
+        "l2.w": (conv.l2.w, (G, C, C)), "l2.b": (conv.l2.b, (G, C)),
+        "edge.w": (conv.edge.w, (G * C,)),
+    }
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def apply_period_conv_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, *,
+                           num_gates: int, out_channels: int):
+    """Fused-gate periodic conv on the card, fp32. Returns [Nd, G*C]."""
+    G, C = num_gates, out_channels
+    (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
+    _check(x_src, {**_proj_tensors(conv, x_src, x_dst, G * C),
+                   **_attn_tensors(conv, x_src, x_dst, nbr, edge_len,
+                                   nbr_mask, G, C)})
+    _limits(Fs, Fd, G, C, K)
     fn = _build.function(SOURCE, "edge_stage_forward", _ARGTYPES, NVCC_FLAGS)
-    out = launch(fn, torch.cuda.current_stream(x_src.device).cuda_stream,
-                 conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C)
-    launches += 1
-    shape_launches[(K, Fs, Fd)] = shape_launches.get((K, Fs, Fd), 0) + 1
+    out = launch(fn, _stream(x_src), conv, x_src, x_dst, nbr, edge_len,
+                 nbr_mask, G, C)
+    if Ns + Nd > 0:
+        _count("node_proj", Fs, Fd)
+    if Nd > 0:
+        _count("edge_attn", Fs, Fd)
     return out
+
+
+def node_proj_cuda(conv, x_src, x_dst):
+    """The node projections alone, one node_proj launch. Returns
+    (K [Ns, GC], V [Ns, GC], Q [Nd, GC], skip [Nd, GC])."""
+    GC = conv.key.w.shape[1]
+    (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
+    _check(x_src, _proj_tensors(conv, x_src, x_dst, GC))
+    _limits(Fs, Fd, 1, GC, 1)
+    fn = _build.function(SOURCE, "edge_node_proj", _PROJ_ARGTYPES, NVCC_FLAGS)
+    out = launch_node_proj(fn, _stream(x_src), conv, x_src, x_dst)
+    if Ns + Nd > 0:
+        _count("node_proj", Fs, Fd)
+    return out
+
+
+def edge_attn_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, proj, *,
+                   num_gates: int, out_channels: int):
+    """The edge kernel alone, one edge_attn launch, on the node projections
+    `proj` = (K, V, Q, skip). Returns [Nd, G*C]."""
+    G, C = num_gates, out_channels
+    (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
+    names = ("kn", "vn", "q", "sk")
+    _check(x_src, {
+        "x_src": (x_src, (Ns, Fs)), "x_dst": (x_dst, (Nd, Fd)),
+        "key.w": (conv.key.w, (Fs, G * C)),
+        "value.w": (conv.value.w, (Fs, G * C)),
+        **_attn_tensors(conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C),
+        **{n: (t, (Ns if i < 2 else Nd, G * C))
+           for i, (n, t) in enumerate(zip(names, proj))}})
+    _limits(Fs, Fd, G, C, K)
+    fn = _build.function(SOURCE, "edge_attn_forward", _ATTN_ARGTYPES,
+                         NVCC_FLAGS)
+    out = launch_edge_attn(fn, _stream(x_src), conv, x_src, x_dst, nbr,
+                           edge_len, nbr_mask, proj, G, C)
+    if Nd > 0:
+        _count("edge_attn", Fs, Fd)
+    return out
+
+
+def _empty(n, GC, like):
+    return torch.empty((n, GC), dtype=torch.float32, device=like.device)
+
+
+def _proj_args(conv, x_src, x_dst):
+    (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
+    return [x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
+            conv.query.w.data_ptr(), conv.query.b.data_ptr(),
+            conv.key.w.data_ptr(), conv.key.b.data_ptr(),
+            conv.value.w.data_ptr(), conv.value.b.data_ptr(),
+            conv.skip.w.data_ptr(), conv.skip.b.data_ptr()]
 
 
 def launch(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C):
     """Allocate the output and scratch beside x_src and call the C entry
-    `fn` (the built kernel; tests pass a CPU build of the same source) on
-    checked inputs."""
+    `fn` of the fused conv (the built kernel; tests pass a CPU build of the
+    same source) on checked inputs."""
     (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
-    empty = lambda n: torch.empty((n, G * C), dtype=torch.float32,  # noqa: E731
-                                  device=x_src.device)
-    kn, vn, q, sk, out = empty(Ns), empty(Ns), empty(Nd), empty(Nd), empty(Nd)
+    GC = G * C
+    kn, vn = _empty(Ns, GC, x_src), _empty(Ns, GC, x_src)
+    q, sk, out = _empty(Nd, GC, x_src), _empty(Nd, GC, x_src), _empty(Nd, GC, x_src)
     fn(
         x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
         nbr.data_ptr(), edge_len.data_ptr(), nbr_mask.data_ptr(), K,
@@ -82,4 +179,29 @@ def launch(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C):
         G, C, kn.data_ptr(), vn.data_ptr(), q.data_ptr(), sk.data_ptr(),
         out.data_ptr(), stream,
     )
+    return out
+
+
+def launch_node_proj(fn, stream, conv, x_src, x_dst):
+    """Call the C entry `fn` of node_proj; returns (K, V, Q, skip)."""
+    GC = conv.key.w.shape[1]
+    Ns, Nd = x_src.shape[0], x_dst.shape[0]
+    outs = (_empty(Ns, GC, x_src), _empty(Ns, GC, x_src),
+            _empty(Nd, GC, x_src), _empty(Nd, GC, x_src))
+    fn(*_proj_args(conv, x_src, x_dst), GC,
+       *[t.data_ptr() for t in outs], stream)
+    return outs
+
+
+def launch_edge_attn(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask,
+                     proj, G, C):
+    """Call the C entry `fn` of edge_attn on the projections `proj`."""
+    (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
+    out = _empty(Nd, G * C, x_src)
+    fn(x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
+       nbr.data_ptr(), edge_len.data_ptr(), nbr_mask.data_ptr(), K,
+       *[t.data_ptr() for t in proj],
+       conv.key.w.data_ptr(), conv.value.w.data_ptr(),
+       conv.l2.w.data_ptr(), conv.l2.b.data_ptr(), conv.edge.w.data_ptr(),
+       G, C, out.data_ptr(), stream)
     return out

@@ -85,16 +85,32 @@ def apply_period_conv(conv: PeriodConv, x_src, x_dst, nbr, edge_len,
 
 def apply_period_conv_plain(conv: PeriodConv, x_src, x_dst, nbr, edge_len,
                             nbr_mask, *, num_gates: int, out_channels: int):
-    """Plain PyTorch version (shift decomposition); the kernel's oracle."""
-    G, C = num_gates, out_channels
-    Nd, K = nbr.shape
-    nbr = nbr.long()
+    """Plain PyTorch version (shift decomposition); the kernels' oracle:
+    the node projections, then the edge stage on them."""
+    return edge_attn_plain(
+        conv, x_src, x_dst, nbr, edge_len, nbr_mask,
+        node_projections_plain(conv, x_src, x_dst),
+        num_gates=num_gates, out_channels=out_channels)
 
-    # ---- node-level projections ----
+
+def node_projections_plain(conv: PeriodConv, x_src, x_dst):
+    """The per-node projections (Kn, Vn [Ns, GC]; Q, Sk [Nd, GC]): the
+    plain version of the node_proj kernel."""
     Q = x_dst @ conv.query.w + conv.query.b        # [Nd, GC]
     Kn = x_src @ conv.key.w + conv.key.b           # [Ns, GC]
     Vn = x_src @ conv.value.w + conv.value.b       # [Ns, GC]
     Sk = x_dst @ conv.skip.w + conv.skip.b         # [Nd, GC]
+    return Kn, Vn, Q, Sk
+
+
+def edge_attn_plain(conv: PeriodConv, x_src, x_dst, nbr, edge_len, nbr_mask,
+                    proj, *, num_gates: int, out_channels: int):
+    """The edge stage on the node projections proj = (Kn, Vn, Q, Sk): the
+    plain version of the edge_attn kernel."""
+    G, C = num_gates, out_channels
+    Nd, K = nbr.shape
+    nbr = nbr.long()
+    Kn, Vn, Q, Sk = proj
 
     wk_pos = conv.key.w[:POS_DIM]                  # [3, GC]
     wv_pos = conv.value.w[:POS_DIM]

@@ -1,17 +1,23 @@
 """The CUDA sources under graingraphnn_torch/csrc/, compiled for the CPU
 with g++ against a small emulation of the CUDA subset they use, against
 their plain versions. This checks the kernels' logic (indexing, tiling,
-the block-wide scans, the editor's control flow) where there is no GPU;
-speed and the GPU compiler's view are checked on the card only
-(tests/test_torch_cuda.py, chip_smoke.py).
+tensor-core fragment layouts, the block-wide scans, the editor's control
+flow) where there is no GPU; speed and the GPU compiler's view are checked
+on the card only (tests/test_torch_cuda.py, chip_smoke.py).
 
-Emulation: each block runs its threads as std::threads, one after the
-other block; __syncthreads is a barrier; a warp shuffle exchanges values
-through memory between two barriers. That is exact for these kernels,
-whose every thread reaches every barrier and shuffle."""
+Emulation: each block runs its threads as std::threads, one block after
+the other; __syncthreads is a barrier; a warp shuffle exchanges values
+through memory between two barriers. Dynamic shared memory is a buffer of
+the launch's size. csrc/mma_tf32.cuh is replaced by a C++ header of the
+same name: TF32 rounding as cvt.rna does it, cp.async as a copy, and the
+m16n8k8 product with the PTX fragment layout, its operands exchanged
+through memory between two barriers of the warp. That is exact for these
+kernels, whose every thread reaches every barrier and shuffle, and every
+lane of a warp every product."""
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -32,6 +38,7 @@ EMU_H = r"""
 #include <string.h>
 #include <algorithm>
 #include <barrier>
+#include <memory>
 #include <thread>
 #include <vector>
 using std::max;
@@ -41,19 +48,34 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local std::barrier<>* emu_warp_bar = nullptr;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_bar = nullptr;
 inline std::vector<int64_t>* emu_x = nullptr;
+inline std::vector<uint32_t>* emu_frag = nullptr;
+inline unsigned char* emu_dyn_smem = nullptr;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) alignas(n)
 typedef void* cudaStream_t;
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
+struct int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 template <class T> T emu_pull(T v, int src) {
   int64_t b = 0;
@@ -73,23 +95,42 @@ template <class T> T __shfl_up_sync(unsigned, T v, int d) {
   const int lane = threadIdx.x & 31;
   return emu_pull(v, lane >= d ? (int)threadIdx.x - d : (int)threadIdx.x);
 }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline int atomicSub(int* p, int v) {
+  return __atomic_fetch_sub(p, v, __ATOMIC_SEQ_CST);
+}
+inline int atomicMin(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < old && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
 template <class F, class... A>
-void emu_launch(F kernel, dim3 grid, dim3 block, A... args) {
+void emu_launch(F kernel, dim3 grid, dim3 block, size_t smem, A... args) {
   gridDim = grid;
   blockDim = block;
   for (unsigned b = 0; b < grid.x; ++b) {
     std::barrier<> bar(block.x);
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    for (unsigned w = 0; w < block.x; w += 32)
+      warp_bars.emplace_back(new std::barrier<>(std::min(32u, block.x - w)));
     std::vector<int64_t> x(block.x);
+    std::vector<uint32_t> frag(6 * block.x);
+    std::vector<double> dyn(smem / sizeof(double) + 2);
     emu_bar = &bar;
     emu_x = &x;
+    emu_frag = &frag;
+    emu_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < block.x; ++t)
       ts.emplace_back([&, t] {
         threadIdx = dim3(t);
         blockIdx = dim3(b);
+        emu_warp_bar = warp_bars[t / 32].get();
         kernel(args...);
       });
     for (auto& th : ts) th.join();
@@ -97,11 +138,64 @@ void emu_launch(F kernel, dim3 grid, dim3 block, A... args) {
 }
 """
 
+# csrc/mma_tf32.cuh for the emulation: the same helpers in C++.
+EMU_MMA_H = r"""
+#pragma once
+#include "emu.h"
+// cvt.rna.tf32.f32: to nearest, ties away from zero, 13 low bits cleared
+inline uint32_t to_tf32(float x) {
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0x1000u;
+  return u & 0xffffe000u;
+}
+inline float emu_f(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - emu_f(hi));
+}
+// mma.m16n8k8.row.col.f32.tf32.tf32.f32; g = lane / 4, t = lane % 4:
+// a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); b0 (t, g), b1 (t+4, g);
+// d0 (g, 2t), d1 (g, 2t+1), d2 (g+8, 2t), d3 (g+8, 2t+1)
+inline void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  const int lane = threadIdx.x & 31, w0 = threadIdx.x - lane;
+  uint32_t* mine = &(*emu_frag)[6 * threadIdx.x];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b[0];
+  mine[5] = b[1];
+  emu_warp_bar->arrive_and_wait();
+  auto frag = [&](int l, int reg) { return emu_f((*emu_frag)[6 * (w0 + l) + reg]); };
+  auto A = [&](int r, int k) { return frag(4 * (r & 7) + (k & 3), (r >= 8) + 2 * (k >= 4)); };
+  auto B = [&](int k, int n) { return frag(4 * n + (k & 3), 4 + (k >= 4)); };
+  const int g = lane >> 2, t = lane & 3;
+  float out[4];
+  for (int u = 0; u < 4; ++u) {
+    const int r = g + 8 * (u >> 1), n = 2 * t + (u & 1);
+    float s = 0.f;
+    for (int k = 0; k < 8; ++k) s += A(r, k) * B(k, n);
+    out[u] = d[u] + s;
+  }
+  emu_warp_bar->arrive_and_wait();
+  for (int u = 0; u < 4; ++u) d[u] = out[u];
+}
+inline void cp_async4(void* smem, const void* gmem) { memcpy(smem, gmem, 4); }
+inline void cp_async16(void* smem, const void* gmem) { memcpy(smem, gmem, 16); }
+inline void cp_async_wait_all() {}
+"""
+
 
 def _translate(src: str) -> str:
     """`k<<<grid, block, smem, stream>>>(args)` -> `emu_launch(k, grid,
-    block, args)`; the CUDA runtime header -> the emulation header."""
+    block, smem, args)`; `extern __shared__ T name[];` -> a pointer to the
+    launch's dynamic shared memory; the CUDA runtime header -> the
+    emulation header."""
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", src)
     out, i = [], 0
     while (j := src.find("<<<", i)) >= 0:
         name_start = j
@@ -118,8 +212,10 @@ def _translate(src: str) -> str:
                 cur = ""
             else:
                 cur += ch
-        out += [src[i:name_start],
-                f"emu_launch({src[name_start:j]}, {parts[0]}, {parts[1]}, "]
+        parts.append(cur)
+        smem = parts[2] if len(parts) > 2 else "0"
+        out += [src[i:name_start], f"emu_launch({src[name_start:j]}, "
+                f"{parts[0]}, {parts[1]}, {smem}, "]
         i = k + 4
     return "".join(out) + src[i:]
 
@@ -133,27 +229,27 @@ def emulated(tmp_path_factory):
         pytest.skip("needs g++ with C++20")
     d = tmp_path_factory.mktemp("csrc_emu")
     (d / "emu.h").write_text(EMU_H)
-    built = {}
+    (d / "mma_tf32.cuh").write_text(EMU_MMA_H)
+    libs = {}
 
     def build(source, symbol, argtypes, defines=()):
         key = (source, tuple(defines))
-        if key in built:
-            return built[key]
-        so = d / f"lib{source}{len(built)}.so"
-        with open(os.path.join(_build.CSRC, source + ".cu")) as f:
-            (d / f"{source}.cpp").write_text(_translate(f.read()))
-        subprocess.run(
-            ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
-             "-fPIC", "-pthread", f"-I{d}", *[f"-D{x}" for x in defines],
-             "-o", str(so), str(d / f"{source}.cpp")],
-            check=True, capture_output=True, timeout=600)
-        fn = getattr(ctypes.CDLL(str(so)), symbol)
+        if key not in libs:
+            so = d / f"lib{source}{len(libs)}.so"
+            with open(os.path.join(_build.CSRC, source + ".cu")) as f:
+                (d / f"{source}.cpp").write_text(_translate(f.read()))
+            subprocess.run(
+                ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
+                 "-fPIC", "-pthread", f"-I{d}", *[f"-D{x}" for x in defines],
+                 "-o", str(so), str(d / f"{source}.cpp")],
+                check=True, capture_output=True, timeout=600)
+            libs[key] = ctypes.CDLL(str(so))
+        fn = getattr(libs[key], symbol)
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
 
         def call(*args):
             assert fn(*args) == 0
 
-        built[key] = call
         return call
 
     return build
@@ -185,6 +281,58 @@ def test_edge_stage_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs, Fd):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
+def _random_conv(seed, Fs, Fd, G, C):
+    rng = np.random.default_rng(seed)
+    conv = period_conv.PeriodConv(Fs, Fd, C, G)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.from_numpy(
+                rng.normal(0, 0.3, p.shape).astype(np.float32)))
+    return conv, rng
+
+
+@pytest.mark.parametrize("G,C,Ns,Nd,Fs,Fd", [
+    (4, 96, 70, 131, 107, 104),    # the rollout's widths, ragged row tiles
+    (4, 32, 1, 65, 104, 107),      # one source row
+    (1, 30, 37, 1, 19, 8),         # G*C not a multiple of 4, one dest row
+])
+def test_node_proj_source_matches_plain(emulated, G, C, Ns, Nd, Fs, Fd):
+    """The grouped 3xTF32 node projections against their plain version:
+    F not a multiple of 8, N not a multiple of the 64-row tile."""
+    fn = emulated(edge_stage.SOURCE, "edge_node_proj",
+                  edge_stage._PROJ_ARGTYPES)
+    conv, rng = _random_conv(Ns + Nd, Fs, Fd, G, C)
+    xs = torch.from_numpy(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = torch.from_numpy(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    out = edge_stage.launch_node_proj(fn, 0, conv, xs, xd)
+    ref = period_conv.node_projections_plain(conv, xs, xd)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("K,Nd", [(3, 11), (16, 4)])
+def test_edge_attn_source_matches_plain(emulated, K, Nd):
+    """The edge kernel alone on the plain node projections."""
+    G, C, Ns, Fs, Fd = 4, 8, 13, 11, 9
+    fn = emulated(edge_stage.SOURCE, "edge_attn_forward",
+                  edge_stage._ATTN_ARGTYPES)
+    conv, rng = _random_conv(K, Fs, Fd, G, C)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = (rng.uniform(size=(Nd, K)) < 0.7).astype(np.float32)
+    mask[::3] = 0.0
+    mask = t(mask)
+    proj = period_conv.node_projections_plain(conv, xs, xd)
+    out = edge_stage.launch_edge_attn(fn, 0, conv, xs, xd, nbr, ln, mask,
+                                      proj, G, C)
+    ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask, proj,
+                                      num_gates=G, out_channels=C)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
 def _editor_cases():
     x, edges, mask, lxd, patch = dd.load_fixture()
     st, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch, device="cpu")
@@ -197,13 +345,17 @@ def _editor_cases():
         mask_g=st.mask_g, mask_j=st.mask_j, append_ptr=st.n_pp)
     cases = [chip_smoke.forced_editor_inputs(ts, s, n_sw, n_el)
              for s, n_sw, n_el in ((0, 8, 2), (1, 24, 4), (2, 30, 0))]
-    return cases + chip_smoke.forced_out_chain(ts)
+    return (cases + [chip_smoke.clustered_switch_inputs(ts)]
+            + chip_smoke.forced_out_chain(ts))
 
 
+@pytest.mark.parametrize("staged", [True, False])
 @pytest.mark.parametrize("threads", [64, 96])
-def test_editor_source_matches_plain(emulated, threads):
+def test_editor_source_matches_plain(emulated, threads, staged):
     """Threads per block are a compile-time constant; 64 and 96 give two
-    and three warps and uneven scan chunks (the card uses 512)."""
+    and three warps and uneven scan chunks (the card uses more). Both
+    instantiations: the state staged in shared memory and in device
+    memory."""
     fn = emulated(editor_fused.SOURCE, "editor_update",
                   editor_fused._ARGTYPES, (f"EDITOR_THREADS={threads}",))
     cases = _editor_cases()
@@ -213,7 +365,7 @@ def test_editor_source_matches_plain(emulated, threads):
         NG = ts.mask_g.shape[0]
         ref = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG)
         out = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
-                                  tj.MAX_SWITCH)
+                                  tj.MAX_SWITCH, staged)
         for f in ("E_pp", "E_pq", "mask_g", "mask_j", "append_ptr"):
             assert torch.equal(getattr(out[0], f), getattr(ref[0], f)), f
         assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
@@ -222,3 +374,30 @@ def test_editor_source_matches_plain(emulated, threads):
                                        getattr(ref[0], f), atol=1e-6, rtol=0)
         n_extra += int((ref[2] >= 0).sum())
     assert n_extra >= 1            # the forced elimination ran
+
+
+def test_editor_candidates_beyond_max_switch(emulated):
+    """More candidates over the threshold than max_switch, with tied
+    probabilities: the rank selection keeps the first max_switch in
+    (-p, column) order."""
+    fn = emulated(editor_fused.SOURCE, "editor_update",
+                  editor_fused._ARGTYPES, ("EDITOR_THREADS=64",))
+    ts = _editor_cases()[0][0]
+    E = ts.E_pp
+    rng = np.random.default_rng(3)
+    logits = torch.full((E.shape[1],), -50.0)
+    cand = torch.nonzero((E[0] < E[1]) & (E[0] >= 0)).flatten()
+    pick = cand[torch.from_numpy(rng.choice(len(cand), 90, replace=False))]
+    logits[pick] = torch.from_numpy(
+        rng.choice([6.0, 7.0, 9.0], 90).astype(np.float32))
+    prob = torch.sigmoid(logits)
+    NG = ts.mask_g.shape[0]
+    ge = torch.full((tj.MAX_ELIM,), -1, dtype=torch.int32)
+    yg = torch.zeros((NG, 2))
+    ref = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG)
+    for staged in (True, False):
+        out = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
+                                  tj.MAX_SWITCH, staged)
+        assert torch.equal(out[1], ref[1])
+        assert torch.equal(out[0].E_pp, ref[0].E_pp)
+    assert int((ref[1][:, 0] >= 0).sum()) > 0

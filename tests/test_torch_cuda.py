@@ -58,19 +58,40 @@ def test_edge_stage_kernel_matches_plain(K, Ns, Nd, Fs, Fd):
     mask = (rng.uniform(size=(Nd, K)) < 0.8).astype(np.float32)
     mask[::9] = 0.0
     mask = t(mask)
-    before = edge_stage.launches
+    before = dict(edge_stage.launches)
     out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln, mask,
                                             num_gates=G, out_channels=C)
     ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln, mask,
                                               num_gates=G, out_channels=C)
     torch.cuda.synchronize()
-    assert edge_stage.launches == before + 1
+    assert edge_stage.launches == {k: v + 1 for k, v in before.items()}
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
-    # dispatch by device: CUDA tensors go to the kernel
+    # dispatch by device: CUDA tensors go to the kernels
     again = period_conv.apply_period_conv(conv, xs, xd, nbr, ln, mask,
                                           num_gates=G, out_channels=C)
-    assert edge_stage.launches == before + 2
+    assert edge_stage.launches == {k: v + 2 for k, v in before.items()}
     torch.testing.assert_close(again, out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("Ns,Nd,Fs,Fd", [(1043, 2086, 107, 104),
+                                         (2086, 2086, 104, 104),
+                                         (2086, 1043, 104, 107),
+                                         (1, 65, 19, 8)])
+def test_node_proj_kernel_matches_plain(Ns, Nd, Fs, Fd):
+    """The grouped 3xTF32 node projections at the rollout's three conv
+    shapes (and a ragged one), one launch for all four products."""
+    dev = card()
+    G, C = 4, 96
+    rng = np.random.default_rng(Ns + Fs)
+    conv = random_conv(Nd, Fs, Fd, G, C, dev)
+    xs = torch.from_numpy(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32)).to(dev)
+    xd = torch.from_numpy(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32)).to(dev)
+    before = edge_stage.launches["node_proj"]
+    out = edge_stage.node_proj_cuda(conv, xs, xd)
+    torch.cuda.synchronize()
+    assert edge_stage.launches["node_proj"] == before + 1
+    for o, r in zip(out, period_conv.node_projections_plain(conv, xs, xd)):
+        torch.testing.assert_close(o, r, atol=ATOL, rtol=RTOL)
 
 
 def test_edge_stage_kernel_refuses_what_it_cannot_take():
@@ -97,9 +118,13 @@ def state120():
     return st
 
 
+@pytest.mark.parametrize("force_global", [False, True])
 @pytest.mark.parametrize("seed,n_switch,n_elim", [(0, 8, 2), (1, 24, 4),
                                                   (2, 0, 8), (3, 30, 0)])
-def test_editor_kernel_matches_plain(state120, seed, n_switch, n_elim):
+def test_editor_kernel_matches_plain(state120, seed, n_switch, n_elim,
+                                     force_global):
+    """Both instantiations (state staged in shared memory, the 120 um
+    default, and in device memory) against the plain version."""
     dev = card()
     st = state120
     rng = np.random.default_rng(seed)
@@ -120,11 +145,14 @@ def test_editor_kernel_matches_plain(state120, seed, n_switch, n_elim):
         y_joint=torch.from_numpy(
             rng.uniform(-0.9, 0.9, (NJ, 2)).astype(np.float32)).to(dev),
         mask_g=st.mask_g, mask_j=st.mask_j, append_ptr=st.n_pp)
-    before = editor_fused.launches
+    before = dict(editor_fused.launches)
     chip_smoke.check_editor_case(
         ts, torch.from_numpy(logits).to(dev), torch.from_numpy(ge).to(dev),
-        torch.from_numpy(y_grain.astype(np.float32)).to(dev), 0.6, NG)
-    assert editor_fused.launches == before + 1
+        torch.from_numpy(y_grain.astype(np.float32)).to(dev), 0.6, NG,
+        force_global)
+    which = "global" if force_global else "staged"
+    assert editor_fused.launches == {
+        k: v + (k == which) for k, v in before.items()}
 
 
 def test_span_on_the_card_matches_the_cpu_span(state120):
@@ -136,9 +164,11 @@ def test_span_on_the_card_matches_the_cpu_span(state120):
     cls_c, _, _ = checkpoint.load_model(path + "classifier1", "cpu")
     st = state120
     st_c = dr.DeviceRolloutState(**{k: v.cpu() for k, v in vars(st).items()})
-    e0, k0 = edge_stage.launches, editor_fused.launches
+    edge_stage.reset_counts()
+    editor_fused.reset_counts()
     s1, aux1 = dr.device_step(reg, cls, st, c_threshold=0.99)
-    assert (edge_stage.launches - e0, editor_fused.launches - k0) == (12, 1)
+    assert edge_stage.launches == {"node_proj": 12, "edge_attn": 12}
+    assert editor_fused.launches == {"staged": 1, "global": 0}
     s0, aux0 = dr.device_step(reg_c, cls_c, st_c, c_threshold=0.99)
     for f in ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp"):
         assert torch.equal(getattr(s1, f).cpu(), getattr(s0, f)), f
@@ -154,11 +184,12 @@ def test_editor_kernel_matches_plain_on_a_forced_elimination(state120):
                       mask_g=st.mask_g, mask_j=st.mask_j, append_ptr=st.n_pp)
     chain = chip_smoke.forced_out_chain(ts)
     assert chain
-    for s, logits, ge, yg in chain:
-        (_, _, extra), _ = chip_smoke.check_editor_case(
-            chip_smoke._to(s, dev), logits.to(dev), ge.to(dev), yg.to(dev),
-            0.6, st.xg.shape[0])
-    assert int((extra >= 0).sum()) == 1
+    for force_global in (False, True):
+        for s, logits, ge, yg in chain:
+            (_, _, extra), _ = chip_smoke.check_editor_case(
+                chip_smoke._to(s, dev), logits.to(dev), ge.to(dev),
+                yg.to(dev), 0.6, st.xg.shape[0], force_global)
+        assert int((extra >= 0).sum()) == 1
 
 
 def test_span_makes_no_host_sync(state120):

@@ -165,3 +165,28 @@ def test_forced_elimination_matches_jax(graph):
         assert_equal(ref, out)
     forced = out[2][out[2] >= 0]
     assert len(forced) == 1 and int(out[0].mask_g[forced[0]]) == 0
+
+
+def test_clustered_switches_match_jax(graph):
+    """Switches on every jj edge around a few neighbouring grains
+    (chip_smoke.clustered_switch_inputs): later events share joints with
+    earlier ones, so the lookahead's choices are held to JAX too."""
+    from chip_smoke import clustered_switch_inputs
+
+    NG = len(graph["mask_g"])
+    ts0 = ttj.TopoState(
+        E_pp=torch.from_numpy(graph["E_pp"]),
+        E_pq=torch.from_numpy(graph["E_pq"]),
+        xj=torch.from_numpy(graph["xj"]),
+        y_joint=torch.zeros(len(graph["xj"]), 2),
+        mask_g=torch.from_numpy(graph["mask_g"]),
+        mask_j=torch.from_numpy(graph["mask_j"]),
+        append_ptr=torch.tensor(graph["n_pp"], dtype=torch.int32))
+    st, logits, ge, yg = clustered_switch_inputs(ts0, range(0, 30, 5))
+    js = tj.TopoState(**{k: jnp.asarray(v.numpy()) for k, v in vars(st).items()})
+    ref = epal.update_fused(js, jnp.asarray(logits.numpy()),
+                            jnp.asarray(ge.numpy()), jnp.asarray(yg.numpy()),
+                            0.6, NG, use_pallas=False)
+    out = editor_fused.update_fused(st, logits, ge, yg, 0.6, NG)
+    assert_equal(ref, out)
+    assert int((out[1][:, 0] >= 0).sum()) >= 8
