@@ -2,16 +2,15 @@
 
     python3 chip_smoke.py            # every phase, one card
 
-Phases: (1) the device, (2) building the CUDA sources in csrc/, (3) the
-fused PeriodConv edge stage against its plain version at the rollout's
-three conv shapes, and each of its two kernels (node_proj, edge_attn)
-alone against its own plain version, timed beside it, (4) both
-instantiations of the topology-editor kernel (state staged in shared
-memory, state in device memory) against its plain version on the first
-span's editor inputs and on forced scenarios, (5) a 20-span
-device-resident rollout of the 120 um fixture graph with the shipped
-checkpoints through all three kernels, with launch counts, throughput, the
-editor timed on each span's own inputs, and a CPU reference span. Prints
+Phases: (1) the device, (2) building the CUDA sources in csrc/, (3) a
+20-span device-resident rollout of the 120 um fixture graph with the
+shipped checkpoints through all three kernels, with launch counts, peak
+memory, throughput and the editor timed on each span's own inputs, (4)
+the fused PeriodConv edge stage against its plain version at the
+rollout's three conv shapes, and each of its two kernels (node_proj,
+edge_attn) alone against its own plain version, timed beside it, (5) the
+topology-editor kernel against its plain version on the first span's
+editor inputs and on forced scenarios, (6) a CPU reference span. Prints
 one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -71,22 +70,6 @@ def cuda_ms(fn, n=50, warmup=3):
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t0.record()
     graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
-
-
-def eager_ms(fn, n=50, warmup=3):
-    """Mean time of fn() over n calls issued from Python, between two CUDA
-    events: the larger of the device's time and the host's time to issue
-    the calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for _ in range(n):
-        fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
@@ -221,8 +204,6 @@ def phase_edge_stage(reg, state):
         t = {
             "conv": cuda_ms(lambda: edge_stage.apply_period_conv_cuda(
                 conv, xs, xd, nbr, ln, m, **kw)),
-            "conv_eager": eager_ms(lambda: edge_stage.apply_period_conv_cuda(
-                conv, xs, xd, nbr, ln, m, **kw)),
             "node_proj": cuda_ms(lambda: edge_stage.node_proj_cuda(
                 conv, xs, xd)),
             "node_proj_plain": cuda_ms(
@@ -246,7 +227,6 @@ def phase_edge_stage(reg, state):
             ms=t["node_proj"], plain_ms=t["node_proj_plain"],
             bound_ms=np_bound, bound_by=np_by,
             library_ms=t["node_proj_library"],
-            bound_fp32_ms=np_flops / PEAK_FP32 * 1e3,
             check=f"pass: atol {ATOL} rtol {RTOL}")
         rows[("edge_attn", Fs, Fd)] = dict(
             name=f"edge_attn_{name}", route="cuda", source=src,
@@ -259,6 +239,7 @@ def phase_edge_stage(reg, state):
              max_abs_err=err, max_rel_err=rel, atol=ATOL, rtol=RTOL,
              ms=t, node_proj_gflop=np_flops / 1e9,
              node_proj_mbytes=np_bytes / 1e6, node_proj_bound_ms=np_bound,
+             node_proj_bound_fp32_ms=np_flops / PEAK_FP32 * 1e3,
              node_proj_tflops=np_flops / t["node_proj"] / 1e9,
              edge_attn_gflop=ea_flops / 1e9, edge_attn_bound_ms=ea_bound,
              edge_attn_tflops=ea_flops / t["edge_attn"] / 1e9)
@@ -384,13 +365,12 @@ def forced_out_chain(tstate, max_grains=40):
     return []
 
 
-def check_editor_case(ts, logits, ge, yg, thr, NG, force_global=False):
+def check_editor_case(ts, logits, ge, yg, thr, NG):
     """The editor kernel against its plain version on CPU copies of the same
     inputs and the same probabilities: integer outputs bit-equal, floats
     within EDITOR_ATOL. Returns (plain outputs, float max abs err)."""
     prob = torch.sigmoid(logits)          # one tensor for both versions
-    s_k, sw_k, ex_k = editor_fused.update_from_prob(
-        ts, prob, ge, yg, thr, NG, force_global=force_global)
+    s_k, sw_k, ex_k = editor_fused.update_from_prob(ts, prob, ge, yg, thr, NG)
     torch.cuda.synchronize()
     s_p, sw_p, ex_p = editor_fused.update_from_prob(
         _to(ts, "cpu"), prob.cpu(), ge.cpu(), yg.cpu(), thr, NG)
@@ -409,18 +389,18 @@ def check_editor_case(ts, logits, ge, yg, thr, NG, force_global=False):
     return (s_p, sw_p, ex_p), err
 
 
-def editor_ms(args, NG, force_global=False, n=20):
+def editor_ms(args, NG, n=20):
     """Device time of one editor launch on args = (state, logits, ge,
     y_grain, threshold), from CUDA events."""
     ts, logits, ge, yg, thr = args
     prob = torch.sigmoid(logits)
     return cuda_ms(lambda: editor_fused.update_from_prob(
-        ts, prob, ge, yg, thr, NG, force_global=force_global), n=n)
+        ts, prob, ge, yg, thr, NG), n=n)
 
 
 def phase_editor(reg, cls, state):
-    """Both instantiations against the plain version on every case, and
-    their device times on the first span's inputs."""
+    """The kernel against the plain version on every case, and its device
+    time on the first span's inputs."""
     dev = state.E_pp.device
     first = editor_inputs(reg, cls, state)
     cases = [("span1", first, C_THRESHOLD),
@@ -434,20 +414,11 @@ def phase_editor(reg, cls, state):
         a.to(dev) if isinstance(a, torch.Tensor) else _to(a, dev)
         for a in args), 0.6) for i, args in enumerate(chain)]
     NG = state.xg.shape[0]
-    ts = first[0]
-    nbytes = editor_fused.staged_bytes(ts.E_pp.shape[1], ts.E_pq.shape[1],
-                                       ts.xj.shape[0], NG)
-    if nbytes > editor_fused.STAGED_MAX_BYTES:
-        raise RuntimeError(f"editor: the 120 um state takes {nbytes} bytes, "
-                           "over the staged limit")
     err = 0.0
     for name, (ts, logits, ge, yg), thr in cases:
-        for force_global in (False, True):
-            (s_p, sw_p, ex_p), e = check_editor_case(ts, logits, ge, yg, thr,
-                                                     NG, force_global)
-            err = max(err, e)
-        emit(phase="editor", case=name, instantiations=["staged", "global"],
-             ints_equal=True, max_abs_err=e,
+        (s_p, sw_p, ex_p), e = check_editor_case(ts, logits, ge, yg, thr, NG)
+        err = max(err, e)
+        emit(phase="editor", case=name, ints_equal=True, max_abs_err=e,
              switches=int((sw_p[:, 0] >= 0).sum()),
              grains_deleted=int((ts.mask_g.cpu() != s_p.mask_g).sum()),
              extra=int((ex_p >= 0).sum()))
@@ -455,22 +426,19 @@ def phase_editor(reg, cls, state):
         raise RuntimeError("editor: the forced elimination did not happen")
     args = (*first, C_THRESHOLD)
     ms = editor_ms(args, NG)
-    ms_global = editor_ms(args, NG, force_global=True)
     ts, logits, ge, yg = first
     t0 = time.perf_counter()
     editor_fused.update_fused(_to(ts, "cpu"), logits.cpu(), ge.cpu(),
                               yg.cpu(), C_THRESHOLD, NG)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    emit(phase="editor_time", first_span_ms=ms, first_span_ms_global=ms_global,
-         plain_cpu_ms=plain_ms, staged_bytes=nbytes)
+    emit(phase="editor_time", first_span_ms=ms, plain_cpu_ms=plain_ms)
     return dict(name="editor", route="cuda",
                 source="graingraphnn_torch/csrc/editor.cu",
                 replaces=REPLACES["editor"], max_abs_err=err,
-                ms_first_span=ms, ms_first_span_global=ms_global,
-                plain_ms_first_span=plain_ms, library_ms=None,
-                staged_bytes=nbytes,
+                ms_first_span=ms, plain_ms_first_span=plain_ms,
+                library_ms=None,
                 check=f"pass: integers bit-equal, floats atol {EDITOR_ATOL}, "
-                      f"{len(cases)} cases x 2 instantiations")
+                      f"{len(cases)} cases")
 
 
 def editor_bound(args):
@@ -485,15 +453,24 @@ def editor_bound(args):
 
 
 def phase_rollout(reg, cls, state, n_spans):
-    """The counted main-path run: every launch count set to 0 just before,
-    read just after. The editor's inputs of each span are kept (copied on
-    the card as they pass) and each is timed after the run."""
+    """The counted main-path run, after a warm-up: every launch count set
+    to 0 and the peak memory reset just before, both read just after. One
+    more run keeps the editor's inputs of each span (copied on the card as
+    they pass), and each is timed after it."""
     run = dr.make_rollout(reg, cls, n_steps=n_spans, c_threshold=C_THRESHOLD)
+    run(state)                                   # warm-up
     torch.cuda.synchronize()
+    edge_stage.reset_counts()
+    editor_fused.launches = 0
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    run(state)                    # warm-up, the same run: its peak memory
+    final, aux = run(state)                      # the counted main-path run
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    launches = {"node_proj": edge_stage.launches["node_proj"],
+                "edge_attn": edge_stage.launches["edge_attn"],
+                "by_shape": dict(edge_stage.shape_launches),
+                "editor": editor_fused.launches}
     spans = []
     update_fused = editor_fused.update_fused
 
@@ -503,19 +480,14 @@ def phase_rollout(reg, cls, state, n_spans):
                       logits.clone(), ge.clone(), yg.clone(), thr))
         return update_fused(ts, logits, ge, yg, thr, NG, **kw)
 
-    edge_stage.reset_counts()
-    editor_fused.reset_counts()
     editor_fused.update_fused = keep
     try:
-        final, aux = run(state)                  # the counted main-path run
+        again, _ = run(state)
         torch.cuda.synchronize()
     finally:
         editor_fused.update_fused = update_fused
-    launches = {"node_proj": edge_stage.launches["node_proj"],
-                "edge_attn": edge_stage.launches["edge_attn"],
-                "by_shape": dict(edge_stage.shape_launches),
-                "editor_staged": editor_fused.launches["staged"],
-                "editor_global": editor_fused.launches["global"]}
+    same_run = all(torch.equal(getattr(final, f), getattr(again, f))
+                   for f in ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp"))
     dts = []
     for _ in range(4):
         t0 = time.perf_counter()
@@ -523,7 +495,7 @@ def phase_rollout(reg, cls, state, n_spans):
         torch.cuda.synchronize()
         dts.append(time.perf_counter() - t0)
     want = {"node_proj": 12 * n_spans, "edge_attn": 12 * n_spans,
-            "editor_staged": n_spans, "editor_global": 0}
+            "editor": n_spans}
     if any(launches[k] != v for k, v in want.items()):
         raise RuntimeError(f"launch counts {launches} for {n_spans} spans")
     for name, t in vars(final).items():
@@ -531,7 +503,6 @@ def phase_rollout(reg, cls, state, n_spans):
             raise RuntimeError(f"rollout: non-finite {name}")
     NG = state.xg.shape[0]
     span_ms = [editor_ms(a, NG, n=5) for a in spans]
-    span_ms_global = [editor_ms(a, NG, force_global=True, n=5) for a in spans]
     plain_ms = []
     for ts, logits, ge, yg, thr in spans:
         args = (_to(ts, "cpu"), logits.cpu(), ge.cpu(), yg.cpu(), thr, NG)
@@ -539,17 +510,16 @@ def phase_rollout(reg, cls, state, n_spans):
         update_fused(*args)
         plain_ms.append((time.perf_counter() - t0) * 1e3)
     editor = dict(ms=sum(span_ms) / len(span_ms),
-                  ms_global=sum(span_ms_global) / len(span_ms_global),
                   plain_ms=sum(plain_ms) / len(plain_ms),
                   bound=editor_bound(spans[0]))
     edges = float(aux["message_edges"].sum())
     dt = min(dts)
     emit(phase="rollout", spans=n_spans, edges=edges, seconds=dts,
          edges_per_s=edges / dt, ms_per_span=dt / n_spans * 1e3,
-         peak_mem_bytes=peak, launches={
+         peak_mem_bytes=peak, resident_mem_bytes=resident, launches={
              k: ({str(kk): vv for kk, vv in v.items()} if k == "by_shape"
                  else v) for k, v in launches.items()},
-         editor_span_ms=span_ms, editor_span_ms_global=span_ms_global,
+         editor_span_ms=span_ms, editor_inputs_as_counted_run=same_run,
          ring_overflow=int(aux["ring_overflow"].sum()),
          pp_overflow=int(aux["pp_overflow"].sum()),
          elim_saturated=int(aux["elim_saturated"].sum()),
@@ -627,9 +597,9 @@ def main():
     x, edges, mask, lxd, patch = dd.load_fixture()
     state, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch, device=cuda)
 
+    launches, editor = phase_rollout(reg, cls, state, N_SPANS)
     conv_rows = phase_edge_stage(reg, state)
     editor_row = phase_editor(reg, cls, state)
-    launches, editor = phase_rollout(reg, cls, state, N_SPANS)
     if args.profile:
         phase_profile(reg, cls, state, N_SPANS)
     reg_cpu, _, _ = checkpoint.load_model("artifacts/40um/regressor0", "cpu")
@@ -640,11 +610,8 @@ def main():
                for key, row in conv_rows.items()]
     bound_ms, bound_by = editor["bound"]
     kernels.append(dict(
-        editor_row, ms=editor["ms"], ms_global=editor["ms_global"],
-        plain_ms=editor["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-        launches=launches["editor_staged"] + launches["editor_global"],
-        launches_staged=launches["editor_staged"],
-        launches_global=launches["editor_global"]))
+        editor_row, ms=editor["ms"], plain_ms=editor["plain_ms"],
+        bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

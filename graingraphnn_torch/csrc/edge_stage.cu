@@ -64,6 +64,15 @@ constexpr int NP_SMEM = (NP_BM * NP_XS + MAX_F * NP_WS) * (int)sizeof(float);
 constexpr int NP_BLOCKS = 232448 / (NP_SMEM + 1024);   // blocks an SM holds
 static_assert(NP_BN <= NP_XS && NP_BLOCKS >= 1, "node_proj tiles");
 
+// A build with -DNODE_PROJ_PART=1 leaves out node_proj's products, and one
+// with 2 its device-memory loads and stores; they exist to time the parts
+// (scripts/torch_kernel_probe.py) and compute nothing of use.
+#ifndef NODE_PROJ_PART
+#define NODE_PROJ_PART 0
+#endif
+constexpr bool NP_PRODUCTS = NODE_PROJ_PART != 1;
+constexpr bool NP_MEMORY = NODE_PROJ_PART != 2;
+
 struct Proj {                             // y [N, GC] = x [N, F] w [F, GC] + b
   const float* x; const float* w; const float* b; float* y; int N, F;
 };
@@ -94,11 +103,11 @@ __global__ void __launch_bounds__(NP_THREADS, NP_BLOCKS) node_proj(ProjSet P) {
     const int r = i / (Fp / 4), f = (i % (Fp / 4)) * 4;
     float* dst = xs + r * NP_XS + f;
     const float* src = pr.x + (size_t)(row0 + r) * F + f;
-    if (xvec && r < nrows && f < F) {
+    if (NP_MEMORY && xvec && r < nrows && f < F) {
       cp_async16(dst, src);
     } else {
       for (int u = 0; u < 4; ++u) {
-        if (r < nrows && f + u < F) cp_async4(dst + u, src + u);
+        if (NP_MEMORY && r < nrows && f + u < F) cp_async4(dst + u, src + u);
         else dst[u] = 0.f;
       }
     }
@@ -107,11 +116,11 @@ __global__ void __launch_bounds__(NP_THREADS, NP_BLOCKS) node_proj(ProjSet P) {
     const int f = i / (NP_BN / 4), c = (i % (NP_BN / 4)) * 4;
     float* dst = ws + f * NP_WS + c;
     const float* src = pr.w + (size_t)f * GC + col0 + c;
-    if (wvec && f < F && c + 4 <= ncols) {
+    if (NP_MEMORY && wvec && f < F && c + 4 <= ncols) {
       cp_async16(dst, src);
     } else {
       for (int u = 0; u < 4; ++u) {
-        if (f < F && c + u < ncols) cp_async4(dst + u, src + u);
+        if (NP_MEMORY && f < F && c + u < ncols) cp_async4(dst + u, src + u);
         else dst[u] = 0.f;
       }
     }
@@ -131,7 +140,7 @@ __global__ void __launch_bounds__(NP_THREADS, NP_BLOCKS) node_proj(ProjSet P) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc[mi][ni][u] = 0.f;
 
-  for (int k0 = 0; k0 < Fp && !idle; k0 += 8) {
+  for (int k0 = 0; NP_PRODUCTS && k0 < Fp && !idle; k0 += 8) {
     uint32_t ah[NP_MI][4], al[NP_MI][4];
 #pragma unroll
     for (int mi = 0; mi < NP_MI; ++mi) {
@@ -176,6 +185,7 @@ __global__ void __launch_bounds__(NP_THREADS, NP_BLOCKS) node_proj(ProjSet P) {
   for (int i = threadIdx.x; i < NP_BM * (NP_BN / 4); i += NP_THREADS) {
     const int r = i / (NP_BN / 4), c = (i % (NP_BN / 4)) * 4;
     if (r >= nrows || c >= ncols) continue;
+    if (!NP_MEMORY && acc[0][0][0] != 12345.f) continue;   // keep the products
     const float* o = os + r * NP_XS + c;
     const float* b = pr.b + col0 + c;
     float* y = pr.y + (size_t)(row0 + r) * GC + col0 + c;

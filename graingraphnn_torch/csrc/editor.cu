@@ -31,14 +31,9 @@
 // warp-parallel lookahead with no barrier, and ONE pass for the writes to
 // E_pp. The candidate switches come from one compaction and a rank-based
 // top-max_switch selection; a ring collapse finds the grains across all
-// its ring edges in two atomicMin passes. One body, two instantiations of
-// the kernel by where the arrays live: editor_kernel<true> copies E_pp,
-// E_pq, the joint positions and keeps the ring counts, the candidate list
-// and the junction index in dynamic shared memory (206,872 bytes at
-// 120 um), runs every scan there and writes the state back once at its
-// end; editor_kernel<false> keeps them in device memory, for states too
-// large for a block's shared memory. The wrapper picks by the state's
-// size.
+// its ring edges in two atomicMin passes. The state's arrays stay in
+// device memory, where L1 and L2 hold them through the chain: a version
+// that staged them in shared memory saved only ~5 % at 120 um.
 //
 // Build with -fmad=false: the switch reposition and the displacement
 // rollback are float32 arithmetic whose results the plain version
@@ -69,9 +64,8 @@ static_assert(NT % WARP == 0 && NWARP <= WARP && KMAX <= NT, "block shape");
 struct Ed {                        // editor state
   int* pp0; int* pp1; int EP;      // E_pp rows (source, destination joint)
   int* pq0; int* pq1; int EQ;      // E_pq rows (joint, grain)
-  float* px; float* py; int ps;    // joint j's position at px[j * ps]
   int NJ;
-  float* xj; int xs;               // joint features in device memory
+  float* xj; int xs;               // [NJ, xs] joint features, position in 0:2
   float* yj;                       // [NJ, 2] predicted displacement
   int* mg; int NG;                 // grain mask
   int* mj;                         // joint mask
@@ -102,8 +96,8 @@ __shared__ int s_tg[KMAX], s_drop[KMAX]; // two-sided cleanup targets, deletions
 __device__ __forceinline__ int gi(const int* v, int n, int i) {
   return (i >= 0 && i < n) ? v[i] : 0;
 }
-__device__ __forceinline__ float& posx(Ed& S, int j) { return S.px[(size_t)j * S.ps]; }
-__device__ __forceinline__ float& posy(Ed& S, int j) { return S.py[(size_t)j * S.ps]; }
+__device__ __forceinline__ float& posx(Ed& S, int j) { return S.xj[(size_t)j * S.xs]; }
+__device__ __forceinline__ float& posy(Ed& S, int j) { return S.xj[(size_t)j * S.xs + 1]; }
 __device__ __forceinline__ float gfx(Ed& S, int j) { return (j >= 0 && j < S.NJ) ? posx(S, j) : 0.f; }
 __device__ __forceinline__ float gfy(Ed& S, int j) { return (j >= 0 && j < S.NJ) ? posy(S, j) : 0.f; }
 __device__ __forceinline__ void put(int* v, int n, int i, int val) {
@@ -734,7 +728,7 @@ __device__ __noinline__ void select_switches(Ed& S, const float* prob,
   __syncthreads();
 }
 
-// The whole edit of one span on the state S (in shared memory).
+// The whole edit of one span on the state S.
 __device__ __noinline__ void edit(Ed& S, const float* prob, const float* yg0,
                                   const int* ge, int GE, float threshold,
                                   int num_grains, int MS, int* sw, int* extra,
@@ -798,53 +792,20 @@ __device__ __noinline__ void edit(Ed& S, const float* prob, const float* yg0,
   put_extra(s_drop, ts_budget);
 }
 
-// Dynamic shared memory of editor_kernel<true>, in 4-byte words: E_pp,
-// E_pq, positions, ring counts, candidate list, junction index.
-__host__ __device__ size_t staged_words(int EP, int EQ, int NJ, int num_grains) {
-  return 2 * (size_t)EP + 2 * (size_t)EQ + 2 * (size_t)NJ + num_grains +
-         2 * (size_t)EP + (size_t)NJ + 1 + EQ;
-}
-
-// STAGED: the state's arrays are copied into dynamic shared memory, edited
-// there and written back; otherwise they stay in device memory (G holds
-// them and the scratch for the ring counts and candidates).
-template <bool STAGED>
+// G holds the state's arrays and the scratch for the ring counts, the
+// candidates and the junction index, all in device memory.
 __global__ void __launch_bounds__(NT) editor_kernel(
     Ed G, const float* __restrict__ prob, const float* __restrict__ yg0,
     const int* __restrict__ ge, int GE, float threshold, int num_grains,
     int MS, int* ptr_io, int* sw, int* extra, int max_extra) {
-  extern __shared__ __align__(16) int ed_smem[];
-  const int tid = threadIdx.x;
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     s_S = G;
     s_S.ptr = *ptr_io;
-    if (STAGED) {
-      int* m = ed_smem;
-      s_S.pp0 = m; s_S.pp1 = m + G.EP; m += 2 * G.EP;
-      s_S.pq0 = m; s_S.pq1 = m + G.EQ; m += 2 * G.EQ;
-      s_S.px = reinterpret_cast<float*>(m); s_S.py = s_S.px + G.NJ; s_S.ps = 1;
-      m += 2 * G.NJ;
-      s_S.cnt = m; m += num_grains;
-      s_S.cp = reinterpret_cast<float*>(m); s_S.cc = m + G.EP; m += 2 * G.EP;
-      s_S.jo = m; s_S.jc = m + G.NJ + 1;
-    }
   }
   __syncthreads();
-  Ed& S = s_S;
-  if (STAGED) {
-    for (int i = tid; i < G.EP; i += NT) { S.pp0[i] = G.pp0[i]; S.pp1[i] = G.pp1[i]; }
-    for (int i = tid; i < G.EQ; i += NT) { S.pq0[i] = G.pq0[i]; S.pq1[i] = G.pq1[i]; }
-    for (int j = tid; j < G.NJ; j += NT) { S.px[j] = posx(G, j); S.py[j] = posy(G, j); }
-    __syncthreads();
-  }
-  edit(S, prob, yg0, ge, GE, threshold, num_grains, MS, sw, extra, max_extra);
+  edit(s_S, prob, yg0, ge, GE, threshold, num_grains, MS, sw, extra, max_extra);
   __syncthreads();
-  if (STAGED) {
-    for (int i = tid; i < G.EP; i += NT) { G.pp0[i] = S.pp0[i]; G.pp1[i] = S.pp1[i]; }
-    for (int i = tid; i < G.EQ; i += NT) { G.pq0[i] = S.pq0[i]; G.pq1[i] = S.pq1[i]; }
-    for (int j = tid; j < G.NJ; j += NT) { posx(G, j) = S.px[j]; posy(G, j) = S.py[j]; }
-  }
-  if (tid == 0) *ptr_io = S.ptr;
+  if (threadIdx.x == 0) *ptr_io = s_S.ptr;
 }
 
 }  // namespace
@@ -855,44 +816,25 @@ const char* ggnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Bytes of dynamic shared memory the staged editor takes for a state.
-long long editor_staged_bytes(int EP, int EQ, int NJ, int num_grains) {
-  return 4 * (long long)staged_words(EP, EQ, NJ, num_grains);
-}
-
 // One span's edit in place on the state arrays (pp [2, EP], pq [2, EQ],
 // xj [NJ, xs], yj [NJ, 2], mg [NG], mj [NJ], ptr [1]); writes sw
 // [MS, 2] and extra [max_extra]. scratch is [num_grains + 2 * EP + NJ +
-// 1 + EQ] int32 for the device-memory instantiation. staged != 0 picks the
-// shared-memory instantiation; a launch it cannot take is an error.
+// 1 + EQ] int32.
 int editor_update(int* pp, int EP, int* pq, int EQ, float* xj, int NJ,
                   int xs, float* yj, int* mg, int* mj, int NG,
                   const float* prob, const float* yg0, const int* ge, int GE,
                   float threshold, int num_grains, int MS, int* ptr, int* sw,
-                  int* extra, int* scratch, int max_extra, int staged,
-                  void* stream) {
+                  int* extra, int* scratch, int max_extra, void* stream) {
   const int ts_budget = GE > MAX_TWOSIDED ? GE : MAX_TWOSIDED;
   if (MS < 0 || MS > MAX_MS || GE < 0 || GE > MAX_GE || ts_budget > KMAX ||
       xs < 8 || EP < 1 || EQ < 1 || num_grains > NG)
     return cudaErrorInvalidValue;
   int* const jo = scratch + num_grains + 2 * EP;
-  Ed S{pp, pp + EP, EP, pq, pq + EQ, EQ, xj, xj + 1, xs, NJ, xj, xs, yj,
+  Ed S{pp, pp + EP, EP, pq, pq + EQ, EQ, NJ, xj, xs, yj,
        mg, NG, mj, scratch, reinterpret_cast<float*>(scratch + num_grains),
        scratch + num_grains + EP, jo, jo + NJ + 1, 0};
   cudaGetLastError();   // clear any stale error
-  const size_t smem = staged ? 4 * staged_words(EP, EQ, NJ, num_grains) : 0;
-  if (staged) {
-    static size_t smem_set = 0;
-    if (smem > smem_set) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          editor_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      smem_set = smem;
-    }
-  }
-  auto kernel = staged ? editor_kernel<true> : editor_kernel<false>;
-  kernel<<<1, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  editor_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       S, prob, yg0, ge, GE, threshold, num_grains, MS, ptr, sw, extra,
       max_extra);
   return static_cast<int>(cudaGetLastError());

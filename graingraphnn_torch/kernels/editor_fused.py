@@ -1,10 +1,8 @@
 """Single-launch topology editor: `update_fused` runs the whole edit of one
-span as ONE launch of the CUDA kernel in csrc/editor.cu (one thread block)
-for CUDA tensors, and the plain sequential editor (kernels/editor_core.py)
-for CPU tensors. Both read the same switch probabilities, computed here
-once. The kernel has two instantiations, picked by the state's size: the
-state staged in shared memory when it fits in STAGED_MAX_BYTES, else in
-device memory.
+span as ONE launch of the CUDA kernel in csrc/editor.cu (one thread block,
+state in device memory) for CUDA tensors, and the plain sequential editor
+(kernels/editor_core.py) for CPU tensors. Both read the same switch
+probabilities, computed here once.
 """
 
 from __future__ import annotations
@@ -18,9 +16,7 @@ from ..rollout import topology_jit as tj
 from . import _build
 from . import editor_core as ec
 
-# kernel launches since the caller last called reset_counts(), by
-# instantiation
-launches = {"staged": 0, "global": 0}
+launches = 0   # kernel launches since the caller last set it to 0
 
 SOURCE = "editor"
 NVCC_FLAGS = ("-fmad=false",)   # float decisions must match the plain version
@@ -31,23 +27,8 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]     # prob, y_grain, ge, GE
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int]   # threshold, num_grains, MS
     + [ctypes.c_void_p] * 4 + [ctypes.c_int]     # ptr, sw, extra, scratch, max_extra
-    + [ctypes.c_int, ctypes.c_void_p]            # staged, stream
+    + [ctypes.c_void_p]                          # stream
 )
-# Dynamic shared memory a block may take on the H100 (232,448 bytes),
-# less room for the kernel's static shared memory.
-STAGED_MAX_BYTES = 232448 - 4096
-
-
-def reset_counts():
-    for k in launches:
-        launches[k] = 0
-
-
-def staged_bytes(EP: int, EQ: int, NJ: int, num_grains: int) -> int:
-    """Dynamic shared memory of the staged instantiation: E_pp, E_pq, the
-    joint positions, the ring counts, the candidate list and the junction
-    index, 4 bytes each (csrc/editor.cu, staged_words)."""
-    return 4 * (2 * EP + 2 * EQ + 2 * NJ + num_grains + 2 * EP + NJ + 1 + EQ)
 
 
 def max_extra(n_grain_events: int, max_switch: int) -> int:
@@ -71,17 +52,14 @@ def update_fused(
 
 
 def update_from_prob(state, prob, grain_events, y_grain, threshold,
-                     num_grains, max_switch=tj.MAX_SWITCH, *,
-                     force_global: bool = False):
+                     num_grains, max_switch=tj.MAX_SWITCH):
     """update_fused given the switch probabilities [EP] themselves: the
-    plain version for CPU tensors, the kernel for CUDA tensors.
-    force_global runs the device-memory instantiation whatever the state's
-    size (to check it against the plain version)."""
+    plain version for CPU tensors, the kernel for CUDA tensors."""
     if prob.device.type == "cpu":
         return _update_plain(state, prob, grain_events, y_grain, threshold,
                              num_grains, max_switch)
     return _update_cuda(state, prob, grain_events, y_grain, threshold,
-                        num_grains, max_switch, force_global)
+                        num_grains, max_switch)
 
 
 def _clone(state: tj.TopoState) -> tj.TopoState:
@@ -114,7 +92,8 @@ def _update_plain(state, prob, grain_events, y_grain, threshold, num_grains,
 
 
 def _update_cuda(state, prob, grain_events, y_grain, threshold, num_grains,
-                 max_switch, force_global):
+                 max_switch):
+    global launches
     dev = prob.device
     for name, t in (("E_pp", state.E_pp), ("E_pq", state.E_pq),
                     ("xj", state.xj), ("y_joint", state.y_joint),
@@ -133,22 +112,18 @@ def _update_cuda(state, prob, grain_events, y_grain, threshold, num_grains,
             or grain_events.dim() != 1 or not 0 < num_grains <= NG):
         raise ValueError("update_fused: state, probabilities and grain "
                          "arrays do not fit together")
-    staged = (not force_global and staged_bytes(
-        EP, state.E_pq.shape[1], NJ, num_grains) <= STAGED_MAX_BYTES)
     fn = _build.function(SOURCE, "editor_update", _ARGTYPES, NVCC_FLAGS)
     out = launch(fn, torch.cuda.current_stream(dev).cuda_stream, state, prob,
-                 grain_events, y_grain, threshold, num_grains, max_switch,
-                 staged)
-    launches["staged" if staged else "global"] += 1
+                 grain_events, y_grain, threshold, num_grains, max_switch)
+    launches += 1
     return out
 
 
 def launch(fn, stream, state, prob, grain_events, y_grain, threshold,
-           num_grains, max_switch, staged):
+           num_grains, max_switch):
     """Copy the state, allocate the outputs beside it and call the C entry
     `fn` (the built kernel; tests pass a CPU build of the same source) on
-    checked inputs, in the staged instantiation if `staged`. Returns
-    (state, switching, extra)."""
+    checked inputs. Returns (state, switching, extra)."""
     dev = prob.device
     out = _clone(state)
     ge = grain_events.to(torch.int32).contiguous()
@@ -167,6 +142,6 @@ def launch(fn, stream, state, prob, grain_events, y_grain, threshold,
         NG, prob.data_ptr(), yg0.data_ptr(), ge.data_ptr(), ge.shape[0],
         float(np.float32(threshold)), num_grains, max_switch,
         out.append_ptr.data_ptr(), switching.data_ptr(), extra.data_ptr(),
-        scratch.data_ptr(), MX, int(staged), stream,
+        scratch.data_ptr(), MX, stream,
     )
     return out, switching, extra

@@ -1,12 +1,10 @@
 """Where the port's hand kernels spend their time on the card, beyond what
-chip_smoke.py reports: the topology editor's device time on the first
-span's inputs of the 120 um rollout as a function of max_switch (the
-number of switches it runs), for both instantiations and for other
-thread counts per block; and the node projections at the connect shape
-split into their parts, by timing builds of csrc/edge_stage.cu with a
-part taken out (written to graingraphnn_torch/_build/, never used by the
-port): the tile loads and stores without the products, and the products
-without the loads and stores.
+chip_smoke.py reports: the node projections at the connect shape split
+into their parts, by timing builds of csrc/edge_stage.cu with a part left
+out (-DNODE_PROJ_PART: 1 without the products, 2 without the tile loads
+and stores); and the topology editor's device time on the first span's
+inputs of the 120 um rollout as a function of max_switch (the number of
+switches it runs), for three thread counts per block.
 
     python3 scripts/torch_kernel_probe.py      # one CUDA card
 
@@ -17,10 +15,8 @@ graph between two CUDA events).
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -29,42 +25,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from graingraphnn_torch.kernels import _build, edge_stage, editor_fused  # noqa: E402
 from graingraphnn_torch.ops import period_conv  # noqa: E402
+from graingraphnn_torch.rollout import device_driver as dd  # noqa: E402
+from graingraphnn_torch.train import checkpoint  # noqa: E402
 
-LOAD_X = "if (xvec && r < nrows && f < F) {"
-LOAD_W = "if (wvec && f < F && c + 4 <= ncols) {"
-STORE = "if (r >= nrows || c >= ncols) continue;"
-PARTS = {   # variant -> (text, replacement) edits of csrc/edge_stage.cu
-    "full": [],
-    "no_products": [("for (int k0 = 0; k0 < Fp && !idle; k0 += 8)",
-                     "for (int k0 = 0; k0 < 0; k0 += 8)")],
-    "products_only": [(LOAD_X, "if (false) {"), (LOAD_W, "if (false) {"),
-                      ("if (f < F && c + u < ncols) cp_async4", "if (false) cp_async4"),
-                      ("if (r < nrows && f + u < F) cp_async4", "if (false) cp_async4"),
-                      (STORE, "if (acc[0][0][0] != 12345.f) continue;")],
-}
+NODE_PROJ_PARTS = {"full": 0, "no_products": 1, "products_only": 2}
+EDITOR_THREADS = (256, 512, 1024)
 
 
 def node_proj_parts():
     """Device time of the grouped node projections at the connect shape,
-    whole and with parts taken out."""
-    with open(os.path.join(_build.CSRC, "edge_stage.cu")) as f:
-        src = f.read()
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name, edits in PARTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"node_proj variant {name}: no {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(_build.BUILD_DIR, f"probe_np_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text.replace('#include "mma_tf32.cuh"',
-                                 f'#include "{_build.CSRC}/mma_tf32.cuh"'))
-        so = cu[:-3] + ".so"
-        procs[name] = (so, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    whole and with parts left out."""
+    flags = {name: edge_stage.NVCC_FLAGS + (f"-DNODE_PROJ_PART={part}",)
+             for name, part in NODE_PROJ_PARTS.items()}
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     conv = period_conv.PeriodConv(104, 104, 96, 4)
@@ -74,28 +46,18 @@ def node_proj_parts():
     conv = conv.to(dev)
     xs = torch.rand(2086, 104, device=dev)
     xd = torch.rand(2086, 104, device=dev)
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name}:\n{out}")
-        fn0 = ctypes.CDLL(so).edge_node_proj
-        fn0.argtypes, fn0.restype = edge_stage._PROJ_ARGTYPES, ctypes.c_int
-
-        def fn(*args):
-            if fn0(*args) != 0:
-                raise RuntimeError(f"edge_node_proj {name} failed")
-
+    for name in NODE_PROJ_PARTS:
+        fn = _build.function(edge_stage.SOURCE, "edge_node_proj",
+                             edge_stage._PROJ_ARGTYPES, flags[name])
         ms = cs.cuda_ms(lambda: edge_stage.launch_node_proj(
             fn, torch.cuda.current_stream().cuda_stream, conv, xs, xd))
         print(json.dumps({"probe": "node_proj", "shape": "connect",
                           "variant": name, "ms": ms}), flush=True)
-from graingraphnn_torch.rollout import device_driver as dd  # noqa: E402
-from graingraphnn_torch.train import checkpoint  # noqa: E402
 
 
-def main():
-    cs.phase_device()
-    node_proj_parts()
+def editor_by_switches():
+    """Device time of the editor on the first span's inputs by max_switch
+    and threads per block."""
     cuda = torch.device("cuda")
     reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", cuda)
     cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", cuda)
@@ -108,21 +70,28 @@ def main():
     n_cand = int(((prob > cs.C_THRESHOLD) & (E[0] < E[1]) & (E[0] >= 0)).sum())
     print(json.dumps({"probe": "editor_candidates", "n": n_cand,
                       "p_eq_1": int((prob == 1.0).sum())}), flush=True)
-    threads = (256, 512, 1024)
     flags = {t: editor_fused.NVCC_FLAGS + (f"-DEDITOR_THREADS={t}",)
-             for t in threads}
-    _build.build([(editor_fused.SOURCE, f) for f in flags.values()])
-    for t in threads:
+             for t in EDITOR_THREADS}
+    for t in EDITOR_THREADS:
         fn = _build.function(editor_fused.SOURCE, "editor_update",
                              editor_fused._ARGTYPES, flags[t])
-        for staged in (True, False):
-            for ms_ in (0, 1, 4, 12, 24):
-                ms = cs.cuda_ms(lambda: editor_fused.launch(
-                    fn, torch.cuda.current_stream().cuda_stream, ts, prob,
-                    ge, yg, cs.C_THRESHOLD, NG, ms_, staged), n=10)
-                print(json.dumps({"probe": "editor", "threads": t,
-                                  "staged": staged, "max_switch": ms_,
-                                  "ms": ms}), flush=True)
+        for ms_ in (0, 1, 4, 12, 24):
+            ms = cs.cuda_ms(lambda: editor_fused.launch(
+                fn, torch.cuda.current_stream().cuda_stream, ts, prob, ge, yg,
+                cs.C_THRESHOLD, NG, ms_), n=10)
+            print(json.dumps({"probe": "editor", "threads": t,
+                              "max_switch": ms_, "ms": ms}), flush=True)
+
+
+def main():
+    cs.phase_device()
+    _build.build(
+        [(edge_stage.SOURCE, edge_stage.NVCC_FLAGS + (f"-DNODE_PROJ_PART={p}",))
+         for p in NODE_PROJ_PARTS.values()]
+        + [(editor_fused.SOURCE, editor_fused.NVCC_FLAGS
+            + (f"-DEDITOR_THREADS={t}",)) for t in EDITOR_THREADS])
+    node_proj_parts()
+    editor_by_switches()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ kernels, whose every thread reaches every barrier and shuffle, and every
 lane of a warp every product."""
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -333,7 +334,10 @@ def test_edge_attn_source_matches_plain(emulated, K, Nd):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
+@functools.lru_cache(maxsize=1)
 def _editor_cases():
+    """{scenario: [(state, logits, grain_events, y_grain)]} on the 120 um
+    fixture graph."""
     x, edges, mask, lxd, patch = dd.load_fixture()
     st, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch, device="cpu")
     rng = np.random.default_rng(0)
@@ -343,29 +347,33 @@ def _editor_cases():
         y_joint=torch.from_numpy(
             rng.uniform(-0.9, 0.9, (NJ, 2)).astype(np.float32)),
         mask_g=st.mask_g, mask_j=st.mask_j, append_ptr=st.n_pp)
-    cases = [chip_smoke.forced_editor_inputs(ts, s, n_sw, n_el)
-             for s, n_sw, n_el in ((0, 8, 2), (1, 24, 4), (2, 30, 0))]
-    return (cases + [chip_smoke.clustered_switch_inputs(ts)]
-            + chip_smoke.forced_out_chain(ts))
+    return {
+        "forced": [chip_smoke.forced_editor_inputs(ts, s, n_sw, n_el)
+                   for s, n_sw, n_el in ((0, 8, 2), (1, 24, 4), (2, 30, 0))],
+        "clustered": [chip_smoke.clustered_switch_inputs(ts)],
+        "forced_out": chip_smoke.forced_out_chain(ts),
+    }
 
 
-@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("scenario", ["forced", "clustered", "forced_out"])
 @pytest.mark.parametrize("threads", [64, 96])
-def test_editor_source_matches_plain(emulated, threads, staged):
+def test_editor_source_matches_plain(emulated, threads, scenario):
     """Threads per block are a compile-time constant; 64 and 96 give two
-    and three warps and uneven scan chunks (the card uses more). Both
-    instantiations: the state staged in shared memory and in device
-    memory."""
+    and three warps and uneven scan chunks (the card uses more). Scenarios:
+    forced switches and eliminations, switches clustered on a few grains'
+    rings (the lookahead decides how each reconnects), and an edit chain
+    that ends in a forced elimination."""
     fn = emulated(editor_fused.SOURCE, "editor_update",
                   editor_fused._ARGTYPES, (f"EDITOR_THREADS={threads}",))
-    cases = _editor_cases()
+    cases = _editor_cases()[scenario]
+    assert cases
     n_extra = 0
     for ts, logits, ge, yg in cases:
         prob = torch.sigmoid(logits)
         NG = ts.mask_g.shape[0]
         ref = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG)
         out = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
-                                  tj.MAX_SWITCH, staged)
+                                  tj.MAX_SWITCH)
         for f in ("E_pp", "E_pq", "mask_g", "mask_j", "append_ptr"):
             assert torch.equal(getattr(out[0], f), getattr(ref[0], f)), f
         assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
@@ -373,7 +381,8 @@ def test_editor_source_matches_plain(emulated, threads, staged):
             torch.testing.assert_close(getattr(out[0], f),
                                        getattr(ref[0], f), atol=1e-6, rtol=0)
         n_extra += int((ref[2] >= 0).sum())
-    assert n_extra >= 1            # the forced elimination ran
+    if scenario == "forced_out":
+        assert n_extra >= 1        # the forced elimination ran
 
 
 def test_editor_candidates_beyond_max_switch(emulated):
@@ -382,7 +391,7 @@ def test_editor_candidates_beyond_max_switch(emulated):
     (-p, column) order."""
     fn = emulated(editor_fused.SOURCE, "editor_update",
                   editor_fused._ARGTYPES, ("EDITOR_THREADS=64",))
-    ts = _editor_cases()[0][0]
+    ts = _editor_cases()["forced"][0][0]
     E = ts.E_pp
     rng = np.random.default_rng(3)
     logits = torch.full((E.shape[1],), -50.0)
@@ -395,9 +404,7 @@ def test_editor_candidates_beyond_max_switch(emulated):
     ge = torch.full((tj.MAX_ELIM,), -1, dtype=torch.int32)
     yg = torch.zeros((NG, 2))
     ref = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG)
-    for staged in (True, False):
-        out = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
-                                  tj.MAX_SWITCH, staged)
-        assert torch.equal(out[1], ref[1])
-        assert torch.equal(out[0].E_pp, ref[0].E_pp)
+    out = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG, tj.MAX_SWITCH)
+    assert torch.equal(out[1], ref[1])
+    assert torch.equal(out[0].E_pp, ref[0].E_pp)
     assert int((ref[1][:, 0] >= 0).sum()) > 0
