@@ -7,7 +7,8 @@ Phases: (1) the device, (2) building the CUDA sources in csrc/, (3) a
 shipped checkpoints through all three kernels, with launch counts, peak
 memory, throughput and the editor timed on each span's own inputs, (4)
 the fused PeriodConv edge stage against its plain version at the
-rollout's three conv shapes, and each of its two kernels (node_proj,
+rollout's three conv shapes (real masks, every 7th row masked, live
+slots dropped at random), and each of its two kernels (node_proj,
 edge_attn) alone against its own plain version, timed beside it, (5) the
 topology-editor kernel against its plain version on the first span's
 editor inputs and on forced scenarios, (6) a CPU reference span. Prints
@@ -110,20 +111,26 @@ def node_proj_cost(x_src, x_dst, GC):
 
 
 def edge_attn_cost(x_src, x_dst, nbr_mask, G, C):
-    """(flops, bytes) of the edge kernel on these inputs: live edges only;
-    the projections, positions, tables and weights it needs read once, the
-    output written once."""
+    """(tensor-core flops, fp32 flops, bytes) of the least work of the edge
+    kernel on these inputs: the l2 product once per destination row with a
+    live slot (the alpha-weighted sum moves inside the linear layer), the
+    elementwise work per live edge; the projections, positions, tables and
+    weights it needs read once, the output written once."""
     Ns, Nd, GC = x_src.shape[0], x_dst.shape[0], G * C
-    live = float(nbr_mask.sum())
+    live = nbr_mask > 0
+    rows = float(live.any(1).sum())
     K = nbr_mask.shape[1]
-    flops = live * GC * (2 * C + 26)
     bytes_ = 4 * (3 * Ns + 3 * Nd + 3 * Nd * K + 2 * Ns * GC + 2 * Nd * GC
                   + 6 * GC + G * C * C + 2 * GC + Nd * GC)
-    return flops, bytes_
+    return 2 * rows * G * C * C, float(live.sum()) * GC * 26, bytes_
 
 
-def bound(flops, bytes_, peak=PEAK_FP32):
-    t_ops, t_bytes = flops / peak * 1e3, bytes_ / PEAK_BYTES * 1e3
+def bound(bytes_, *work):
+    """The least time in ms of moving bytes_ and of the operations in
+    work = ((flops, peak rate), ...), summed, and which of the two is the
+    larger."""
+    t_ops = sum(flops / peak for flops, peak in work) * 1e3
+    t_bytes = bytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -171,12 +178,17 @@ def phase_edge_stage(reg, state):
     rows = {}
     for name, (conv, xs, xd, nbr, ln, m) in decoder_conv_inputs(
             reg, sample).items():
-        # the real masks, and a copy with every 7th row fully masked
+        K, Fs, Fd = nbr.shape[1], xs.shape[1], xd.shape[1]
+        # the real masks, a copy with every 7th row fully masked, and one
+        # with live slots dropped at random (not a prefix of the row)
         m_cut = m.clone()
         m_cut[::7] = 0.0
+        gen = torch.Generator(device=m.device).manual_seed(K)
+        m_scat = m * (torch.rand(m.shape, generator=gen,
+                                 device=m.device) < 0.6)
         err = {"conv": 0.0, "node_proj": 0.0, "edge_attn": 0.0}
         rel = dict(err)
-        for mask in (m, m_cut):
+        for mask in (m, m_cut, m_scat):
             out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln,
                                                     mask, **kw)
             ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln,
@@ -215,11 +227,18 @@ def phase_edge_stage(reg, state):
             "edge_attn_plain": cuda_ms(lambda: period_conv.edge_attn_plain(
                 conv, xs, xd, nbr, ln, m, proj, **kw), n=20),
         }
-        K, Fs, Fd = nbr.shape[1], xs.shape[1], xd.shape[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln, m, **kw)
+        conv_host_us = (time.perf_counter() - t0) * 1e4   # per call, issued
+        torch.cuda.synchronize()
         np_flops, np_bytes = node_proj_cost(xs, xd, GC)
-        np_bound, np_by = bound(np_flops, np_bytes, PEAK_TF32X3)
-        ea_flops, ea_bytes = edge_attn_cost(xs, xd, m, G, C)
-        ea_bound, ea_by = bound(ea_flops, ea_bytes)
+        np_bound, np_by = bound(np_bytes, (np_flops, PEAK_TF32X3))
+        ea_tc, ea_fp32, ea_bytes = edge_attn_cost(xs, xd, m, G, C)
+        ea_bound, ea_by = bound(ea_bytes, (ea_tc, PEAK_TF32X3),
+                                (ea_fp32, PEAK_FP32))
+        ea_flops = ea_tc + ea_fp32
         src = "graingraphnn_torch/csrc/edge_stage.cu"
         rows[("node_proj", Fs, Fd)] = dict(
             name=f"node_proj_{name}", route="cuda", source=src,
@@ -233,15 +252,17 @@ def phase_edge_stage(reg, state):
             replaces=REPLACES[name], max_abs_err=err["edge_attn"],
             ms=t["edge_attn"], plain_ms=t["edge_attn_plain"],
             bound_ms=ea_bound, bound_by=ea_by, library_ms=None,
-            check=f"pass: atol {ATOL} rtol {RTOL}, also fully masked rows")
+            check=f"pass: atol {ATOL} rtol {RTOL}, also fully masked rows "
+                  "and scattered live slots")
         emit(phase="edge_stage", conv=name, K=K, Ns=xs.shape[0],
              Nd=xd.shape[0], F_src=Fs, F_dst=Fd, live_edges=float(m.sum()),
              max_abs_err=err, max_rel_err=rel, atol=ATOL, rtol=RTOL,
-             ms=t, node_proj_gflop=np_flops / 1e9,
+             ms=t, conv_host_us=conv_host_us, node_proj_gflop=np_flops / 1e9,
              node_proj_mbytes=np_bytes / 1e6, node_proj_bound_ms=np_bound,
              node_proj_bound_fp32_ms=np_flops / PEAK_FP32 * 1e3,
              node_proj_tflops=np_flops / t["node_proj"] / 1e9,
-             edge_attn_gflop=ea_flops / 1e9, edge_attn_bound_ms=ea_bound,
+             edge_attn_gflop=ea_flops / 1e9, edge_attn_mbytes=ea_bytes / 1e6,
+             edge_attn_bound_ms=ea_bound,
              edge_attn_tflops=ea_flops / t["edge_attn"] / 1e9)
     return rows
 
@@ -449,7 +470,7 @@ def editor_bound(args):
                   + 2 * ts.xj.numel() + 2 * ts.y_joint.numel()
                   + 2 * ts.mask_g.numel() + 2 * ts.mask_j.numel()
                   + logits.numel() + yg.shape[0] + ge.numel())
-    return bound(0.0, nbytes)
+    return bound(nbytes)
 
 
 def phase_rollout(reg, cls, state, n_spans):
@@ -488,10 +509,11 @@ def phase_rollout(reg, cls, state, n_spans):
         editor_fused.update_fused = update_fused
     same_run = all(torch.equal(getattr(final, f), getattr(again, f))
                    for f in ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp"))
-    dts = []
+    dts, enqueued = [], []
     for _ in range(4):
         t0 = time.perf_counter()
         run(state)
+        enqueued.append(time.perf_counter() - t0)  # the host's part
         torch.cuda.synchronize()
         dts.append(time.perf_counter() - t0)
     want = {"node_proj": 12 * n_spans, "edge_attn": 12 * n_spans,
@@ -515,6 +537,7 @@ def phase_rollout(reg, cls, state, n_spans):
     edges = float(aux["message_edges"].sum())
     dt = min(dts)
     emit(phase="rollout", spans=n_spans, edges=edges, seconds=dts,
+         enqueue_seconds=enqueued,
          edges_per_s=edges / dt, ms_per_span=dt / n_spans * 1e3,
          peak_mem_bytes=peak, resident_mem_bytes=resident, launches={
              k: ({str(kk): vv for kk, vv in v.items()} if k == "by_shape"

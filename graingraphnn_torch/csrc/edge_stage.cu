@@ -30,13 +30,30 @@
 //   memory per block leaves two blocks per SM, whose loads and products
 //   overlap.
 //
-// edge_attn: one block per tile of destination rows, one thread per output
-//   column; the per-gate logit sums and the softmax over K go through
-//   shared memory in a fixed order; the block-diagonal l2 product keeps one
-//   accumulator per edge of the tile in registers and reads each Wl2
-//   element once per tile. Masked slots are skipped in the l2 product
-//   (their alpha is exactly 0). Bound: operations (2 * G*C * C per live
-//   edge for l2); the inner loops are bound by shared-memory reads.
+// edge_attn: the gathers, the softmax and the value MLP's second layer.
+//   Bound: bytes. Each input is read once from device memory, but the
+//   gathers read a source's K and V rows once per edge, from L2, so the
+//   L2 traffic is about three times those bytes. The second layer is
+//   linear, so the alpha-weighted sum moves inside it:
+//     sum_k alpha_k (relu(pre_v_k) Wl2 + bl2 + len_k We)
+//       = (sum_k alpha_k relu(pre_v_k)) Wl2 + bl2 sum_k alpha_k + We sum_k alpha_k len_k
+//   and the l2 product runs once per destination ROW, not once per edge.
+//   Every gate is independent, so the grid is (row tiles, gates) and a
+//   block holds only its gate's Wl2[g] (C x C, <= 68 KB), staged into
+//   shared memory by cp.async while the rows are gathered. First a thread
+//   per slot of the tile writes a slot table to shared memory: the source
+//   row of a live slot (-1 where masked) and d = (shift - x_i[:3], len).
+//   Then a warp per destination row: a ballot over the row's table gives
+//   the live slots (in ascending order, anywhere in the row); the K and V
+//   row slices of up to 8 live slots are all loaded before any is used,
+//   lane l owning gate columns l, l + 32, ...; the logit is q . K[j]
+//   reduced by shuffles plus d . (Wk[:3] q, We q), whose four sums are
+//   taken once per row; the softmax runs online over those chunks in
+//   registers; and the row's alpha-weighted relu(pre_v), split into TF32
+//   hi and lo parts once, sum alpha len and sum alpha go to shared memory.
+//   Masked slots cost nothing. Then the tile's rows times Wl2[g] on
+//   mma.sync m16n8k8 in 3xTF32, and the epilogue (+ bl2 sum alpha + We
+//   sum alpha len + skip) through shared memory in rows of 16-byte stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,10 +63,10 @@
 namespace {
 
 constexpr int MAX_F = 128;      // node feature width the kernels take
-constexpr int MAX_GC = 512;     // G * C output columns
+constexpr int MAX_C = 128;      // gate width edge_attn takes
 constexpr int MAX_G = 8;
 constexpr int MAX_K = 16;       // neighbor slots per row
-constexpr int EDGES = 16;       // edge slots per edge_attn block
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
 
 // node_proj tiling
@@ -72,6 +89,29 @@ static_assert(NP_BN <= NP_XS && NP_BLOCKS >= 1, "node_proj tiles");
 #endif
 constexpr bool NP_PRODUCTS = NODE_PROJ_PART != 1;
 constexpr bool NP_MEMORY = NODE_PROJ_PART != 2;
+
+// edge_attn tiling: EA_ROWS destination rows per block, EA_WARPS warps
+#ifndef EA_ROWS
+#define EA_ROWS 32
+#endif
+#ifndef EA_WARPS
+#define EA_WARPS 16
+#endif
+constexpr int EA_R = EA_ROWS;
+constexpr int EA_THREADS = EA_WARPS * 32;
+constexpr int EA_MT = EA_R / 16;                          // m16 tiles
+constexpr int EA_WPM = EA_WARPS / EA_MT;                  // warps per m16 tile
+constexpr int EA_NT = (MAX_C / 8 + EA_WPM - 1) / EA_WPM;  // n8 tiles per warp
+static_assert(EA_R % 16 == 0 && EA_R % EA_WARPS == 0 && EA_WARPS % EA_MT == 0,
+              "edge_attn tiles");
+
+// Likewise -DEDGE_ATTN_PART=1 leaves out edge_attn's l2 product, and 2
+// everything but Wl2's staging and the product.
+#ifndef EDGE_ATTN_PART
+#define EDGE_ATTN_PART 0
+#endif
+constexpr bool EA_PRODUCT = EDGE_ATTN_PART != 1;
+constexpr bool EA_GATHER = EDGE_ATTN_PART != 2;
 
 struct Proj {                             // y [N, GC] = x [N, F] w [F, GC] + b
   const float* x; const float* w; const float* b; float* y; int N, F;
@@ -199,135 +239,288 @@ __global__ void __launch_bounds__(NP_THREADS, NP_BLOCKS) node_proj(ProjSet P) {
   }
 }
 
-// Gather, attention and aggregation for `rows` destination rows per block.
-// blockDim.x = GC rounded up to a warp; thread `col` owns output column col.
-__global__ void __launch_bounds__(MAX_GC) edge_attn(
-    const float* __restrict__ x_src, int Ns, int Fs,
-    const float* __restrict__ x_dst, int Nd, int Fd,
-    const int* __restrict__ nbr, const float* __restrict__ elen,
-    const float* __restrict__ nmask, int K, int rows,
-    const float* __restrict__ kn, const float* __restrict__ vn,
-    const float* __restrict__ q, const float* __restrict__ sk,
-    const float* __restrict__ wk, const float* __restrict__ wv,
-    const float* __restrict__ wl2, const float* __restrict__ bl2,
-    const float* __restrict__ we, int G, int C, float* __restrict__ out) {
-  __shared__ float s_buf[EDGES][MAX_GC];
-  __shared__ float s_shift[EDGES][3];
-  __shared__ float s_len[EDGES], s_mask[EDGES];
-  __shared__ int s_j[EDGES];
-  __shared__ float s_alpha[EDGES][MAX_G];
+struct Attn {                             // edge_attn's inputs and output
+  const float* x_src; int Ns, Fs;
+  const float* x_dst; int Nd, Fd;
+  const int* nbr; const float* elen; const float* nmask; int K;
+  const float* kn; const float* vn; const float* q; const float* sk;
+  const float* wk; const float* wv; const float* wl2; const float* bl2;
+  const float* we; int G, C;
+  float* out;
+};
 
-  const int GC = G * C;
-  const int row0 = blockIdx.x * rows;
-  const int nrows = min(rows, Nd - row0);
-  const int ne = nrows * K;
-  const int tid = threadIdx.x;
+// Shared memory of an edge_attn block at gate width C and K slots: Wl2[g]
+// over Cp x Cp (C padded to a multiple of 8) with row stride ea_ws, so the
+// B fragment rows k, k+1, k+2, k+3 lie 8 or 24 banks apart; the tile's
+// rows (below); sum alpha len
+// and sum alpha per row; Wk[:3] and We of the gate, zero-padded to Cp;
+// the slot table (shift - x_i[:3], len) as float4 and the source row (-1
+// where masked). The rows are kept split into
+// their TF32 hi and lo parts, each with stride Cp + 4 (A fragment rows 4
+// banks apart).
+__host__ __device__ inline int ea_cp(int C) { return (C + 7) & ~7; }
+__host__ __device__ inline int ea_ws(int Cp) { return Cp % 16 ? Cp : Cp + 8; }
+__host__ __device__ inline int ea_smem(int C, int K) {
+  const int Cp = ea_cp(C);
+  return (Cp * ea_ws(Cp) + 2 * EA_R * (Cp + 4) + 2 * EA_R + 4 * Cp + 5 * EA_R * K) *
+         (int)sizeof(float);
+}
 
-  for (int e = tid; e < EDGES; e += blockDim.x) {
-    const int r = e / K, k = e % K;
-    float sh[3] = {0.f, 0.f, 0.f};
-    int j = 0;
-    float len = 0.f, m = 0.f;
-    if (e < ne) {
-      const int i = row0 + r;
-      j = nbr[i * K + k];
-      if (j < 0 || j >= Ns) j = 0;
-      len = elen[i * K + k];
-      m = nmask[i * K + k];
-      for (int d = 0; d < 3; ++d) {
-        const float rel = x_src[(size_t)j * Fs + d] - x_dst[(size_t)i * Fd + d];
-        sh[d] = (rel < -0.5f ? 1.f : 0.f) - (rel > 0.5f ? 1.f : 0.f);
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// EA_R destination rows and gate blockIdx.y. CPL = ceil(C / 32) columns
+// per lane; CH live slots gathered together. K = 3 at C <= 96 fits 64
+// registers, so 1024 threads share an SM.
+template <int CPL, int CH>
+__global__ void __launch_bounds__(EA_THREADS, CH == 3 && CPL <= 3 ? 1024 / EA_THREADS : 1)
+    edge_attn(Attn A) {
+  extern __shared__ __align__(16) float ea_smem_f[];
+  const int C = A.C, GC = A.G * C, g = blockIdx.y, K = A.K;
+  const int Cp = ea_cp(C), WS = ea_ws(Cp), AS = Cp + 4;
+  float* ws = ea_smem_f;                  // [Cp][WS] Wl2[g], zero-padded
+  float* as = ws + Cp * WS;               // [EA_R][AS] the product
+  uint32_t* ah_s = reinterpret_cast<uint32_t*>(as);       // [EA_R][AS] rows, hi
+  uint32_t* al_s = ah_s + EA_R * AS;                      // [EA_R][AS] rows, lo
+  float* s_len = as + 2 * EA_R * AS;      // [EA_R] sum alpha len
+  float* s_sum = s_len + EA_R;            // [EA_R] sum alpha
+  float* s_wq = s_sum + EA_R;             // [4][Cp] Wk[:3] and We of the gate
+  float4* s_d = reinterpret_cast<float4*>(s_wq + 4 * Cp);  // [EA_R * K]
+  int* s_j = reinterpret_cast<int*>(s_d + EA_R * K);       // [EA_R * K]
+  const int row0 = blockIdx.x * EA_R;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // Wl2[g] into shared memory; the copies land while the rows are gathered
+  const float* w2 = A.wl2 + (size_t)g * C * C;
+  const bool wvec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(A.wl2) & 15) == 0;
+  for (int i = tid; i < Cp * (Cp / 4); i += EA_THREADS) {
+    const int k = i / (Cp / 4), n = (i % (Cp / 4)) * 4;
+    float* dst = ws + k * WS + n;
+    const float* src = w2 + (size_t)k * C + n;
+    if (wvec && k < C && n + 4 <= C) {
+      cp_async16(dst, src);
+    } else {
+      for (int u = 0; u < 4; ++u) {
+        if (k < C && n + u < C) cp_async4(dst + u, src + u);
+        else dst[u] = 0.f;
+      }
+    }
+  }
+
+  // the tile's slot table, a thread per slot: the source row of a live
+  // slot and (shift - x_i[:3], len), with which x_j' Wk = K[j] + d Wk[:3]
+  for (int e = tid; EA_GATHER && e < EA_R * K; e += EA_THREADS) {
+    const int i = row0 + e / K;
+    const size_t at = (size_t)row0 * K + e;
+    int j = -1;
+    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < A.Nd) {
+      const float m = A.nmask[at], len = A.elen[at];
+      const int jj = A.nbr[at];
+      if (m > 0.f) {
+        j = jj < 0 || jj >= A.Ns ? 0 : jj;
+        float dd[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float xi = A.x_dst[(size_t)i * A.Fd + c];
+          const float rel = A.x_src[(size_t)j * A.Fs + c] - xi;
+          dd[c] = (rel < -0.5f ? 1.f : 0.f) - (rel > 0.5f ? 1.f : 0.f) - xi;
+        }
+        d = make_float4(dd[0], dd[1], dd[2], len);
       }
     }
     s_j[e] = j;
-    s_len[e] = len;
-    s_mask[e] = m;
-    for (int d = 0; d < 3; ++d) s_shift[e][d] = sh[d];
+    s_d[e] = d;
   }
+  for (int e = tid; e < 4 * Cp; e += EA_THREADS) {
+    const int d = e / Cp, c = e % Cp;
+    s_wq[e] = c >= C ? 0.f : d < 3 ? A.wk[(size_t)d * GC + g * C + c] : A.we[g * C + c];
+  }
+
+  // Wv[:3] at this lane's gate columns c = lane + 32 u
+  float wv0[CPL], wv1[CPL], wv2[CPL];
+#pragma unroll
+  for (int u = 0; u < CPL; ++u) {
+    const int c = lane + 32 * u, col = g * C + c;
+    const bool ok = c < C;
+    wv0[u] = ok ? A.wv[col] : 0.f;
+    wv1[u] = ok ? A.wv[GC + col] : 0.f;
+    wv2[u] = ok ? A.wv[2 * GC + col] : 0.f;
+  }
+  const float inv_sqrt_c = 1.f / sqrtf((float)C);
   __syncthreads();
 
-  const int col = tid < GC ? tid : GC - 1;   // spare lanes mirror the last column
-  const int g = col / C, dcol = col - g * C;
-  const float wk0 = wk[col], wk1 = wk[GC + col], wk2 = wk[2 * GC + col];
-  const float wv0 = wv[col], wv1 = wv[GC + col], wv2 = wv[2 * GC + col];
-  const float we_c = we[col];
-
-  // pass 1: q * k_e per column
-  for (int e = 0; e < ne; ++e) {
-    const int i = row0 + e / K;
-    const float* xi = x_dst + (size_t)i * Fd;
-    const float pk = xi[0] * wk0 + xi[1] * wk1 + xi[2] * wk2;
-    const float ke = kn[(size_t)s_j[e] * GC + col] - pk
-        + (s_shift[e][0] * wk0 + s_shift[e][1] * wk1 + s_shift[e][2] * wk2)
-        + s_len[e] * we_c;
-    if (tid < GC) s_buf[e][col] = q[(size_t)i * GC + col] * ke;
-  }
-  __syncthreads();
-
-  // per-gate logits, in place of the gate's first column
-  const float inv = 1.f / sqrtf((float)C);
-  for (int t = tid; t < ne * G; t += blockDim.x) {
-    const int e = t / G, gg = t % G;
-    float s = 0.f;
-    for (int c = 0; c < C; ++c) s += s_buf[e][gg * C + c];
-    s_alpha[e][gg] = s_mask[e] > 0.f ? s * inv : NEG;
-  }
-  __syncthreads();
-
-  // masked softmax over the K slots of each row and gate
-  for (int t = tid; t < nrows * G; t += blockDim.x) {
-    const int r = t / G, gg = t % G;
-    float lmax = NEG;
-    for (int k = 0; k < K; ++k) lmax = fmaxf(lmax, s_alpha[r * K + k][gg]);
-    if (lmax <= NEG / 2) lmax = 0.f;
-    float denom = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const int e = r * K + k;
-      const float ex = s_mask[e] > 0.f ? expf(s_alpha[e][gg] - lmax) : 0.f;
-      s_alpha[e][gg] = ex;
-      denom += ex;
+  // a warp per destination row, over its live slots only. The logit of
+  // slot k is (q . K[j] + d_k . (Wk[:3] q, We q)) / sqrt(C), d_k = (shift
+  // - x_i[:3], len): the four sums over q are taken once per row.
+  for (int r = warp; EA_GATHER && r < EA_R; r += EA_WARPS) {
+    const int i = row0 + r;
+    const int* sj = s_j + r * K;
+    const float4* sd = s_d + r * K;
+    float qv[CPL], a[CPL], qw[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      const int c = lane + 32 * u;
+      qv[u] = i < A.Nd && c < C ? A.q[(size_t)i * GC + g * C + c] : 0.f;
+      a[u] = 0.f;
+      if (c < Cp)
+#pragma unroll
+        for (int d = 0; d < 4; ++d) qw[d] += qv[u] * s_wq[d * Cp + c];
     }
-    denom = fmaxf(denom, 1e-30f);
-    for (int k = 0; k < K; ++k) s_alpha[r * K + k][gg] /= denom;
-  }
+#pragma unroll
+    for (int d = 0; d < 4; ++d) qw[d] = warp_sum(qw[d]);
+    const unsigned live = __ballot_sync(FULL, lane < K && sj[lane] >= 0);
 
-  // pass 2: relu(pre-value) per column
-  for (int e = 0; e < ne; ++e) {
-    const int i = row0 + e / K;
-    const float* xi = x_dst + (size_t)i * Fd;
-    const float pv = xi[0] * wv0 + xi[1] * wv1 + xi[2] * wv2;
-    const float pre = vn[(size_t)s_j[e] * GC + col] - pv
-        + (s_shift[e][0] * wv0 + s_shift[e][1] * wv1 + s_shift[e][2] * wv2);
-    if (tid < GC) s_buf[e][col] = fmaxf(pre, 0.f);
+    // online softmax over chunks of CH live slots, in ascending slot order
+    float mx = NEG, den = 0.f, sl = 0.f;
+    for (unsigned rem = live; rem;) {
+      int ks[CH];
+      bool on[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        on[c] = rem != 0u;
+        ks[c] = on[c] ? __ffs((int)rem) - 1 : 0;
+        rem &= rem - 1u;
+      }
+      float kv[CH][CPL], vv[CH][CPL];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const size_t at = (size_t)sj[ks[c]] * GC + g * C;
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) {
+          const int cc = lane + 32 * u;
+          kv[c][u] = vv[c][u] = 0.f;
+          if (on[c] && cc < C) {
+            kv[c][u] = A.kn[at + cc];
+            vv[c][u] = A.vn[at + cc];
+          }
+        }
+      }
+      float lg[CH], lc[CH], cm = NEG;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        lg[c] = NEG;
+        lc[c] = 0.f;
+        if (!on[c]) continue;               // the same for the whole warp
+        const float4 d = sd[ks[c]];
+        float part = 0.f;
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) {
+          part += qv[u] * kv[c][u];
+          vv[c][u] = fmaxf(vv[c][u] + d.x * wv0[u] + d.y * wv1[u] + d.z * wv2[u], 0.f);
+        }
+        lg[c] = (warp_sum(part) + d.x * qw[0] + d.y * qw[1] + d.z * qw[2] + d.w * qw[3])
+            * inv_sqrt_c;
+        lc[c] = d.w;
+        cm = fmaxf(cm, lg[c]);
+      }
+      const float mnew = fmaxf(mx, cm), scale = expf(mx - mnew);
+      den *= scale;
+      sl *= scale;
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) a[u] *= scale;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (!on[c]) continue;
+        const float e = expf(lg[c] - mnew);
+        den += e;
+        sl += e * lc[c];
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) a[u] += e * vv[c][u];
+      }
+      mx = mnew;
+    }
+
+    // the row's sum alpha relu(pre_v) (zero past C, and on a row with no
+    // live slot, whose output is its skip), split once for the product;
+    // sum alpha len and sum alpha
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      const int cc = lane + 32 * u;
+      uint32_t hi, lo;
+      split_tf32(den > 0.f ? a[u] / den : 0.f, hi, lo);
+      if (cc < Cp) {
+        ah_s[r * AS + cc] = hi;
+        al_s[r * AS + cc] = lo;
+      }
+    }
+    if (lane == 0) {
+      s_len[r] = den > 0.f ? sl / den : 0.f;
+      s_sum[r] = den > 0.f ? 1.f : 0.f;
+    }
+  }
+  if (!EA_GATHER) {
+    for (int i = tid; i < EA_R * (2 * AS + 2); i += EA_THREADS) as[i] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the tile's rows times Wl2[g] in 3xTF32: warp w takes m16 tile
+  // w % EA_MT and its n8 column tiles w / EA_MT + EA_WPM t
+  const int gr = lane >> 2, tq = lane & 3, n8 = Cp / 8;
+  const int mt = warp % EA_MT, wn = warp / EA_MT;
+  float acc[EA_NT][4];
+#pragma unroll
+  for (int t = 0; t < EA_NT; ++t)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[t][u] = 0.f;
+  for (int k0 = 0; EA_PRODUCT && wn < n8 && k0 < Cp; k0 += 8) {
+    const int at = (mt * 16 + gr) * AS + k0 + tq;
+    const uint32_t ah[4] = {ah_s[at], ah_s[at + 8 * AS], ah_s[at + 4], ah_s[at + 8 * AS + 4]};
+    const uint32_t al[4] = {al_s[at], al_s[at + 8 * AS], al_s[at + 4], al_s[at + 8 * AS + 4]};
+#pragma unroll
+    for (int t = 0; t < EA_NT; ++t) {
+      const int nt = wn + t * EA_WPM;
+      if (nt >= n8) break;
+      const float* wb = ws + (k0 + tq) * WS + nt * 8 + gr;
+      uint32_t bh[2], bl[2];
+      split_tf32(wb[0], bh[0], bl[0]);
+      split_tf32(wb[4 * WS], bh[1], bl[1]);
+      mma_tf32(acc[t], al, bh);
+      mma_tf32(acc[t], ah, bl);
+      mma_tf32(acc[t], ah, bh);
+    }
+  }
+  __syncthreads();                        // every warp has read the rows
+  if (EA_PRODUCT) {
+#pragma unroll
+    for (int t = 0; t < EA_NT; ++t) {
+      const int nt = wn + t * EA_WPM;
+      if (nt >= n8) break;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        as[(mt * 16 + gr + (u >> 1) * 8) * AS + nt * 8 + 2 * tq + (u & 1)] = acc[t][u];
+    }
   }
   __syncthreads();
 
-  // block-diagonal l2 product over the live edges of the tile
-  float acc[EDGES];
-#pragma unroll
-  for (int e = 0; e < EDGES; ++e) acc[e] = 0.f;
-  const float* w = wl2 + (size_t)g * C * C + dcol;
-  const int base = g * C;
-  for (int c = 0; c < C; ++c) {
-    const float wc = w[(size_t)c * C];
-#pragma unroll
-    for (int e = 0; e < EDGES; ++e)
-      if (e < ne && s_mask[e] > 0.f) acc[e] += s_buf[e][base + c] * wc;
-  }
-  __syncthreads();
-
-  // messages alpha (v + len We), summed over each row's slots, plus skip
-  const float b2 = bl2[col];
-#pragma unroll
-  for (int e = 0; e < EDGES; ++e)
-    if (e < ne && tid < GC)
-      s_buf[e][col] = (acc[e] + b2 + s_len[e] * we_c) * s_alpha[e][g];
-  if (tid < GC) {
-    for (int r = 0; r < nrows; ++r) {
-      float o = 0.f;
-      for (int k = 0; k < K; ++k) o += s_buf[r * K + k][col];
-      const int i = row0 + r;
-      out[(size_t)i * GC + col] = o + sk[(size_t)i * GC + col];
+  // out = product + bl2 sum alpha + We sum alpha len + skip, in rows of
+  // 16-byte stores where aligned
+  const int nrows = min(EA_R, A.Nd - row0), cq = (C + 3) / 4;
+  const float* b2 = A.bl2 + g * C;
+  const float* wg = A.we + g * C;
+  const bool vec = C % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(A.out) | reinterpret_cast<uintptr_t>(A.sk) |
+        reinterpret_cast<uintptr_t>(A.bl2) | reinterpret_cast<uintptr_t>(A.we)) & 15) == 0;
+  for (int i = tid; i < nrows * cq; i += EA_THREADS) {
+    if (!EA_GATHER && acc[0][0] != 12345.f) continue;   // keep the products
+    const int r = i / cq, c = (i % cq) * 4;
+    const float* o = as + r * AS + c;
+    const float sl = s_len[r], sa = s_sum[r];
+    const size_t at = (size_t)(row0 + r) * GC + g * C + c;
+    if (vec) {
+      const float4 s = *reinterpret_cast<const float4*>(A.sk + at);
+      const float4 b = *reinterpret_cast<const float4*>(b2 + c);
+      const float4 e = *reinterpret_cast<const float4*>(wg + c);
+      *reinterpret_cast<float4*>(A.out + at) = make_float4(
+          o[0] + b.x * sa + e.x * sl + s.x, o[1] + b.y * sa + e.y * sl + s.y,
+          o[2] + b.z * sa + e.z * sl + s.z, o[3] + b.w * sa + e.w * sl + s.w);
+    } else {
+      for (int u = 0; u < 4 && c + u < C; ++u)
+        A.out[at + u] = o[u] + b2[c + u] * sa + wg[c + u] * sl + A.sk[at + u];
     }
   }
 }
@@ -358,24 +551,40 @@ int launch_node_proj(const float* x_src, int Ns, int Fs, const float* x_dst,
   return 0;
 }
 
-void launch_edge_attn(const float* x_src, int Ns, int Fs, const float* x_dst,
-                      int Nd, int Fd, const int* nbr, const float* elen,
-                      const float* nmask, int K, const float* kn,
-                      const float* vn, const float* q, const float* sk,
-                      const float* wk, const float* wv, const float* wl2,
-                      const float* bl2, const float* we, int G, int C,
-                      float* out, cudaStream_t s) {
-  if (Nd <= 0) return;
-  const int rows = EDGES / K;
-  const int threads = (G * C + 31) / 32 * 32;
-  edge_attn<<<(Nd + rows - 1) / rows, threads, 0, s>>>(
-      x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, rows, kn, vn, q, sk,
-      wk, wv, wl2, bl2, we, G, C, out);
+template <int CPL, int CH>
+int launch_attn(const Attn& A, cudaStream_t s) {
+  static bool smem_set = false;           // once, for the widest C of this CPL
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        edge_attn<CPL, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ea_smem(32 * CPL, MAX_K));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  edge_attn<CPL, CH><<<dim3((A.Nd + EA_R - 1) / EA_R, A.G), EA_THREADS,
+                        ea_smem(A.C, A.K), s>>>(A);
+  return 0;
+}
+
+int launch_edge_attn(const Attn& A, cudaStream_t s) {
+  if (A.Nd <= 0) return 0;
+  const bool wide = A.K > 3;              // else one chunk of 3, else of 8
+  switch ((A.C + 31) / 32) {
+    case 1: return wide ? launch_attn<1, 8>(A, s) : launch_attn<1, 3>(A, s);
+    case 2: return wide ? launch_attn<2, 8>(A, s) : launch_attn<2, 3>(A, s);
+    case 3: return wide ? launch_attn<3, 8>(A, s) : launch_attn<3, 3>(A, s);
+    case 4: return wide ? launch_attn<4, 8>(A, s) : launch_attn<4, 3>(A, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool takes_proj(int Fs, int Fd) {
+  return Fs <= MAX_F && Fd <= MAX_F && Fs >= 3 && Fd >= 3;
 }
 
 bool takes(int Fs, int Fd, int G, int C, int K) {
-  return Fs <= MAX_F && Fd <= MAX_F && Fs >= 3 && Fd >= 3 &&
-         G * C <= MAX_GC && G <= MAX_G && K >= 1 && K <= MAX_K;
+  return takes_proj(Fs, Fd) && G >= 1 && G <= MAX_G && C >= 1 && C <= MAX_C &&
+         K >= 1 && K <= MAX_K;
 }
 
 }  // namespace
@@ -400,11 +609,12 @@ int edge_stage_forward(
   if (!takes(Fs, Fd, G, C, K)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();   // clear any stale error
-  const int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wq, bq, wk,
-                                   bk, wv, bv, wsk, bsk, G * C, kn, vn, q, sk, s);
+  int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wq, bq, wk, bk, wv,
+                             bv, wsk, bsk, G * C, kn, vn, q, sk, s);
   if (err) return err;
-  launch_edge_attn(x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn, vn,
-                   q, sk, wk, wv, wl2, bl2, we, G, C, out, s);
+  err = launch_edge_attn({x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn,
+                          vn, q, sk, wk, wv, wl2, bl2, we, G, C, out}, s);
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -415,7 +625,7 @@ int edge_node_proj(
     const float* wq, const float* bq, const float* wk, const float* bk,
     const float* wv, const float* bv, const float* wsk, const float* bsk,
     int GC, float* kn, float* vn, float* q, float* sk, void* stream) {
-  if (!takes(Fs, Fd, 1, GC, 1)) return cudaErrorInvalidValue;
+  if (!takes_proj(Fs, Fd)) return cudaErrorInvalidValue;
   cudaGetLastError();
   const int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wq, bq, wk,
                                    bk, wv, bv, wsk, bsk, GC, kn, vn, q, sk,
@@ -433,9 +643,11 @@ int edge_attn_forward(
     const float* we, int G, int C, float* out, void* stream) {
   if (!takes(Fs, Fd, G, C, K)) return cudaErrorInvalidValue;
   cudaGetLastError();
-  launch_edge_attn(x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn, vn,
-                   q, sk, wk, wv, wl2, bl2, we, G, C, out,
-                   static_cast<cudaStream_t>(stream));
+  const int err = launch_edge_attn(
+      {x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn, vn, q, sk, wk,
+       wv, wl2, bl2, we, G, C, out},
+      static_cast<cudaStream_t>(stream));
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

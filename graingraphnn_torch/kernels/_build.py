@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-build_log: Dict[str, Dict] = {}   # source -> {"seconds", "ptxas"} of builds
+build_log: Dict[str, Dict] = {}   # "source flags" -> {"seconds", "ptxas"}
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], object] = {}
 
@@ -64,12 +64,13 @@ def build(specs: Iterable[Tuple[str, Sequence[str]]]) -> Dict[str, Dict]:
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [compiler, *NVCC_FLAGS, *flags, "-o", tmp,
                os.path.join(CSRC, source + ".cu")]
-        procs.append((source, out, tmp, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        procs.append((source, flags, out, tmp, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for source, out, tmp, t0, proc in procs:
+    for source, flags, out, tmp, t0, proc in procs:
         text, _ = proc.communicate()
-        build_log[source] = {
+        build_log[" ".join((source, *flags))] = {
             "seconds": time.perf_counter() - t0,
             "ptxas": [ln.strip() for ln in text.splitlines()
                       if "ptxas" in ln and ("registers" in ln or "spill" in ln

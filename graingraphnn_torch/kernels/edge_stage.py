@@ -1,8 +1,10 @@
 """The fused PeriodConv edge stage as CUDA kernels (csrc/edge_stage.cu):
 `apply_period_conv_cuda` is what ops.period_conv.apply_period_conv runs
 for CUDA tensors, one grouped `node_proj` launch (the four node
-projections, 3xTF32 tensor cores) then one `edge_attn` launch. Its plain
-version is ops.period_conv.apply_period_conv_plain. `node_proj_cuda` and
+projections, 3xTF32 tensor cores) then one `edge_attn` launch (a block
+per tile of destination rows and gate, the l2 product once per row on
+3xTF32 tensor cores). Its plain version is
+ops.period_conv.apply_period_conv_plain. `node_proj_cuda` and
 `edge_attn_cuda` launch each kernel alone (plain versions:
 period_conv.node_projections_plain and period_conv.edge_attn_plain).
 """
@@ -22,7 +24,7 @@ shape_launches: dict = {}
 
 SOURCE = "edge_stage"
 NVCC_FLAGS: tuple = ()
-MAX_F, MAX_GC, MAX_G, MAX_K = 128, 512, 8, 16   # limits of csrc/edge_stage.cu
+MAX_F, MAX_G, MAX_C, MAX_K = 128, 8, 128, 16    # limits of csrc/edge_stage.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (
     [_P, _I, _I] * 2                   # x_src, x_dst
@@ -58,11 +60,12 @@ def _check(x_src, tensors):
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
 
 
-def _limits(Fs, Fd, G, C, K):
-    if not (3 <= Fs <= MAX_F and 3 <= Fd <= MAX_F and G * C <= MAX_GC
-            and G <= MAX_G and 1 <= K <= MAX_K):
-        raise ValueError(f"edge stage takes F<={MAX_F}, G*C<={MAX_GC}, "
-                         f"K<={MAX_K}: got F={Fs},{Fd} G={G} C={C} K={K}")
+def _limits(Fs, Fd, G=1, C=1, K=1):
+    if not (3 <= Fs <= MAX_F and 3 <= Fd <= MAX_F and 1 <= G <= MAX_G
+            and 1 <= C <= MAX_C and 1 <= K <= MAX_K):
+        raise ValueError(f"edge stage takes F<={MAX_F}, G<={MAX_G}, "
+                         f"C<={MAX_C}, K<={MAX_K}: got F={Fs},{Fd} G={G} "
+                         f"C={C} K={K}")
 
 
 def _proj_tensors(conv, x_src, x_dst, GC):
@@ -115,7 +118,7 @@ def node_proj_cuda(conv, x_src, x_dst):
     GC = conv.key.w.shape[1]
     (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
     _check(x_src, _proj_tensors(conv, x_src, x_dst, GC))
-    _limits(Fs, Fd, 1, GC, 1)
+    _limits(Fs, Fd)
     fn = _build.function(SOURCE, "edge_node_proj", _PROJ_ARGTYPES, NVCC_FLAGS)
     out = launch_node_proj(fn, _stream(x_src), conv, x_src, x_dst)
     if Ns + Nd > 0:

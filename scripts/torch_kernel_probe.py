@@ -2,9 +2,12 @@
 chip_smoke.py reports: the node projections at the connect shape split
 into their parts, by timing builds of csrc/edge_stage.cu with a part left
 out (-DNODE_PROJ_PART: 1 without the products, 2 without the tile loads
-and stores); and the topology editor's device time on the first span's
-inputs of the 120 um rollout as a function of max_switch (the number of
-switches it runs), for three thread counts per block.
+and stores); the edge kernel at the 120 um rollout's three conv shapes
+(first span, real masks) by rows and warps per block (-DEA_ROWS,
+-DEA_WARPS) and by part (-DEDGE_ATTN_PART: 1 without the l2 product, 2
+the staging of Wl2 and the product alone); and the topology editor's
+device time on the first span's inputs as a function of max_switch (the
+number of switches it runs), for three thread counts per block.
 
     python3 scripts/torch_kernel_probe.py      # one CUDA card
 
@@ -24,11 +27,20 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from graingraphnn_torch.kernels import _build, edge_stage, editor_fused  # noqa: E402
+from graingraphnn_torch.models import cells  # noqa: E402
 from graingraphnn_torch.ops import period_conv  # noqa: E402
 from graingraphnn_torch.rollout import device_driver as dd  # noqa: E402
+from graingraphnn_torch.rollout import device_rollout as dr  # noqa: E402
 from graingraphnn_torch.train import checkpoint  # noqa: E402
 
 NODE_PROJ_PARTS = {"full": 0, "no_products": 1, "products_only": 2}
+EDGE_ATTN_VARIANTS = {
+    "default": (),
+    **{f"rows{r}_warps{w}": (f"-DEA_ROWS={r}", f"-DEA_WARPS={w}")
+       for r, w in ((16, 16), (32, 8), (64, 16), (64, 32))},
+    "no_product": ("-DEDGE_ATTN_PART=1",),
+    "product_only": ("-DEDGE_ATTN_PART=2",),
+}
 EDITOR_THREADS = (256, 512, 1024)
 
 
@@ -55,14 +67,39 @@ def node_proj_parts():
                           "variant": name, "ms": ms}), flush=True)
 
 
-def editor_by_switches():
+def edge_attn_variants(reg, state):
+    """Device time of the edge kernel at the rollout's three conv shapes
+    (the decoder's inputs on the first span) for each build in
+    EDGE_ATTN_VARIANTS; max abs error against the plain version for the
+    builds that compute the whole kernel."""
+    sample, _ = dr.make_sample(state)
+    G, C = cells.NUM_GATES, reg.hp.layer_size
+    for shape, (conv, xs, xd, nbr, ln, m) in cs.decoder_conv_inputs(
+            reg, sample).items():
+        proj = period_conv.node_projections_plain(conv, xs, xd)
+        ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, m, proj,
+                                          num_gates=G, out_channels=C)
+        for name, flags in EDGE_ATTN_VARIANTS.items():
+            fn = _build.function(edge_stage.SOURCE, "edge_attn_forward",
+                                 edge_stage._ATTN_ARGTYPES,
+                                 edge_stage.NVCC_FLAGS + flags)
+
+            def call():      # on the stream a graph capture runs on
+                return edge_stage.launch_edge_attn(
+                    fn, torch.cuda.current_stream().cuda_stream, conv, xs, xd,
+                    nbr, ln, m, proj, G, C)
+
+            err = None
+            if "PART" not in " ".join(flags):
+                err = (call() - ref).abs().max().item()
+            print(json.dumps({"probe": "edge_attn", "shape": shape,
+                              "variant": name, "ms": cs.cuda_ms(call),
+                              "max_abs_err": err}), flush=True)
+
+
+def editor_by_switches(reg, cls, state):
     """Device time of the editor on the first span's inputs by max_switch
     and threads per block."""
-    cuda = torch.device("cuda")
-    reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", cuda)
-    cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", cuda)
-    x, edges, mask, lxd, patch = dd.load_fixture()
-    state, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch, device=cuda)
     ts, logits, ge, yg = cs.editor_inputs(reg, cls, state)
     NG = state.xg.shape[0]
     prob = torch.sigmoid(logits)
@@ -88,10 +125,19 @@ def main():
     _build.build(
         [(edge_stage.SOURCE, edge_stage.NVCC_FLAGS + (f"-DNODE_PROJ_PART={p}",))
          for p in NODE_PROJ_PARTS.values()]
+        + [(edge_stage.SOURCE, edge_stage.NVCC_FLAGS + f)
+           for f in EDGE_ATTN_VARIANTS.values()]
         + [(editor_fused.SOURCE, editor_fused.NVCC_FLAGS
             + (f"-DEDITOR_THREADS={t}",)) for t in EDITOR_THREADS])
+    print(json.dumps({"build": _build.build_log}), flush=True)
     node_proj_parts()
-    editor_by_switches()
+    cuda = torch.device("cuda")
+    reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", cuda)
+    cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", cuda)
+    x, edges, mask, lxd, patch = dd.load_fixture()
+    state, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch, device=cuda)
+    edge_attn_variants(reg, state)
+    editor_by_switches(reg, cls, state)
 
 
 if __name__ == "__main__":

@@ -6,14 +6,15 @@ flow) where there is no GPU; speed and the GPU compiler's view are checked
 on the card only (tests/test_torch_cuda.py, chip_smoke.py).
 
 Emulation: each block runs its threads as std::threads, one block after
-the other; __syncthreads is a barrier; a warp shuffle exchanges values
-through memory between two barriers. Dynamic shared memory is a buffer of
-the launch's size. csrc/mma_tf32.cuh is replaced by a C++ header of the
-same name: TF32 rounding as cvt.rna does it, cp.async as a copy, and the
+the other; __syncthreads is a barrier; a warp shuffle or ballot
+exchanges values through memory between two barriers of the warp.
+Dynamic shared memory is a buffer of the launch's size. A grid has two
+dimensions. csrc/mma_tf32.cuh is replaced by a C++ header of the same
+name: TF32 rounding as cvt.rna does it, cp.async as a copy, and the
 m16n8k8 product with the PTX fragment layout, its operands exchanged
 through memory between two barriers of the warp. That is exact for these
-kernels, whose every thread reaches every barrier and shuffle, and every
-lane of a warp every product."""
+kernels, whose every thread reaches every barrier, and every lane of a
+warp every shuffle, ballot and product."""
 
 import ctypes
 import functools
@@ -82,9 +83,9 @@ template <class T> T emu_pull(T v, int src) {
   int64_t b = 0;
   memcpy(&b, &v, sizeof(T));
   (*emu_x)[threadIdx.x] = b;
-  __syncthreads();
+  emu_warp_bar->arrive_and_wait();
   int64_t r = (*emu_x)[src];
-  __syncthreads();
+  emu_warp_bar->arrive_and_wait();
   T out;
   memcpy(&out, &r, sizeof(T));
   return out;
@@ -96,7 +97,21 @@ template <class T> T __shfl_up_sync(unsigned, T v, int d) {
   const int lane = threadIdx.x & 31;
   return emu_pull(v, lane >= d ? (int)threadIdx.x - d : (int)threadIdx.x);
 }
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  return emu_pull(v, (int)(threadIdx.x & ~31u) + (src & 31));
+}
+inline unsigned __ballot_sync(unsigned, int p) {
+  const unsigned w0 = threadIdx.x & ~31u;
+  (*emu_x)[threadIdx.x] = p != 0;
+  emu_warp_bar->arrive_and_wait();
+  unsigned r = 0;
+  for (unsigned l = 0; l < 32 && w0 + l < blockDim.x; ++l)
+    r |= (unsigned)((*emu_x)[w0 + l] != 0) << l;
+  emu_warp_bar->arrive_and_wait();
+  return r;
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -114,7 +129,7 @@ template <class F, class... A>
 void emu_launch(F kernel, dim3 grid, dim3 block, size_t smem, A... args) {
   gridDim = grid;
   blockDim = block;
-  for (unsigned b = 0; b < grid.x; ++b) {
+  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
     std::barrier<> bar(block.x);
     std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
     for (unsigned w = 0; w < block.x; w += 32)
@@ -130,7 +145,7 @@ void emu_launch(F kernel, dim3 grid, dim3 block, size_t smem, A... args) {
     for (unsigned t = 0; t < block.x; ++t)
       ts.emplace_back([&, t] {
         threadIdx = dim3(t);
-        blockIdx = dim3(b);
+        blockIdx = dim3(b % grid.x, b / grid.x);
         emu_warp_bar = warp_bars[t / 32].get();
         kernel(args...);
       });
@@ -190,16 +205,18 @@ inline void cp_async_wait_all() {}
 
 
 def _translate(src: str) -> str:
-    """`k<<<grid, block, smem, stream>>>(args)` -> `emu_launch(k, grid,
-    block, smem, args)`; `extern __shared__ T name[];` -> a pointer to the
-    launch's dynamic shared memory; the CUDA runtime header -> the
-    emulation header."""
+    """`k<<<grid, block, smem, stream>>>(args)`, k a name or `name<args>`,
+    -> `emu_launch(k, grid, block, smem, args)`; `extern __shared__ T
+    name[];` -> a pointer to the launch's dynamic shared memory; the CUDA
+    runtime header -> the emulation header."""
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", src)
     out, i = [], 0
     while (j := src.find("<<<", i)) >= 0:
         name_start = j
+        if src[j - 1] == ">":                 # template arguments
+            name_start = src.rindex("<", 0, j)
         while name_start > 0 and (src[name_start - 1].isalnum()
                                   or src[name_start - 1] == "_"):
             name_start -= 1
@@ -251,6 +268,7 @@ def emulated(tmp_path_factory):
         def call(*args):
             assert fn(*args) == 0
 
+        call.raw = fn                  # returns the entry's error code
         return call
 
     return build
@@ -311,20 +329,44 @@ def test_node_proj_source_matches_plain(emulated, G, C, Ns, Nd, Fs, Fd):
         torch.testing.assert_close(o, r, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("K,Nd", [(3, 11), (16, 4)])
-def test_edge_attn_source_matches_plain(emulated, K, Nd):
-    """The edge kernel alone on the plain node projections."""
-    G, C, Ns, Fs, Fd = 4, 8, 13, 11, 9
+def _scattered_mask(rng, Nd, K):
+    """Random live slots, with every 5th row from the first fully masked,
+    every 5th from the second fully live, and the even slots of every 5th
+    from the third masked, so live slots do not form a prefix."""
+    mask = (rng.uniform(size=(Nd, K)) < 0.6).astype(np.float32)
+    mask[::5] = 0.0
+    mask[1::5] = 1.0
+    mask[2::5, ::2] = 0.0
+    return mask
+
+
+@pytest.mark.parametrize("G,C,K,Ns,Nd,Fs,Fd,scattered", [
+    pytest.param(4, 8, 3, 13, 11, 11, 9, False, id="3-11"),
+    pytest.param(4, 8, 16, 13, 4, 11, 9, False, id="16-4"),
+    # the rollout's widths; 197 rows are 3+ row tiles with a ragged last one
+    pytest.param(4, 96, 3, 70, 197, 107, 104, True, id="rollout-K3"),
+    pytest.param(4, 96, 16, 90, 37, 104, 107, True, id="rollout-K16"),
+    pytest.param(1, 30, 16, 20, 23, 11, 9, True, id="G1-C30"),
+    pytest.param(2, 128, 5, 30, 41, 19, 8, True, id="C128"),
+])
+def test_edge_attn_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs, Fd,
+                                        scattered):
+    """The edge kernel alone on the plain node projections: gates of
+    width not a multiple of 8 and up to 128, rows with no live slot, with
+    all K live, and with live slots scattered over the row."""
     fn = emulated(edge_stage.SOURCE, "edge_attn_forward",
                   edge_stage._ATTN_ARGTYPES)
-    conv, rng = _random_conv(K, Fs, Fd, G, C)
+    conv, rng = _random_conv(K if not scattered else K + C + Nd, Fs, Fd, G, C)
     t = lambda a: torch.from_numpy(a)  # noqa: E731
     xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
     xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
     nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
     ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
-    mask = (rng.uniform(size=(Nd, K)) < 0.7).astype(np.float32)
-    mask[::3] = 0.0
+    if scattered:
+        mask = _scattered_mask(rng, Nd, K)
+    else:
+        mask = (rng.uniform(size=(Nd, K)) < 0.7).astype(np.float32)
+        mask[::3] = 0.0
     mask = t(mask)
     proj = period_conv.node_projections_plain(conv, xs, xd)
     out = edge_stage.launch_edge_attn(fn, 0, conv, xs, xd, nbr, ln, mask,
@@ -332,6 +374,25 @@ def test_edge_attn_source_matches_plain(emulated, K, Nd):
     ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask, proj,
                                       num_gates=G, out_channels=C)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_edge_attn_source_refuses_wide_gates(emulated):
+    """C = 129 is past the kernel's widest gate: the wrapper's check and
+    the C entry both refuse it."""
+    G, C, K, N, F = 1, 129, 3, 5, 8
+    with pytest.raises(ValueError, match="C<=128"):
+        edge_stage._limits(F, F, G, C, K)
+    fn = emulated(edge_stage.SOURCE, "edge_attn_forward",
+                  edge_stage._ATTN_ARGTYPES)
+    conv, rng = _random_conv(0, F, F, G, C)
+    x = torch.from_numpy(rng.uniform(0, 1, (N, F)).astype(np.float32))
+    nbr = torch.zeros((N, K), dtype=torch.int32)
+    f = torch.ones((N, K))
+    proj = period_conv.node_projections_plain(conv, x, x)
+    codes = []
+    edge_stage.launch_edge_attn(lambda *a: codes.append(fn.raw(*a)), 0, conv,
+                                x, x, nbr, f, f, proj, G, C)
+    assert codes[0] != 0
 
 
 @functools.lru_cache(maxsize=1)

@@ -73,6 +73,38 @@ def test_edge_stage_kernel_matches_plain(K, Ns, Nd, Fs, Fd):
     torch.testing.assert_close(again, out, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("K,Ns,Nd,Fs,Fd", [(3, 1043, 2086, 107, 104),
+                                           (3, 2086, 2086, 104, 104),
+                                           (16, 2086, 1043, 104, 107)])
+def test_edge_attn_kernel_matches_plain_on_scattered_masks(K, Ns, Nd, Fs, Fd):
+    """The edge kernel alone at the rollout's three conv shapes, with live
+    slots scattered over each row (not a prefix), rows with none live and
+    rows with all K live."""
+    dev = card()
+    G, C = 4, 96
+    rng = np.random.default_rng(Nd + K)
+    conv = random_conv(Nd + K, Fs, Fd, G, C, dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = (rng.uniform(size=(Nd, K)) < 0.5).astype(np.float32)
+    mask[::5] = 0.0
+    mask[1::5] = 1.0
+    mask[2::5, ::2] = 0.0
+    mask = t(mask)
+    proj = period_conv.node_projections_plain(conv, xs, xd)
+    before = edge_stage.launches["edge_attn"]
+    out = edge_stage.edge_attn_cuda(conv, xs, xd, nbr, ln, mask, proj,
+                                    num_gates=G, out_channels=C)
+    ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask, proj,
+                                      num_gates=G, out_channels=C)
+    torch.cuda.synchronize()
+    assert edge_stage.launches["edge_attn"] == before + 1
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("Ns,Nd,Fs,Fd", [(1043, 2086, 107, 104),
                                          (2086, 2086, 104, 104),
                                          (2086, 1043, 104, 107),
@@ -107,6 +139,11 @@ def test_edge_stage_kernel_refuses_what_it_cannot_take():
         edge_stage.apply_period_conv_cuda(
             conv, xs.double(), xd, nbr[:, :3].contiguous(), f[:, :3], f[:, :3],
             num_gates=4, out_channels=8)
+    wide = random_conv(0, 11, 8, 1, 129, dev)
+    with pytest.raises(ValueError, match="C<=128"):
+        edge_stage.apply_period_conv_cuda(
+            wide, xs, xd, nbr[:, :3].contiguous(), f[:, :3].contiguous(),
+            f[:, :3].contiguous(), num_gates=1, out_channels=129)
 
 
 @pytest.fixture(scope="module")
