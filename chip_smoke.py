@@ -5,25 +5,34 @@
 Phases: (1) the device, (2) building the CUDA sources in csrc/, (3) a
 20-span device-resident rollout of the 120 um fixture graph with the
 shipped checkpoints through all three kernels, with launch counts, peak
-memory, throughput and the editor timed on each span's own inputs, (4)
+memory, throughput, and the editor kernel against its plain version and
+timed on each span's own inputs, (4)
 the fused PeriodConv edge stage against its plain version at the
 rollout's three conv shapes (real masks, every 7th row masked, live
 slots dropped at random), and each of its two kernels (node_proj,
 edge_attn) alone against its own plain version, timed beside it, (5) the
 topology-editor kernel against its plain version on the first span's
-editor inputs and on forced scenarios, (6) a CPU reference span. Prints
-one JSON line per phase, the kernels line, and last {"ok": true,
+editor inputs and on forced scenarios, (6) a CPU reference span, (7) the
+generate path through the port's driver (run_device_resident with
+nucleation and the moving melt pool's whole sweep, counted like (3)), the
+editor kernel against its plain version on each of its spans' windowed
+inputs, one windowed, nucleating span against the CPU, and the port's CLI.
+Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -40,6 +49,11 @@ N_SPANS = 20
 C_THRESHOLD = 0.99
 ATOL, RTOL = 1e-4, 1e-4       # fp32 kernel vs plain, sums reordered
 EDITOR_ATOL = 1e-6
+POS_ATOL = 1e-5               # positions, card span against the CPU span
+# the generate path: nucleation (about one site per span) and the moving
+# melt pool's whole sweep (r0 = 20, z0 = 4, 45 degrees: 86 spans at 120 um)
+GEN = {"span": 6, "eval_every": 5, "nucleation_density": 2e-4,
+       "meltpool": {"r0": 20.0, "z0": 4.0, "melt_pool_angle": math.pi / 4}}
 PEAK_FP32 = 67e12             # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32X3 = 495e12 / 3      # H100 SXM TF32 tensor cores, 3 products per fp32 one
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -324,8 +338,35 @@ def clustered_switch_inputs(tstate, grains=range(0, 60, 7)):
             torch.zeros((NG, 2), device=dev))
 
 
+def windowed_editor_inputs(state, seed, n_switch, n_elim, cut=0.5,
+                           n_sites=4):
+    """Editor inputs (state, logits, ge, y_grain, active_g) on a state with
+    nucleation slack (state: a DeviceRolloutState with cursors): n_sites
+    nucleations first, so some rings are the nuclei's triangles, then
+    forced switches and eliminations under melt pool windows that are open
+    where x < cut."""
+    rng = np.random.default_rng(seed)
+    dev, NJ = state.xj.device, state.xj.shape[0]
+    live = torch.nonzero(state.mask_j > 0).flatten().cpu().numpy()
+    rand = torch.ones(NJ, device=dev)
+    rand[torch.from_numpy(rng.choice(live, n_sites, replace=False))] = 0.0
+    angles = torch.from_numpy(
+        rng.random((tj.MAX_NUC, 2)).astype(np.float32)).to(dev)
+    ts = tj.TopoState(
+        E_pp=state.E_pp, E_pq=state.E_pq, xj=state.xj,
+        y_joint=torch.from_numpy(
+            rng.uniform(-0.9, 0.9, (NJ, 2)).astype(np.float32)).to(dev),
+        mask_g=state.mask_g, mask_j=state.mask_j, append_ptr=state.n_pp,
+        q_ptr=state.n_pq)
+    ts, xg, _, _, _ = tj.nucleate_jit(ts, state.xg, state.n_g, state.n_j,
+                                      rand, angles, 0.5)
+    ts = dataclasses.replace(ts, q_ptr=None, active_j=ts.xj[:, 0] < cut)
+    _, logits, ge, yg = forced_editor_inputs(ts, seed, n_switch, n_elim)
+    return ts, logits, ge, yg, xg[:, 0] < cut
+
+
 def _to(ts, dev):
-    return tj.TopoState(**{k: v.to(dev) for k, v in vars(ts).items()})
+    return ts.map(lambda v: v.to(dev))
 
 
 def forced_out_chain(tstate, max_grains=40):
@@ -386,15 +427,18 @@ def forced_out_chain(tstate, max_grains=40):
     return []
 
 
-def check_editor_case(ts, logits, ge, yg, thr, NG):
+def check_editor_case(ts, logits, ge, yg, thr, NG, active_g=None):
     """The editor kernel against its plain version on CPU copies of the same
-    inputs and the same probabilities: integer outputs bit-equal, floats
-    within EDITOR_ATOL. Returns (plain outputs, float max abs err)."""
+    inputs, probabilities and melt pool windows (ts.active_j, active_g):
+    integer outputs bit-equal, floats within EDITOR_ATOL. Returns (plain
+    outputs, float max abs err)."""
     prob = torch.sigmoid(logits)          # one tensor for both versions
-    s_k, sw_k, ex_k = editor_fused.update_from_prob(ts, prob, ge, yg, thr, NG)
+    s_k, sw_k, ex_k = editor_fused.update_from_prob(ts, prob, ge, yg, thr, NG,
+                                                    active_g=active_g)
     torch.cuda.synchronize()
     s_p, sw_p, ex_p = editor_fused.update_from_prob(
-        _to(ts, "cpu"), prob.cpu(), ge.cpu(), yg.cpu(), thr, NG)
+        _to(ts, "cpu"), prob.cpu(), ge.cpu(), yg.cpu(), thr, NG,
+        active_g=None if active_g is None else active_g.cpu())
     for f in ("E_pp", "E_pq", "mask_g", "mask_j", "append_ptr"):
         if not torch.equal(getattr(s_k, f).cpu(), getattr(s_p, f)):
             raise RuntimeError(f"editor: {f} differs from the plain version")
@@ -412,11 +456,30 @@ def check_editor_case(ts, logits, ge, yg, thr, NG):
 
 def editor_ms(args, NG, n=20):
     """Device time of one editor launch on args = (state, logits, ge,
-    y_grain, threshold), from CUDA events."""
-    ts, logits, ge, yg, thr = args
+    y_grain, threshold, active_g), from CUDA events."""
+    ts, logits, ge, yg, thr, ag = args
     prob = torch.sigmoid(logits)
     return cuda_ms(lambda: editor_fused.update_from_prob(
-        ts, prob, ge, yg, thr, NG), n=n)
+        ts, prob, ge, yg, thr, NG, active_g=ag), n=n)
+
+
+def check_captured(editor_args, NG):
+    """Each captured span's editor inputs (state, logits, ge, y_grain,
+    threshold, active_g): the kernel against its plain version, the
+    kernel's device time and the plain version's time on the CPU. Returns
+    (float max abs err, kernel ms per span, plain ms per span)."""
+    err, span_ms, plain_ms = 0.0, [], []
+    for args in editor_args:
+        ts, logits, ge, yg, thr, ag = args
+        _, e = check_editor_case(ts, logits, ge, yg, thr, NG, active_g=ag)
+        err = max(err, e)
+        span_ms.append(editor_ms(args, NG, n=5))
+        cpu = (_to(ts, "cpu"), logits.cpu(), ge.cpu(), yg.cpu(), thr, NG)
+        t0 = time.perf_counter()
+        editor_fused.update_fused(
+            *cpu, active_g=None if ag is None else ag.cpu())
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    return err, span_ms, plain_ms
 
 
 def phase_editor(reg, cls, state):
@@ -445,7 +508,7 @@ def phase_editor(reg, cls, state):
              extra=int((ex_p >= 0).sum()))
     if not int((ex_p >= 0).sum()):
         raise RuntimeError("editor: the forced elimination did not happen")
-    args = (*first, C_THRESHOLD)
+    args = (*first, C_THRESHOLD, None)
     ms = editor_ms(args, NG)
     ts, logits, ge, yg = first
     t0 = time.perf_counter()
@@ -463,21 +526,25 @@ def phase_editor(reg, cls, state):
 
 
 def editor_bound(args):
-    """The editor's state read once and written once; the work is a
-    dependent chain, so this bound is far below its time."""
-    ts, logits, ge, yg, _thr = args
+    """The editor's state read once and written once, and the windows read
+    where given; the work is a dependent chain, so this bound is far below
+    its time."""
+    ts, logits, ge, yg, _thr, ag = args
     nbytes = 4 * (2 * ts.E_pp.numel() + 2 * ts.E_pq.numel()
                   + 2 * ts.xj.numel() + 2 * ts.y_joint.numel()
                   + 2 * ts.mask_g.numel() + 2 * ts.mask_j.numel()
                   + logits.numel() + yg.shape[0] + ge.numel())
+    if ag is not None:
+        nbytes += 4 * (ts.mask_j.numel() + ts.mask_g.numel())
     return bound(nbytes)
 
 
 def phase_rollout(reg, cls, state, n_spans):
     """The counted main-path run, after a warm-up: every launch count set
     to 0 and the peak memory reset just before, both read just after. One
-    more run keeps the editor's inputs of each span (copied on the card as
-    they pass), and each is timed after it."""
+    more run, which must end where the counted one did, keeps the editor's
+    inputs of each span (copied on the card as they pass); after it the
+    kernel is held against its plain version on each and timed."""
     run = dr.make_rollout(reg, cls, n_steps=n_spans, c_threshold=C_THRESHOLD)
     run(state)                                   # warm-up
     torch.cuda.synchronize()
@@ -492,48 +559,35 @@ def phase_rollout(reg, cls, state, n_spans):
                 "edge_attn": edge_stage.launches["edge_attn"],
                 "by_shape": dict(edge_stage.shape_launches),
                 "editor": editor_fused.launches}
-    spans = []
-    update_fused = editor_fused.update_fused
-
-    def keep(ts, logits, ge, yg, thr, NG, **kw):
-        spans.append((tj.TopoState(**{k: v.clone() for k, v in
-                                      vars(ts).items()}),
-                      logits.clone(), ge.clone(), yg.clone(), thr))
-        return update_fused(ts, logits, ge, yg, thr, NG, **kw)
-
-    editor_fused.update_fused = keep
-    try:
+    with Recorder(capture=True) as cap:          # the captured run
         again, _ = run(state)
         torch.cuda.synchronize()
-    finally:
-        editor_fused.update_fused = update_fused
-    same_run = all(torch.equal(getattr(final, f), getattr(again, f))
-                   for f in ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp"))
+    if not all(torch.equal(getattr(final, f), getattr(again, f))
+               for f in ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp")):
+        raise RuntimeError("rollout: the captured run differs from the "
+                           "counted run")
     dts, enqueued = [], []
     for _ in range(4):
-        t0 = time.perf_counter()
-        run(state)
-        enqueued.append(time.perf_counter() - t0)  # the host's part
-        torch.cuda.synchronize()
-        dts.append(time.perf_counter() - t0)
+        # the host's part: its time inside the spans, which never wait for
+        # the device (run() itself ends on a device-to-host read)
+        with Recorder(capture=False) as rec:
+            t0 = time.perf_counter()
+            run(state)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        enqueued.append(rec.enqueue_s)
     want = {"node_proj": 12 * n_spans, "edge_attn": 12 * n_spans,
             "editor": n_spans}
     if any(launches[k] != v for k, v in want.items()):
         raise RuntimeError(f"launch counts {launches} for {n_spans} spans")
-    for name, t in vars(final).items():
-        if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
+    for name in ("xg", "xj"):
+        if not bool(torch.isfinite(getattr(final, name)).all()):
             raise RuntimeError(f"rollout: non-finite {name}")
-    NG = state.xg.shape[0]
-    span_ms = [editor_ms(a, NG, n=5) for a in spans]
-    plain_ms = []
-    for ts, logits, ge, yg, thr in spans:
-        args = (_to(ts, "cpu"), logits.cpu(), ge.cpu(), yg.cpu(), thr, NG)
-        t0 = time.perf_counter()
-        update_fused(*args)
-        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    err, span_ms, plain_ms = check_captured(cap.editor, state.xg.shape[0])
     editor = dict(ms=sum(span_ms) / len(span_ms),
-                  plain_ms=sum(plain_ms) / len(plain_ms),
-                  bound=editor_bound(spans[0]))
+                  plain_ms=sum(plain_ms) / len(plain_ms), max_abs_err=err,
+                  checked_spans=len(cap.editor),
+                  bound=editor_bound(cap.editor[0]))
     edges = float(aux["message_edges"].sum())
     dt = min(dts)
     emit(phase="rollout", spans=n_spans, edges=edges, seconds=dts,
@@ -542,7 +596,8 @@ def phase_rollout(reg, cls, state, n_spans):
          peak_mem_bytes=peak, resident_mem_bytes=resident, launches={
              k: ({str(kk): vv for kk, vv in v.items()} if k == "by_shape"
                  else v) for k, v in launches.items()},
-         editor_span_ms=span_ms, editor_inputs_as_counted_run=same_run,
+         editor_span_ms=span_ms, editor_checked_spans=len(cap.editor),
+         editor_max_abs_err=err,
          ring_overflow=int(aux["ring_overflow"].sum()),
          pp_overflow=int(aux["pp_overflow"].sum()),
          elim_saturated=int(aux["elim_saturated"].sum()),
@@ -587,7 +642,7 @@ def phase_reference(reg, cls, state, reg_cpu, cls_cpu):
     versions on the CPU: forward outputs within tolerance, topology equal
     unless a switch probability lies within float noise of the threshold."""
     _, y_r, y_c, _ = dr.forward_stage(reg, cls, state, tj.RING_MAX)
-    st_cpu = dr.DeviceRolloutState(**{k: v.cpu() for k, v in vars(state).items()})
+    st_cpu = state.map(lambda v: v.cpu())
     _, y_r0, y_c0, _ = dr.forward_stage(reg_cpu, cls_cpu, st_cpu, tj.RING_MAX)
     err = max((y_r[k].cpu() - y_r0[k]).abs().max().item() for k in y_r)
     err = max(err, (y_c["edge_event"].cpu() - y_c0["edge_event"]).abs().max().item())
@@ -604,6 +659,307 @@ def phase_reference(reg, cls, state, reg_cpu, cls_cpu):
     pos = (s1.xj[:, :2].cpu() - s0.xj[:, :2]).abs().max().item()
     emit(phase="reference_span", forward_max_abs_err=err, topology_equal=same,
          threshold_adjacent=near, position_max_abs_err=pos)
+
+
+class Recorder:
+    """Wraps module functions for one run and puts them back after. It
+    always records the host's time inside the spans, their number and the
+    last chunk's final state, which the driver holds anyway, so a counted
+    run keeps no more on the card than it would alone. When capturing it
+    also keeps each span's aux, each chunk's final state, the editor's
+    inputs and the elimination candidates with and without the melt pool's
+    window."""
+
+    def __init__(self, capture: bool):
+        self.capture = capture
+        self.enqueue_s, self.spans, self.final = 0.0, 0, None
+        self.auxs, self.states, self.editor, self.cand = [], [], [], [0, 0]
+        self._saved = []
+
+    def _wrap(self, mod, name, make):
+        orig = getattr(mod, name)
+        self._saved.append((mod, name, orig))
+        setattr(mod, name, make(orig))
+
+    def __enter__(self):
+        def step(orig):
+            def f(*a, **k):
+                t0 = time.perf_counter()
+                out = orig(*a, **k)
+                self.enqueue_s += time.perf_counter() - t0
+                self.spans += 1
+                if self.capture:
+                    self.auxs.append(out[1])
+                return out
+            return f
+
+        def rollout(orig):
+            def f(*a, **k):
+                run = orig(*a, **k)
+
+                def g(*ra, **rk):
+                    out = run(*ra, **rk)
+                    self.final = out[0]
+                    if self.capture:
+                        self.states.append(out[0])
+                    return out
+                return g
+            return f
+
+        def update(orig):
+            def f(ts, logits, ge, yg, thr, NG, **k):
+                ag = k.get("active_g")
+                self.editor.append((ts.map(torch.clone), logits.clone(),
+                                    ge.clone(), yg.clone(), thr,
+                                    None if ag is None else ag.clone()))
+                return orig(ts, logits, ge, yg, thr, NG, **k)
+            return f
+
+        def candidates(orig):
+            def f(state, area, thr, max_elim=tj.MAX_ELIM, active_g=None):
+                out = orig(state, area, thr, max_elim, active_g=active_g)
+                self.cand[0] += int(orig(state, area, thr, max_elim)[1])
+                self.cand[1] += int(out[1])
+                return out
+            return f
+
+        self._wrap(dr, "device_step", step)
+        self._wrap(dr, "make_rollout", rollout)
+        if self.capture:
+            self._wrap(editor_fused, "update_fused", update)
+            self._wrap(dr, "elim_candidates", candidates)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in reversed(self._saved):
+            setattr(mod, name, orig)
+
+
+def gated_switches(ts, logits, thr):
+    """Switch candidates (live u<v columns over the threshold) with an
+    endpoint outside the melt pool's joint window."""
+    E, aj = ts.E_pp, ts.active_j
+    cand = (torch.sigmoid(logits) > thr) & (E[0] >= 0) & (E[0] < E[1])
+    ends = aj[E[0].clamp_min(0).long()] & aj[E[1].clamp_min(0).long()]
+    return int((cand & ~ends).sum())
+
+
+def phase_generate(reg, cls, reg_cpu, cls_cpu, dev):
+    """The generate path through the port's own driver: run_device_resident
+    with nucleation and the moving melt pool's whole sweep over the 120 um
+    fixture (counts, peak memory, host time), a second run that keeps every
+    span's editor inputs for the kernel-vs-plain check, one windowed,
+    nucleating span on the card against the CPU, and the CLI's JSON line.
+    Returns the kernels line's editor row at this path's shape."""
+    traj = dd.load_trajectory()
+    kw = dict(span=GEN["span"], c_threshold=C_THRESHOLD,
+              eval_every=GEN["eval_every"],
+              nucleation_density=GEN["nucleation_density"], seed=traj.seed,
+              meltpool=GEN["meltpool"], device=dev)
+    state0, offset_j, factor = dd.init_scaled_state(
+        traj.x, traj.edges, traj.mask, traj.lxd, traj.patch_size,
+        nucleation_slack=dd.NUCLEATION_SLACK, device=dev)
+    melt_term, gap = dd.make_melt_term(
+        GEN["meltpool"], traj.lxd, GEN["span"], state0.xj.shape[0], offset_j,
+        factor, dev)
+    sweep = int(np.floor((1 - melt_term["win"]) / gap))
+    chunks = -(-sweep // GEN["eval_every"])
+    n_spans = chunks * GEN["eval_every"]       # the last chunk runs whole
+    dd.run_device_resident(traj, reg, cls, **kw)        # warm-up
+    torch.cuda.synchronize()
+    edge_stage.reset_counts()
+    editor_fused.launches = 0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Recorder(capture=False) as rec:            # the counted run
+        res = dd.run_device_resident(traj, reg, cls, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"node_proj": edge_stage.launches["node_proj"],
+                "edge_attn": edge_stage.launches["edge_attn"],
+                "editor": editor_fused.launches}
+    want = {"node_proj": 12 * n_spans, "edge_attn": 12 * n_spans,
+            "editor": n_spans}
+    if launches != want or rec.spans != n_spans:
+        raise RuntimeError(f"generate: launch counts {launches}, "
+                           f"{rec.spans} spans; want {want}")
+    final = rec.final
+    nucleated = int(final.n_g) - int(state0.n_g)
+    for name in ("xg", "xj"):
+        if not bool(torch.isfinite(getattr(final, name)).all()):
+            raise RuntimeError(f"generate: non-finite {name}")
+    if not np.isfinite(res["misorientation"]).all():
+        raise RuntimeError("generate: non-finite misorientation")
+
+    # the captured run keeps every span's aux and editor inputs; it must end
+    # where the counted run did, so its aux stands for the counted run's
+    with Recorder(capture=True) as cap:
+        again = dd.run_device_resident(traj, reg, cls, **kw)
+    if (again["events_pred"] != res["events_pred"]
+            or again["misorientation"] != res["misorientation"]
+            or not torch.equal(cap.final.E_pp, final.E_pp)):
+        raise RuntimeError("generate: the captured run differs from the "
+                           "counted run")
+    aux = {k: torch.stack([a[k] for a in cap.auxs]) for k in cap.auxs[0]}
+    flags = {f: int(aux[f].sum()) for f in
+             ("ring_overflow", "pp_overflow", "nuc_overflow")}
+    if any(flags.values()) or nucleated < 1:
+        raise RuntimeError(f"generate: capacity flags {flags}, "
+                           f"{nucleated} nucleations")
+    err, span_ms, plain_ms = check_captured(cap.editor, state0.xg.shape[0])
+    gated_sw = sum(gated_switches(ts, logits, thr)
+                   for ts, logits, _, _, thr, _ in cap.editor)
+    gated_cand = cap.cand[0] - cap.cand[1]
+    if gated_sw + gated_cand < 1:
+        raise RuntimeError("generate: the melt pool's window gated nothing")
+
+    span = generate_reference_span(reg, cls, reg_cpu, cls_cpu,
+                                   cap.states[4], melt_term, 25 * gap)
+    cli = generate_cli("gpu" if dev.type == "cuda" else "cpu")
+    emit(phase="generate", sweep_spans=sweep, spans=n_spans, chunks=chunks,
+         eval_every=GEN["eval_every"], span=GEN["span"],
+         nucleation_density=GEN["nucleation_density"],
+         meltpool=GEN["meltpool"], win=melt_term["win"], gap=gap,
+         seconds=wall, ms_per_span=wall / n_spans * 1e3,
+         enqueue_seconds=rec.enqueue_s, driver_inference_s=res["inference_time"],
+         peak_mem_bytes=peak, resident_mem_bytes=resident, launches=launches,
+         capacity_flags=flags, nucleations=nucleated,
+         gated_switches=gated_sw, gated_candidates=gated_cand,
+         switches=int((aux["switching"][..., 0] >= 0).sum()),
+         grain_events=int((aux["grain_events"] >= 0).sum()),
+         events_pred=res["events_pred"],
+         elim_saturated_steps=res["elim_saturated_steps"],
+         num_grains_live=res["num_grains_live"],
+         misorientation_last=res["misorientation"][-1],
+         editor_checked_spans=len(cap.editor), editor_span_ms=span_ms,
+         editor_max_abs_err=err, reference_span=span,
+         cli=cli)
+    st, logits, ge, yg, thr, ag = cap.editor[0]
+    bound_ms, bound_by = editor_bound((st, logits, ge, yg, thr, ag))
+    return dict(name="editor_generate", route="cuda",
+                source="graingraphnn_torch/csrc/editor.cu",
+                replaces=REPLACES["editor"], max_abs_err=err,
+                ms=sum(span_ms) / len(span_ms),
+                plain_ms=sum(plain_ms) / len(plain_ms), bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                launches=launches["editor"],
+                check=f"pass: integers bit-equal, floats atol {EDITOR_ATOL}, "
+                      f"{len(cap.editor)} windowed spans, nucleation slack "
+                      f"{dd.NUCLEATION_SLACK}")
+
+
+def generate_reference_span(reg, cls, reg_cpu, cls_cpu, state, melt_term,
+                            melt_left):
+    """One windowed span with two forced nucleation sites, on the card
+    (where it must not wait for the device) and on the CPU from the same
+    state: topology and cursors equal unless a switch probability lies
+    within 1e-5 of the threshold, the nucleated rows equal."""
+    rng = np.random.default_rng(1)
+    NJ = state.xj.shape[0]
+    live = torch.nonzero(state.mask_j > 0).flatten().cpu().numpy()
+    rand = torch.ones(NJ)
+    rand[torch.from_numpy(rng.choice(live, 2, replace=False))] = 0.0
+    angles = torch.from_numpy(rng.random((tj.MAX_NUC, 2)).astype(np.float32))
+    kw = dict(c_threshold=C_THRESHOLD, nuc_density_term=1.0)
+    ml = torch.tensor(np.float32(melt_left))
+    dev = state.xg.device
+    card = dict(kw, nuc_rand=rand.to(dev), nuc_angles=angles.to(dev),
+                melt_term=melt_term, melt_left=ml.to(dev))
+    dr.device_step(reg, cls, state, **card)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")         # a host sync raises
+    try:
+        s1, a1 = dr.device_step(reg, cls, state, **card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    st_cpu = state.map(lambda v: v.cpu())
+    mt_cpu = dict(melt_term, offset_x=melt_term["offset_x"].cpu())
+    s0, a0 = dr.device_step(reg_cpu, cls_cpu, st_cpu, **dict(
+        kw, nuc_rand=rand, nuc_angles=angles, melt_term=mt_cpu, melt_left=ml))
+    _, _, y_c0, _ = dr.forward_stage(reg_cpu, cls_cpu, st_cpu, tj.RING_MAX)
+    p = torch.sigmoid(y_c0["edge_event"])
+    near = bool(((p - C_THRESHOLD).abs() < 1e-5).any())
+    ints = ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp", "n_g", "n_j", "n_pq")
+    same = all(torch.equal(getattr(s1, f).cpu(), getattr(s0, f)) for f in ints)
+    if not same and not near:
+        raise RuntimeError("generate span: topology differs from the CPU span")
+    g0, g1 = int(state.n_g), int(s0.n_g)
+    j0, j1 = int(state.n_j), int(s0.n_j)
+    if g1 - g0 != 2 or int(s1.n_g) != g1 or int(s1.n_j) != j1:
+        raise RuntimeError(f"generate span: nucleations {g1 - g0} on the "
+                           f"CPU, cursors {int(s1.n_g)}/{int(s1.n_j)} on "
+                           "the card")
+    rows = max((s1.xg[g0:g1].cpu() - s0.xg[g0:g1]).abs().max().item(),
+               (s1.xj[j0:j1].cpu() - s0.xj[j0:j1]).abs().max().item())
+    if not rows <= POS_ATOL:
+        raise RuntimeError(f"generate span: nucleated rows differ by {rows}")
+    pos = (s1.xj[:, :2].cpu() - s0.xj[:, :2]).abs().max().item()
+    calls = aten_calls(lambda: dr.device_step(reg, cls, state, **card))
+    calls["static_span"] = aten_calls(lambda: dr.device_step(
+        reg, cls, state, c_threshold=C_THRESHOLD))["span"]
+    return dict(topology_equal=same, threshold_adjacent=near,
+                nucleated_rows_max_abs_err=rows, position_max_abs_err=pos,
+                melt_left=float(ml), no_host_sync=True,
+                switches=int((a1["switching"][:, 0] >= 0).sum()),
+                aten_calls=calls)
+
+
+def aten_calls(fn):
+    """The aten calls that fn() issues from the host: in all ("span") and
+    inside the melt stage and the nucleation pass. On the card each costs
+    the host about one launch or allocation."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = {"span": 0, "melt_stage": 0, "nucleate_jit": 0}
+    inside = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts["span"] += 1
+            if inside:
+                counts[inside[-1]] += 1
+            return func(*args, **(kwargs or {}))
+
+    def staged(name, orig):
+        def f(*a, **k):
+            inside.append(name)
+            try:
+                return orig(*a, **k)
+            finally:
+                inside.pop()
+        return f
+
+    with mock.patch.object(dr, "melt_stage",
+                           staged("melt_stage", dr.melt_stage)), \
+            mock.patch.object(tj, "nucleate_jit",
+                              staged("nucleate_jit", tj.nucleate_jit)), \
+            Count():
+        fn()
+    torch.cuda.synchronize()
+    return counts
+
+
+def generate_cli(platform):
+    """The port's CLI on a short generate run (2 spans, nucleation on, the
+    static melt pool), on the card: its JSON line."""
+    from graingraphnn_torch.cli import test as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--generate", "--device_resident", "--platform", platform,
+                  "--model_dir", "artifacts/40um", "--lxd", "120",
+                  "--seed", "5", "--G", "1.904", "--R", "0.558",
+                  "--growth_height", "5.0", "--c_threshold", "0.99",
+                  "--nucleation_density", str(GEN["nucleation_density"])])
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    keys = {"final_layer_error", "mean_layer_error", "events_tp",
+            "events_truth", "events_pred", "KS", "inference_time_s"}
+    if set(line) != keys:
+        raise RuntimeError(f"cli: keys {sorted(line)}")
+    return line
 
 
 def main():
@@ -628,13 +984,18 @@ def main():
     reg_cpu, _, _ = checkpoint.load_model("artifacts/40um/regressor0", "cpu")
     cls_cpu, _, _ = checkpoint.load_model("artifacts/40um/classifier1", "cpu")
     phase_reference(reg, cls, state, reg_cpu, cls_cpu)
+    generate_row = phase_generate(reg, cls, reg_cpu, cls_cpu, cuda)
 
     kernels = [dict(row, launches=launches["by_shape"].get(key, 0))
                for key, row in conv_rows.items()]
     bound_ms, bound_by = editor["bound"]
     kernels.append(dict(
         editor_row, ms=editor["ms"], plain_ms=editor["plain_ms"],
+        max_abs_err=max(editor_row["max_abs_err"], editor["max_abs_err"]),
+        check=f"{editor_row['check']} and {editor['checked_spans']} "
+              "rollout spans",
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
+    kernels.append(generate_row)
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -1,0 +1,127 @@
+"""Rollout inference CLI of the port, generate mode on the device-resident
+rollout:
+
+  python -m graingraphnn_torch.cli.test --generate --device_resident \
+      --model_dir=artifacts/40um --lxd=120 --seed=5 --G=1.904 --R=0.558 \
+      --nucleation_density=2e-4 --meltpool=cylinder --r0=20 --z0=4 \
+      --c_threshold=0.99 --eval_every=5
+
+Runs on the card unless --platform=cpu. The starting graph is the
+committed 120 um fixture (data/gen120_seed5.npz); other (lxd, seed, G, R)
+need the Voronoi generator, which is not ported. Prints one JSON line with
+the JAX package's CLI keys.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+
+import torch
+
+from ..rollout import device_driver as dd
+from ..train import checkpoint
+
+
+def starting_trajectory(lxd: int, seed: int, G: float, R: float):
+    """The committed fixture when (lxd, seed, G, R) are its own."""
+    traj = dd.load_trajectory()
+    if not (lxd == traj.lxd and seed == traj.seed
+            and math.isclose(G, traj.G) and math.isclose(R, traj.R)):
+        raise NotImplementedError(
+            f"--generate at lxd={lxd} seed={seed} G={G} R={R}: the port has "
+            f"the starting graph lxd={traj.lxd:g} seed={traj.seed} "
+            f"G={traj.G} R={traj.R} only; the Voronoi generator waits for "
+            "ROADMAP Queue 1 item 8")
+    return traj
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("Rollout inference (PyTorch/CUDA port)")
+    p.add_argument("--platform", default="gpu", choices=["gpu", "cpu"])
+    p.add_argument("--model_dir", type=str, default="./model/")
+    p.add_argument("--regressor_id", type=int, default=0)
+    p.add_argument("--classifier_id", type=int, default=1)
+    p.add_argument("--seed", type=int, default=10020)
+    p.add_argument("--lxd", type=int, default=40)
+    p.add_argument("--span", type=int, default=0)
+    p.add_argument("--growth_height", type=float, default=-1)
+    p.add_argument("--nucleation_density", type=float, default=0.0)
+    p.add_argument("--generate", action="store_true",
+                   help="generate mode: roll the starting graph at --lxd "
+                        "with --G/--R thermal conditions, no PF truth")
+    p.add_argument("--G", type=float, default=10.0)
+    p.add_argument("--R", type=float, default=2.0)
+    p.add_argument("--meltpool", choices=["line", "cylinder"], default="line",
+                   help="cylinder: the moving melt pool's sliding window")
+    p.add_argument("--r0", type=float, default=0.8)
+    p.add_argument("--z0", type=float, default=0.4)
+    p.add_argument("--melt_pool_angle", type=float,
+                   default=0.7853981633974483)
+    p.add_argument("--c_threshold", type=float, default=0.0,
+                   help="override the checkpoint's edge-event threshold")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--device_resident", action="store_true",
+                   help="spans advance on the device, QoIs pulled every "
+                        "--eval_every spans (the port's only rollout)")
+    p.add_argument("--eval_every", type=int, default=1)
+    # options of the JAX CLI that the port refuses
+    p.add_argument("--temporal", action="store_true")
+    p.add_argument("--interp_frames", type=int, default=0)
+    p.add_argument("--plot3D", dest="plot3d", action="store_true")
+    p.add_argument("--partition", type=int, default=0)
+    p.add_argument("--pallas", action="store_true")
+    args = p.parse_args(argv)
+
+    if not args.generate:
+        p.error("phase-field data (no --generate) is not ported: "
+                "extraction waits for ROADMAP Queue 1 item 8")
+    if not args.device_resident:
+        p.error("the host engine is not ported (ROADMAP Queue 1 item 5); "
+                "pass --device_resident")
+    for flag, given in (("--temporal", args.temporal),
+                        ("--interp_frames", args.interp_frames),
+                        ("--plot3D", args.plot3d),
+                        ("--partition", args.partition),
+                        ("--pallas", args.pallas)):
+        if given:
+            p.error(f"{flag} is not ported")
+
+    device = torch.device("cuda" if args.platform == "gpu" else "cpu")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--platform=gpu: no CUDA device; pass "
+                               "--platform=cpu to run the plain versions")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    traj = starting_trajectory(args.lxd, args.seed, args.G, args.R)
+    reg, _, _ = checkpoint.load_model(
+        os.path.join(args.model_dir, f"regressor{args.regressor_id}"), device)
+    cls, _, extra = checkpoint.load_model(
+        os.path.join(args.model_dir, f"classifier{args.classifier_id}"),
+        device)
+    c_threshold = args.c_threshold or extra.get("threshold", 0.6)
+    meltpool = None
+    if args.meltpool == "cylinder":
+        meltpool = {"r0": args.r0, "z0": args.z0,
+                    "melt_pool_angle": args.melt_pool_angle}
+    res = dd.run_device_resident(
+        traj, reg, cls, span=args.span or 6, c_threshold=c_threshold,
+        eval_every=args.eval_every, growth_height=args.growth_height,
+        verbose=args.verbose, nucleation_density=args.nucleation_density,
+        seed=args.seed, meltpool=meltpool, device=device)
+    print(json.dumps({
+        "final_layer_error": res["final_layer_error"],
+        "mean_layer_error": res["mean_layer_error"],
+        "events_tp": res["events_tp"],
+        "events_truth": res["events_truth"],
+        "events_pred": res["events_pred"],
+        "KS": res.get("KS"),
+        "inference_time_s": round(res["inference_time"], 2),
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,10 @@
 // descending probability (ties by column); run the grain eliminations
 // (ring collapse by switches, grain deletion, forced deletions, two-sided
 // cleanup); drop collapsed edges from the switch list; run the switches;
-// finish with a two-sided cleanup.
+// finish with a two-sided cleanup. The moving melt pool's active windows
+// aj [NJ] and ag [NG] gate the switches (both endpoints active) and the
+// ring collapses (the grain and every junction of its ring active); the
+// static melt pool passes all ones.
 //
 // Bound on this card: latency and instruction issue. The edit is a chain
 // of dependent steps, each a few scalar decisions fed by a scan over E_pp
@@ -69,6 +72,7 @@ struct Ed {                        // editor state
   float* yj;                       // [NJ, 2] predicted displacement
   int* mg; int NG;                 // grain mask
   int* mj;                         // joint mask
+  const int* aj; const int* ag;    // active windows of joints and grains
   int* cnt;                        // [num_grains] ring counts
   float* cp; int* cc;              // [EP] candidate switches (prob, column)
   int* jo; int* jc;                // E_pq columns by junction (index_junctions)
@@ -337,6 +341,8 @@ __device__ __noinline__ int2 switch_one(Ed& S, int e, const int* events, int K,
   const int p1 = gi(pp0, EP, e), p2 = gi(pp1, EP, e);
   bool valid = e >= 0 && p1 >= 0 && p2 >= 0;
   const int p1s = valid ? p1 : 0, p2s = valid ? p2 : 0;
+  // melt pool window: no switch touches an inactive joint
+  valid = valid && gi(S.aj, S.NJ, p1s) > 0 && gi(S.aj, S.NJ, p2s) > 0;
 
   // the grain rings (3 each) and other joint neighbors (2 each) of both
   // endpoints: the rings from the junction index where both endpoints are
@@ -578,9 +584,15 @@ __device__ __noinline__ bool ring_collapse(Ed& S, int g, const float* yg0) {
   if (t < 2 * RING) s_forces[t] = -1;
   const int gs = g >= 0 ? g : 0;
   const int ring_n = first_k([&](int i) { return pq1[i] == gs; }, EQ, RING, EQ - 1);
-  if (!(g >= 0 && ring_n > 0 && ring_n <= RING)) return false;
+  if (!(g >= 0 && ring_n > 0 && ring_n <= RING && gi(S.ag, S.NG, gs) > 0))
+    return false;
   if (t < ring_n) s_np[t] = gi(pq0, EQ, s_fk[t]);
   __syncthreads();
+  // melt pool window: every junction of the ring active (one block-wide
+  // count, so every thread takes the same branch)
+  const int n_inactive = count2([&](int r) { return gi(S.aj, S.NJ, s_np[r]) <= 0; },
+                                Never(), ring_n).x;
+  if (n_inactive > 0) return false;
   auto slot = [&](int v) {
     for (int r = 0; r < ring_n; ++r)
       if (s_np[r] == v) return r;
@@ -818,20 +830,21 @@ const char* ggnn_error_string(int err) {
 
 // One span's edit in place on the state arrays (pp [2, EP], pq [2, EQ],
 // xj [NJ, xs], yj [NJ, 2], mg [NG], mj [NJ], ptr [1]); writes sw
-// [MS, 2] and extra [max_extra]. scratch is [num_grains + 2 * EP + NJ +
-// 1 + EQ] int32.
+// [MS, 2] and extra [max_extra]; aj [NJ] and ag [NG] are the active
+// windows. scratch is [num_grains + 2 * EP + NJ + 1 + EQ] int32.
 int editor_update(int* pp, int EP, int* pq, int EQ, float* xj, int NJ,
                   int xs, float* yj, int* mg, int* mj, int NG,
                   const float* prob, const float* yg0, const int* ge, int GE,
-                  float threshold, int num_grains, int MS, int* ptr, int* sw,
-                  int* extra, int* scratch, int max_extra, void* stream) {
+                  const int* aj, const int* ag, float threshold,
+                  int num_grains, int MS, int* ptr, int* sw, int* extra,
+                  int* scratch, int max_extra, void* stream) {
   const int ts_budget = GE > MAX_TWOSIDED ? GE : MAX_TWOSIDED;
   if (MS < 0 || MS > MAX_MS || GE < 0 || GE > MAX_GE || ts_budget > KMAX ||
       xs < 8 || EP < 1 || EQ < 1 || num_grains > NG)
     return cudaErrorInvalidValue;
   int* const jo = scratch + num_grains + 2 * EP;
   Ed S{pp, pp + EP, EP, pq, pq + EQ, EQ, NJ, xj, xs, yj,
-       mg, NG, mj, scratch, reinterpret_cast<float*>(scratch + num_grains),
+       mg, NG, mj, aj, ag, scratch, reinterpret_cast<float*>(scratch + num_grains),
        scratch + num_grains + EP, jo, jo + NJ + 1, 0};
   cudaGetLastError();   // clear any stale error
   editor_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -13,7 +13,10 @@ state and events are equal, float positions are computed in float32 with
 the same operations in the same order. Scalars are Python ints and numpy
 float32 values; the O(E) scans are tensor ops.
 
-Scope: static melt pool, no nucleation.
+The moving melt pool's active windows `aj` [NJ] and `ag` [NG] (int32,
+None = all ones) gate the switches (both endpoints active) and the ring
+collapses (the grain and every junction of its ring active); nothing else.
+Nucleation runs after the editor (rollout/topology_jit.nucleate_jit).
 """
 
 from __future__ import annotations
@@ -90,13 +93,15 @@ def _order_asc(keys) -> List[int]:
 
 
 def _switch_one(st: EditorState, e: int, events, pos: int, n_events: int,
-                elim_grain: int):
-    """One neighbor switch of jj edge column e. Returns the grains it
-    forces out (-1 when none)."""
+                elim_grain: int, aj):
+    """One neighbor switch of jj edge column e; aj [NJ] is the active-joint
+    window. Returns the grains it forces out (-1 when none)."""
     EP, EQ = st.pp0.shape[0], st.pq0.shape[0]
     p1, p2 = _gi(st.pp0, e), _gi(st.pp1, e)
     valid = e >= 0 and p1 >= 0 and p2 >= 0
     p1s, p2s = (p1, p2) if valid else (0, 0)
+    # melt pool window: no switch touches an inactive joint
+    valid = valid and _gi(aj, p1s) > 0 and _gi(aj, p2s) > 0
 
     # grain rings of both endpoints (3 each)
     a = _first_k(st.pq0 == p1s, 3, EQ - 1)
@@ -184,11 +189,11 @@ def _switch_one(st: EditorState, e: int, events, pos: int, n_events: int,
 
 
 def switch_events(st: EditorState, events: List[int], n_events: int,
-                  elim_grain: int) -> List[int]:
+                  elim_grain: int, aj) -> List[int]:
     """Roll back the predicted displacement of every joint the events
-    touch, run the switches in order, then zero those joints' predicted
-    displacement and gradients. Returns the forced grains [2 * len(events)]
-    (-1 fills)."""
+    touch, run the switches in order (aj: the active-joint window), then
+    zero those joints' predicted displacement and gradients. Returns the
+    forced grains [2 * len(events)] (-1 fills)."""
     K = len(events)
     NJ = st.posx.shape[0]
     touched = torch.zeros(NJ, dtype=torch.bool)
@@ -204,7 +209,7 @@ def switch_events(st: EditorState, events: List[int], n_events: int,
     forces = [-1] * (2 * K)
     for i in range(min(n_events, K)):
         forces[2 * i], forces[2 * i + 1] = _switch_one(
-            st, events[i], events, i, n_events, elim_grain)
+            st, events[i], events, i, n_events, elim_grain, aj)
 
     for v in (st.yjx, st.yjy, st.gx, st.gy):
         v[touched] = 0.0
@@ -247,10 +252,11 @@ def delete_grain(st: EditorState, grain: int) -> bool:
     return True
 
 
-def _ring_collapse(st: EditorState, g: int, y_g0):
+def _ring_collapse(st: EditorState, g: int, y_g0, aj, ag):
     """Collapse grain g's junction ring by switching all but two of its
     ring edges, in ascending predicted darea of the neighbor across each
-    edge. Returns (ok, events [RING], forces [2 * RING])."""
+    edge; only where the grain and every junction of its ring are active
+    (aj, ag). Returns (ok, events [RING], forces [2 * RING])."""
     EP, EQ = st.pp0.shape[0], st.pq0.shape[0]
     skip = (False, [-1] * RING, [-1] * (2 * RING))
     gs = g if g >= 0 else 0
@@ -261,6 +267,8 @@ def _ring_collapse(st: EditorState, g: int, y_g0):
     ring_idx = _first_k(ring_cond, RING, EQ - 1)
     Np = torch.tensor([_gi(st.pq0, i) for i in ring_idx[:ring_n]],
                       dtype=st.pp0.dtype)
+    if _gi(ag, gs) <= 0 or any(_gi(aj, int(p)) <= 0 for p in Np):
+        return skip
 
     # ring edges: jj columns u<v with both ends on the ring
     src_hit = st.pp0[None, :] == Np[:, None]          # [ring_n, EP]
@@ -301,7 +309,7 @@ def _ring_collapse(st: EditorState, g: int, y_g0):
     L2_sorted = [L2[o] for o in _order_asc(keys)]
     n_events = max(n_l2 - 2, 0)
     events = (L2_sorted[:n_events] + [-1] * RING)[:RING]
-    forces = switch_events(st, events, n_events, gs)
+    forces = switch_events(st, events, n_events, gs, aj)
     return True, events, forces
 
 
@@ -316,11 +324,17 @@ def _two_sided_cleanup(st: EditorState, num_grains: int, budget: int):
 
 
 def editor_core(st: EditorState, y_g0, prob, grain_events: List[int],
-                threshold, num_grains: int, max_switch: int):
+                threshold, num_grains: int, max_switch: int, aj=None,
+                ag=None):
     """The whole edit of one span, in place on `st`. prob [EP] float32 is
-    the switch probability of each jj column; threshold a float32 scalar.
-    Returns (sw0, sw1 [max_switch] switched edge endpoints, extra
+    the switch probability of each jj column; threshold a float32 scalar;
+    aj [NJ] / ag [NG] int32 the melt pool's active windows (None: all
+    active). Returns (sw0, sw1 [max_switch] switched edge endpoints, extra
     [max_extra] forced and cleaned-up grain ids), -1 fills."""
+    if aj is None:
+        aj = torch.ones_like(st.mj)
+    if ag is None:
+        ag = torch.ones_like(st.mg)
     MS = max_switch
     GE = len(grain_events)
     max_extra = 2 * GE * (RING + 1) + 2 * MS
@@ -341,7 +355,7 @@ def editor_core(st: EditorState, y_g0, prob, grain_events: List[int],
     for g in grain_events:
         if g < 0:
             continue
-        okc, L2ev, forces = _ring_collapse(st, g, y_g0)
+        okc, L2ev, forces = _ring_collapse(st, g, y_g0, aj, ag)
         put_extra(forces)
         if okc:
             delete_grain(st, g)
@@ -355,7 +369,7 @@ def editor_core(st: EditorState, y_g0, prob, grain_events: List[int],
     # pending switches whose column is still live, in order
     L1c = [v for v in L1 if _gi(st.pp0, v) >= 0]
     events = L1c + [-1] * (MS - len(L1c))
-    put_extra(switch_events(st, events, len(L1c), -1))
+    put_extra(switch_events(st, events, len(L1c), -1, aj))
     sw0 = [_gi(st.pp0, v) for v in L1c] + [-1] * (MS - len(L1c))
     sw1 = [_gi(st.pp1, v) for v in L1c] + [-1] * (MS - len(L1c))
     put_extra(_two_sided_cleanup(st, num_grains, ts_budget))

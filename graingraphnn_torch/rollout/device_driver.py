@@ -1,19 +1,35 @@
-"""Driver of the device-resident rollout: the patch-rescaled starting state.
+"""Driver of the device-resident rollout: the patch-rescaled starting state
+and the generate-mode run with its quantities of interest.
 
 For domains larger than the 40 um training patch, local geometry is scaled
 to the training distribution, with per-joint offsets kept for
-reconstruction in global coordinates. The run with QoIs waits for the QoI
-and planar-reconstruction modules of a later slice.
+reconstruction in global coordinates. `run_device_resident` advances the
+spans on the device in chunks of `eval_every` (rollout.device_rollout) and
+pulls the state to the host between chunks for the QoIs (rollout.qoi).
+
+Scope: generate mode (no phase-field truth), periodic boundary, with
+nucleation and the moving melt pool. The comparison with a phase-field
+truth, the planar reconstruction and the partitioned rollout are not
+ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict
+import time
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
+from ..graph import schema
 from . import device_rollout as dr
+from . import topology_jit as tj
+from .qoi import event_hit_rate, misorientation_curve, volume_graph
+
+TRAIN_DELTA_Z = 0.4   # layer height of one training frame
+NUCLEATION_SLACK = 256
 
 FIXTURE_120 = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "gen120_seed5.npz")
@@ -30,6 +46,39 @@ def load_fixture(path: str = FIXTURE_120):
         mask = {"grain": z["mask_grain"],
                 "joint": np.ones(len(z["x_joint"]), np.int32)}
         return x, edges, mask, float(z["lxd"]), float(z["patch_size"])
+
+
+@dataclasses.dataclass
+class Trajectory:
+    """A generate-mode starting graph with the metadata the driver reads."""
+    x: Dict[str, np.ndarray]
+    edges: Dict[str, np.ndarray]
+    mask: Dict[str, np.ndarray]
+    lxd: float
+    patch_size: float
+    theta_z: np.ndarray      # [num_regions + 1] orientation of each grain id
+    area0: Dict              # frame-0 pixel count by grain id
+    num_regions: int
+    mesh_size: float
+    ini_height: float
+    final_height: float
+    G: float
+    R: float
+    seed: int
+
+
+def load_trajectory(path: str = FIXTURE_120) -> Trajectory:
+    """The committed starting graph with its trajectory metadata."""
+    x, edges, mask, lxd, patch = load_fixture(path)
+    with np.load(path) as z:
+        return Trajectory(
+            x=x, edges=edges, mask=mask, lxd=lxd, patch_size=patch,
+            theta_z=z["theta_z"], area0=dict(zip(z["area_ids"],
+                                                 z["area_counts"])),
+            num_regions=int(z["num_regions"]), mesh_size=float(z["mesh_size"]),
+            ini_height=float(z["ini_height"]),
+            final_height=float(z["final_height"]), G=float(z["G"]),
+            R=float(z["R"]), seed=int(z["seed"]))
 
 
 def init_scaled_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
@@ -54,3 +103,177 @@ def init_scaled_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
         {k: v.astype(np.float32) for k, v in x.items()}, edges, mask,
         pp_cap=pp_cap, nucleation_slack=nucleation_slack, device=device)
     return st, offset_j, domain_factor
+
+
+def make_melt_term(meltpool: Dict, lxd: float, span: int, n_joint_rows: int,
+                   offset_j: np.ndarray, domain_factor: float, device):
+    """melt_stage's parameters for meltpool = {r0, z0, melt_pool_angle}:
+    the window's width `win` and its advance per span `gap`, in units of
+    the domain. Returns (melt_term, gap)."""
+    angle = meltpool["melt_pool_angle"]
+    gap = span * TRAIN_DELTA_Z * np.cos(angle) ** 2 / np.tan(angle) / lxd
+    win = (meltpool["r0"] - meltpool["z0"]) / np.tan(angle) / lxd
+    off_x = np.zeros(n_joint_rows, np.float32)
+    off_x[: len(offset_j)] = offset_j[:, 0]
+    return {
+        "r0": float(meltpool["r0"]), "z0": float(meltpool["z0"]),
+        "win": float(win), "gap": float(gap),
+        "domain_factor": float(max(domain_factor, 1)),
+        "offset_x": torch.from_numpy(off_x).to(device),
+        "n_off": int(len(offset_j)),
+    }, gap
+
+
+def run_device_resident(
+    traj: Trajectory,
+    regressor,
+    classifier,
+    *,
+    span: int = 6,
+    r_threshold: float = 1e-4,
+    c_threshold: float = 0.6,
+    eval_every: int = 1,
+    compare: bool = False,
+    reconstruct: bool = False,
+    growth_height: float = -1.0,
+    verbose: bool = False,
+    nucleation_density: float = 0.0,
+    seed: int = 0,
+    partition: int = 0,
+    meltpool: Optional[Dict] = None,
+    device="cuda",
+) -> Dict:
+    """Generate-mode rollout of traj's starting graph with the models on
+    `device`: spans run on the device in chunks of eval_every (a last
+    partial chunk runs whole), and areas and excess volumes are pulled
+    after each chunk. nucleation_density > 0 nucleates (per-joint uniform
+    draws from numpy.random.default_rng(seed), taken per chunk at the joint
+    rows' capacity); meltpool = {r0, z0, melt_pool_angle} sweeps the moving
+    melt pool across the domain, which sets the number of spans. Returns
+    the result dict (event counts, elimination-budget deferrals, live
+    grains, misorientation per observed layer; no layer error or KS: there
+    is no truth to compare with)."""
+    if compare:
+        raise NotImplementedError(
+            "compare=True: the phase-field truth QoIs (layer error, KS) wait "
+            "for ROADMAP Queue 1 item 8")
+    if reconstruct:
+        raise NotImplementedError(
+            "reconstruct=True: the planar reconstruction (graph/planar, "
+            "which needs PIL) waits for ROADMAP Queue 1 item 8")
+    if partition:
+        raise NotImplementedError(
+            "partition: the partitioned rollout waits for ROADMAP Queue 1 "
+            "item 7")
+    nuc = nucleation_density > 0
+    st, offset_j, domain_factor = init_scaled_state(
+        traj.x, traj.edges, traj.mask, traj.lxd, traj.patch_size,
+        nucleation_slack=NUCLEATION_SLACK if nuc else 0, device=device)
+    device = st.xg.device
+    nuc_rng = np.random.default_rng(seed)
+    s_full = traj.patch_size / traj.mesh_size + 1
+
+    final_height = (traj.ini_height + growth_height if growth_height > 0
+                    else traj.final_height)
+    frames_total = int((final_height - traj.ini_height) / TRAIN_DELTA_Z) + 1
+    melt_term, melt_gap = None, 0.0
+    if meltpool is not None:
+        melt_term, melt_gap = make_melt_term(
+            meltpool, traj.lxd, span, st.xj.shape[0], offset_j,
+            domain_factor, device)
+        frames_total = int(np.floor((1 - melt_term["win"]) / melt_gap)) \
+            * span + 1
+    frames = list(range(span, frames_total, span))
+
+    area_traj = [dict(traj.area0)]
+    extraV_traj = []
+    grain_event_list: list = []
+    grain_acc_list = [(traj.ini_height, 0, 0, 0)]
+
+    def observe(state: dr.DeviceRolloutState, frame: int):
+        """Areas and excess volumes of the live grains, on the host."""
+        xg = state.xg.cpu().numpy().astype(np.float64)
+        mg = state.mask_g.cpu().numpy()
+        area_sum = np.sum(xg[:, 3] * mg) / (traj.lxd / traj.patch_size) ** 2
+        live = np.nonzero(mg > 0)[0]
+        area = xg[live, 3] * s_full ** 2 / area_sum
+        extraV_traj.append(
+            mg * xg[:, 4] / schema.TARGET_SCALING["grain"] * s_full ** 3)
+        if frame > 0:
+            area_traj.append(dict(zip((live + 1).tolist(), area)))
+
+    nuc_density_term = (nucleation_density * traj.lxd * traj.lxd
+                        * TRAIN_DELTA_Z if nuc else 0.0)
+    run_chunk = dr.make_rollout(
+        regressor, classifier, n_steps=eval_every, r_threshold=r_threshold,
+        c_threshold=c_threshold, span=span,
+        nuc_density_term=nuc_density_term, melt_term=melt_term)
+
+    observe(st, 0)
+    t0 = time.time()
+    saturated_steps = 0
+    done = 0
+    NJcap = st.xj.shape[0]
+    while done < len(frames):
+        melt_lefts = None
+        if melt_term is not None:
+            # the window advances by `gap` after each span: span t of the
+            # run sits at t * gap
+            melt_lefts = torch.from_numpy(
+                ((done + np.arange(eval_every)) * melt_gap)
+                .astype(np.float32)).to(device)
+        if nuc:
+            rand = nuc_rng.random((eval_every, NJcap)).astype(np.float32)
+            angles = nuc_rng.random(
+                (eval_every, tj.MAX_NUC, 2)).astype(np.float32)
+            st, aux = run_chunk(st, torch.from_numpy(rand).to(device),
+                                torch.from_numpy(angles).to(device),
+                                melt_lefts)
+        else:
+            st, aux = run_chunk(st, melt_lefts=melt_lefts)
+        ge = aux["grain_events"].cpu().numpy()
+        extra = aux["extra_events"].cpu().numpy()
+        saturated_steps += int(aux["elim_saturated"].sum())
+
+        steps_here = min(eval_every, len(frames) - done)
+        for k in range(steps_here):
+            grain_event_list.extend(int(g) for g in ge[k] if g >= 0)
+            grain_event_list.extend(int(g) for g in extra[k] if g >= 0)
+        done += steps_here
+        frame = frames[done - 1]
+        observe(st, frame)
+        # generate mode: no phase-field events to hit
+        tp, n_truth, n_pred = event_hit_rate(set(grain_event_list), set())
+        height = traj.ini_height + frame * TRAIN_DELTA_Z
+        grain_acc_list.append((height, n_truth, n_pred, tp))
+        if verbose:
+            print(f"frame {frame}: events {tp}/{n_truth} (pred {n_pred})")
+    elapsed = time.time() - t0
+
+    result = {
+        "inference_time": elapsed,
+        "grain_acc_list": grain_acc_list,
+        "layer_err_list": [],
+        "final_layer_error": None,
+        "mean_layer_error": None,
+        "events_tp": grain_acc_list[-1][3],
+        "events_truth": grain_acc_list[-1][1],
+        "events_pred": grain_acc_list[-1][2],
+        "elim_saturated_steps": saturated_steps,
+        "num_grains_live": int(st.mask_g.sum()),
+    }
+    delta_h = ((final_height - traj.ini_height) / traj.mesh_size
+               / (frames_total - 1) * span * eval_every)
+    # nucleation grows the grain ids mid-rollout: the volume arrays take
+    # the largest snapshot, and a nucleated grain's orientation comes back
+    # from the final state (grain column 5 = cos theta)
+    n_vol = max([traj.num_regions] + [len(v) for v in extraV_traj])
+    vol_pred = volume_graph(area_traj, extraV_traj, n_vol, delta_h)
+    theta_z = np.asarray(traj.theta_z)
+    theta_pad = np.zeros(n_vol + 1)
+    theta_pad[: len(theta_z)] = theta_z
+    if n_vol + 1 > len(theta_z):
+        new_rows = st.xg.cpu().numpy()[len(theta_z) - 1: n_vol, 5]
+        theta_pad[len(theta_z):] = np.arccos(np.clip(new_rows, -1.0, 1.0))
+    result["misorientation"] = misorientation_curve(theta_pad, vol_pred)
+    return result

@@ -3,9 +3,12 @@ host transfer inside the span loop.
 
     build ELL + edge lengths   (make_sample: sort-based, fixed shapes)
       -> regressor + classifier forward      (models.grain_nn)
+      -> moving melt pool window + taper     (melt_stage, optional)
       -> feature integration + z advance     (integrate_stage)
       -> elimination candidates              (elim_candidates)
       -> topology editor, one kernel launch  (kernels.editor_fused)
+      -> nucleation                          (topology_jit.nucleate_jit,
+                                              optional)
       -> E_pp compaction + grain centers     (finalize_stage)
 
 Every array keeps a fixed shape with -1 sentinels for dead columns, so the
@@ -14,8 +17,10 @@ device and are checked once after the loop (check_capacity).
 
 Grain centers are the masked mean of each grain's junction ring unwrapped
 into the periodic image of the previous center, taken mod 1; arithmetic is
-float32. Scope: periodic boundary, static melt pool, no nucleation, ELL
-tables rebuilt from scratch every span.
+float32. Scope: periodic boundary; the static or the moving melt pool;
+generate-mode nucleation into padded rows and columns
+(init_device_state(nucleation_slack)); ELL tables rebuilt from scratch
+every span.
 """
 
 from __future__ import annotations
@@ -45,6 +50,15 @@ class DeviceRolloutState:
     mask_g: torch.Tensor  # [NG] int32
     mask_j: torch.Tensor  # [NJ] int32
     n_pp: torch.Tensor    # [] int32 live E_pp columns (append cursor)
+    # nucleation cursors (None without nucleation slack): next grain row,
+    # next joint row, next free E_pq column
+    n_g: Optional[torch.Tensor] = None
+    n_j: Optional[torch.Tensor] = None
+    n_pq: Optional[torch.Tensor] = None
+
+    def map(self, fn) -> "DeviceRolloutState":
+        """A copy with fn applied to every tensor field."""
+        return tj.map_fields(self, fn)
 
 
 def _wrap(rel):
@@ -146,10 +160,14 @@ def integrate_stage(state, pred_j, pred_g, span):
     return xg, xj
 
 
-def elim_candidates(state, area, r_threshold, max_elim: int = tj.MAX_ELIM):
-    """Live grains under the area threshold, ascending predicted area.
+def elim_candidates(state, area, r_threshold, max_elim: int = tj.MAX_ELIM,
+                    active_g=None):
+    """Live grains under the area threshold, ascending predicted area; with
+    the melt pool's grain window active_g [NG] bool, only active ones.
     Returns (ge [max_elim] int32, -1 pad; n_candidates)."""
     cond = (state.mask_g > 0) & (area < r_threshold)
+    if active_g is not None:
+        cond = cond & active_g
     key = torch.where(cond, area, torch.full_like(area, float("inf")))
     order = torch.argsort(key, stable=True)
     n_cand = torch.isfinite(key).sum()
@@ -158,18 +176,75 @@ def elim_candidates(state, area, r_threshold, max_elim: int = tj.MAX_ELIM):
 
 
 def edit_stage(state, xg, xj, pred_j, pred_g, edge_logits, ge, c_threshold,
-               max_switch: int = tj.MAX_SWITCH):
-    """The span's topology edit in one editor launch. Returns (tstate,
-    switching, extra)."""
+               max_switch: int = tj.MAX_SWITCH, active_g=None,
+               active_j=None):
+    """The span's topology edit in one editor launch, gated by the melt
+    pool's windows where given. Returns (tstate, switching, extra)."""
     jj_live = state.E_pp[0] >= 0
     logits = torch.where(jj_live, edge_logits, torch.full_like(edge_logits, NEG))
     tstate = tj.TopoState(
         E_pp=state.E_pp, E_pq=state.E_pq, xj=xj, y_joint=pred_j,
         mask_g=state.mask_g, mask_j=state.mask_j, append_ptr=state.n_pp,
+        active_j=active_j,
     )
     return editor_fused.update_fused(
         tstate, logits, ge, pred_g, c_threshold, xg.shape[0],
-        max_switch=max_switch)
+        max_switch=max_switch, active_g=active_g)
+
+
+def melt_stage(state, pred_j, pred_g, melt_term, melt_left):
+    """The moving melt pool's active window: predictions taper to zero
+    outside the sliding window [melt_left, melt_left + win] (fully by
+    + gap), y-displacements and darea scale by the melt front's curvature,
+    and the nodes outside the window freeze (the returned windows gate the
+    editor).
+
+    melt_term: {r0, z0, win, gap, domain_factor (floats), offset_x [NJ]
+    float32 (global-x offsets of patch-rescaled joints, 0 past n_off),
+    n_off}; melt_left: [] float32. Returns (pred_j, pred_g, active_g [NG]
+    bool, active_j [NJ] bool).
+
+    As in the JAX package, a grain's x is its patch-local one. Unlike it,
+    the curvature factor is taken only where the window is open: behind the
+    window the JAX package multiplies a zero taper by r0 / curvature, which
+    is 0 / 0 where the curvature line crosses zero, and the NaN spreads
+    through the graph in the spans after."""
+    r0, z0 = melt_term["r0"], melt_term["z0"]
+    win, gap = melt_term["win"], melt_term["gap"]
+    ml = melt_left
+    mr = ml + win
+    me = ml + win + gap
+
+    def window(xc):
+        near = torch.clamp((xc - me) / (mr - me), 0.0, 1.0)
+        return torch.where(xc < ml, torch.zeros_like(near), near)
+
+    def curvature(xc):
+        return z0 + (r0 - z0) * (xc - ml) / (mr - ml)
+
+    def behind_zero(aw, v):
+        return torch.where(aw > 0, v, torch.zeros_like(v))
+
+    # Python numbers enter divisions as tensors: CUDA multiplies by the
+    # reciprocal of a Python divisor, and `float / tensor` is
+    # `tensor.reciprocal() * float`; JAX and the CPU divide
+    NJ = state.xj.shape[0]
+    rowj = torch.arange(NJ, device=state.xj.device) < melt_term["n_off"]
+    df = torch.full_like(state.xj[:1, 0], melt_term["domain_factor"])
+    gx_j = (state.xj[:, 0] + melt_term["offset_x"]) / df
+    aw_j = torch.where(rowj, window(gx_j), torch.zeros_like(gx_j))
+    gx_g = state.xg[:, 0] / df
+    aw_g = window(gx_g)
+    pred_j = pred_j * aw_j[:, None]
+    curv_j = curvature(gx_j)
+    pred_j[:, 1] = pred_j[:, 1] * torch.where(
+        rowj, behind_zero(aw_j, torch.full_like(curv_j, r0) / curv_j),
+        torch.ones_like(gx_j))
+    pred_g = pred_g.clone()
+    pred_g[:, 0] = pred_g[:, 0] * behind_zero(
+        aw_g, aw_g * r0 / curvature(gx_g))
+    pred_g[:, 1] = pred_g[:, 1] * aw_g
+    return pred_j, pred_g, aw_g > 0.9999, aw_j > 0.9999
 
 
 def compact_stage(E_pp_in):
@@ -213,22 +288,17 @@ def finalize_stage(E_pp_new, E_pq_new, xg, xj, *, ring: int):
     return E_pp, n_pp, xg
 
 
-def _refuse_deferred(nuc_density_term, melt_term):
-    if nuc_density_term:
-        raise NotImplementedError("generate-mode nucleation in the span")
-    if melt_term is not None:
-        raise NotImplementedError("moving melt pool (melt_stage)")
-
-
 def device_step(regressor, classifier, state: DeviceRolloutState, *,
                 r_threshold: float = 1e-4, c_threshold: float = 0.6,
                 span: int = 6, ring: int = tj.RING_MAX,
                 max_elim: int = tj.MAX_ELIM, max_switch: int = tj.MAX_SWITCH,
-                nuc_density_term: float = 0.0, melt_term=None):
+                nuc_density_term: float = 0.0, nuc_rand=None,
+                nuc_angles=None, melt_term=None, melt_left=None):
     """One rollout span. Returns (next_state, aux): aux holds the span's
     grain events, extra events, switching pairs, message-edge count and
-    capacity flags, all on the device."""
-    _refuse_deferred(nuc_density_term, melt_term)
+    capacity flags, all on the device. nuc_density_term > 0 turns on
+    nucleation with this span's draws nuc_rand [NJcap] and nuc_angles
+    [MAX_NUC, 2]; melt_term turns on the moving melt pool at melt_left."""
     sample, y_r, y_c, overflow = forward_stage(regressor, classifier, state,
                                                ring)
     message_edges = (sample.push_mask.sum() + sample.pull_mask.sum()
@@ -236,7 +306,9 @@ def device_step(regressor, classifier, state: DeviceRolloutState, *,
     return post_forward_step(
         state, y_r, y_c, overflow, message_edges, r_threshold=r_threshold,
         c_threshold=c_threshold, span=span, ring=ring, max_elim=max_elim,
-        max_switch=max_switch)
+        max_switch=max_switch, nuc_density_term=nuc_density_term,
+        nuc_rand=nuc_rand, nuc_angles=nuc_angles, melt_term=melt_term,
+        melt_left=melt_left)
 
 
 def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
@@ -244,22 +316,44 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
                       c_threshold: float = 0.6, span: int = 6,
                       ring: int = tj.RING_MAX, max_elim: int = tj.MAX_ELIM,
                       max_switch: int = tj.MAX_SWITCH,
-                      nuc_density_term: float = 0.0, melt_term=None):
-    """The span after the forward: integrate, pick candidates, edit,
-    finalize."""
-    _refuse_deferred(nuc_density_term, melt_term)
+                      nuc_density_term: float = 0.0, nuc_rand=None,
+                      nuc_angles=None, melt_term=None, melt_left=None):
+    """The span after the forward: melt pool window, integrate, pick
+    candidates, edit, nucleate, finalize."""
     pred_j, pred_g = y_r["joint"], y_r["grain"]
+    active_g = active_j = None
+    if melt_term is not None:
+        pred_j, pred_g, active_g, active_j = melt_stage(
+            state, pred_j, pred_g, melt_term, melt_left)
     xg, xj = integrate_stage(state, pred_j, pred_g, span)
     ge, n_cand = elim_candidates(state, y_r["grain_area"], r_threshold,
-                                 max_elim)
+                                 max_elim, active_g=active_g)
     tstate, switching, extra = edit_stage(
         state, xg, xj, pred_j, pred_g, y_c["edge_event"], ge, c_threshold,
-        max_switch)
+        max_switch, active_g=active_g, active_j=active_j)
+    n_g, n_j, n_pq = state.n_g, state.n_j, state.n_pq
+    nuc_overflow = torch.zeros((), dtype=torch.bool, device=xg.device)
+    if nuc_density_term > 0.0:
+        if n_g is None or n_j is None or n_pq is None:
+            raise ValueError("nucleation needs the cursors of "
+                             "init_device_state(nucleation_slack=...)")
+        # the rate's denominator is the live-joint count BEFORE the edit
+        n_live = torch.clamp_min(state.mask_j.sum().to(torch.float32), 1.0)
+        prob = torch.full_like(n_live, nuc_density_term) / n_live
+        t2, xg, n_g, n_j, _ = tj.nucleate_jit(
+            dataclasses.replace(tstate, q_ptr=n_pq), xg, n_g, n_j,
+            nuc_rand, nuc_angles, prob)
+        n_pq = t2.q_ptr
+        nuc_overflow = ((n_g > state.xg.shape[0] - tj.MAX_NUC)
+                        | (n_j > state.xj.shape[0] - 2 * tj.MAX_NUC)
+                        | (n_pq > state.E_pq.shape[1] - 9 * tj.MAX_NUC))
+        tstate = dataclasses.replace(t2, q_ptr=None)
     E_pp, n_pp, xg = finalize_stage(tstate.E_pp, tstate.E_pq, xg, tstate.xj,
                                     ring=ring)
     new_state = DeviceRolloutState(
         xg=xg, xj=tstate.xj, E_pp=E_pp, E_pq=tstate.E_pq,
-        mask_g=tstate.mask_g, mask_j=tstate.mask_j, n_pp=n_pp)
+        mask_g=tstate.mask_g, mask_j=tstate.mask_j, n_pp=n_pp,
+        n_g=n_g, n_j=n_j, n_pq=n_pq)
     aux = {
         "grain_events": ge,
         "extra_events": extra,
@@ -270,29 +364,45 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
         "pp_overflow": tstate.append_ptr > state.E_pp.shape[1],
         # candidates past the budget wait for the next span
         "elim_saturated": n_cand > max_elim,
+        # a nucleation cursor within MAX_NUC sites of its array's end: fatal
+        "nuc_overflow": nuc_overflow,
     }
     return new_state, aux
 
 
 def check_capacity(aux: Dict[str, torch.Tensor]):
-    """Raise if any span of a run dropped edges (ring or append capacity):
-    its graph is corrupt. One device-to-host read for the whole run."""
-    for flag in ("ring_overflow", "pp_overflow"):
+    """Raise if any span of a run dropped edges (ring or append capacity)
+    or came within a nucleation site of the padded rows' end (never set
+    without nucleation): its graph is corrupt. One device-to-host read per
+    flag for the whole run."""
+    for flag in ("ring_overflow", "pp_overflow", "nuc_overflow"):
         hits = aux[flag].reshape(-1).cpu().numpy()
         if hits.any():
             raise RuntimeError(
                 f"rollout capacity bust: {flag} at span "
-                f"{int(np.argmax(hits))}; raise `ring`/`pp_cap`")
+                f"{int(np.argmax(hits))}; raise `ring`/`pp_cap`/"
+                "`nucleation_slack`")
 
 
 def make_rollout(regressor, classifier, *, n_steps: int, **step_kw):
-    """run(state) -> (state, aux) over n_steps spans, aux stacked per span
-    like a scan's output. The loop runs without host sync; run() reads the
+    """run(state, nuc_rand=None, nuc_angles=None, melt_lefts=None) ->
+    (state, aux) over n_steps spans, aux stacked per span like a scan's
+    output. With nucleation (step_kw nuc_density_term > 0) span i takes
+    nuc_rand[i] ([n_steps, NJcap] draws) and nuc_angles[i] ([n_steps,
+    MAX_NUC, 2]); with the moving melt pool (step_kw melt_term) it takes
+    melt_lefts[i]. The loop runs without host sync; run() reads the
     capacity flags once after it and raises on a bust."""
-    def run(state: DeviceRolloutState):
+
+    def run(state: DeviceRolloutState, nuc_rand=None, nuc_angles=None,
+            melt_lefts=None):
         auxs = []
-        for _ in range(n_steps):
-            state, aux = device_step(regressor, classifier, state, **step_kw)
+        for i in range(n_steps):
+            state, aux = device_step(
+                regressor, classifier, state,
+                nuc_rand=None if nuc_rand is None else nuc_rand[i],
+                nuc_angles=None if nuc_angles is None else nuc_angles[i],
+                melt_left=None if melt_lefts is None else melt_lefts[i],
+                **step_kw)
             auxs.append(aux)
         aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
         check_capacity(aux)
@@ -315,25 +425,45 @@ def init_device_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
     plus one span's edit slack, rounded to 128 columns; E_pq gets a dead
     tail column so first-k queries that come up short read -1. The ELL
     tables are rebuilt from scratch every span (a stable sort, any size);
-    persistent incremental columns and nucleation slack are not ported."""
+    persistent incremental columns are not ported.
+
+    nucleation_slack > 0 makes room for that many nucleations: 6 E_pp and
+    9 E_pq columns, one grain row and two joint rows each (dead pads), and
+    seeds the cursors n_g, n_j and n_pq."""
     if incremental:
         raise NotImplementedError("incremental ELL columns")
-    if nucleation_slack:
-        raise NotImplementedError("nucleation slack")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_device_state: no CUDA device; pass "
                            "device='cpu' to run the plain versions")
     connect = np.asarray(edges["connect"], np.int64)
     connect = connect[:, connect[0] >= 0]
-    slack = 2 * (tj.MAX_ELIM * 3 + tj.MAX_TWOSIDED + 2)
+    slack = 2 * (tj.MAX_ELIM * 3 + tj.MAX_TWOSIDED + 2) + 6 * nucleation_slack
     EP = pp_cap or round_up(connect.shape[1] + slack, 128)
     E_pp = np.full((2, EP), -1, np.int32)
     E_pp[:, : connect.shape[1]] = connect
     pull_in = np.asarray(edges["pull"], np.int64)
-    EQ = round_up(pull_in.shape[1] + 1, 128)
+    EQ = round_up(pull_in.shape[1] + 1 + 9 * nucleation_slack, 128)
     pull = np.full((2, EQ), -1, np.int32)
     pull[:, : pull_in.shape[1]] = pull_in
+    n_g0, n_j0 = len(x["grain"]), len(x["joint"])
+    cursors = {}
+    if nucleation_slack:
+        def pad(a, n):
+            a = np.asarray(a)
+            out = np.zeros((a.shape[0] + n,) + a.shape[1:], a.dtype)
+            out[: a.shape[0]] = a
+            return out
+
+        x = {"grain": pad(x["grain"], nucleation_slack),
+             "joint": pad(x["joint"], 2 * nucleation_slack)}
+        mask = {"grain": pad(np.asarray(mask["grain"]).reshape(-1),
+                             nucleation_slack),
+                "joint": pad(np.asarray(mask["joint"]).reshape(-1),
+                             2 * nucleation_slack)}
+        cursors = {k: torch.tensor(v, dtype=torch.int32, device=device)
+                   for k, v in (("n_g", n_g0), ("n_j", n_j0),
+                                ("n_pq", pull_in.shape[1]))}
     return DeviceRolloutState(
         xg=_to_device(x["grain"], torch.float32, device),
         xj=_to_device(x["joint"], torch.float32, device),
@@ -344,4 +474,5 @@ def init_device_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
         mask_j=_to_device(np.asarray(mask["joint"]).reshape(-1), torch.int32,
                           device),
         n_pp=torch.tensor(connect.shape[1], dtype=torch.int32, device=device),
+        **cursors,
     )

@@ -17,6 +17,7 @@ kernels, whose every thread reaches every barrier, and every lane of a
 warp every shuffle, ballot and product."""
 
 import ctypes
+import dataclasses
 import functools
 import os
 import re
@@ -401,6 +402,8 @@ def _editor_cases():
     fixture graph."""
     x, edges, mask, lxd, patch = dd.load_fixture()
     st, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch, device="cpu")
+    slack, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch,
+                                       nucleation_slack=256, device="cpu")
     rng = np.random.default_rng(0)
     NJ = st.xj.shape[0]
     ts = tj.TopoState(
@@ -413,28 +416,39 @@ def _editor_cases():
                    for s, n_sw, n_el in ((0, 8, 2), (1, 24, 4), (2, 30, 0))],
         "clustered": [chip_smoke.clustered_switch_inputs(ts)],
         "forced_out": chip_smoke.forced_out_chain(ts),
+        "windowed": [chip_smoke.windowed_editor_inputs(slack, s, n_sw, n_el)
+                     for s, n_sw, n_el in ((3, 24, 8), (4, 12, 4))],
     }
 
 
-@pytest.mark.parametrize("scenario", ["forced", "clustered", "forced_out"])
+@pytest.mark.parametrize("scenario", ["forced", "clustered", "forced_out",
+                                      "windowed"])
 @pytest.mark.parametrize("threads", [64, 96])
 def test_editor_source_matches_plain(emulated, threads, scenario):
     """Threads per block are a compile-time constant; 64 and 96 give two
     and three warps and uneven scan chunks (the card uses more). Scenarios:
     forced switches and eliminations, switches clustered on a few grains'
-    rings (the lookahead decides how each reconnects), and an edit chain
-    that ends in a forced elimination."""
+    rings (the lookahead decides how each reconnects), an edit chain that
+    ends in a forced elimination, and a state with nucleation slack and
+    nucleated grains under melt pool windows open where x < 0.5."""
     fn = emulated(editor_fused.SOURCE, "editor_update",
                   editor_fused._ARGTYPES, (f"EDITOR_THREADS={threads}",))
     cases = _editor_cases()[scenario]
     assert cases
-    n_extra = 0
-    for ts, logits, ge, yg in cases:
+    n_extra = n_gated = 0
+    for ts, logits, ge, yg, *active_g in cases:
+        active_g = (active_g or [None])[0]
         prob = torch.sigmoid(logits)
         NG = ts.mask_g.shape[0]
-        ref = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG)
+        ref = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG,
+                                            active_g=active_g)
         out = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
-                                  tj.MAX_SWITCH)
+                                  tj.MAX_SWITCH, active_g)
+        if active_g is not None:
+            open_ = editor_fused.update_from_prob(
+                dataclasses.replace(ts, active_j=None), prob, ge, yg, 0.6, NG)
+            n_gated += not (torch.equal(open_[0].mask_g, ref[0].mask_g)
+                            and torch.equal(open_[1], ref[1]))
         for f in ("E_pp", "E_pq", "mask_g", "mask_j", "append_ptr"):
             assert torch.equal(getattr(out[0], f), getattr(ref[0], f)), f
         assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
@@ -444,6 +458,8 @@ def test_editor_source_matches_plain(emulated, threads, scenario):
         n_extra += int((ref[2] >= 0).sum())
     if scenario == "forced_out":
         assert n_extra >= 1        # the forced elimination ran
+    if scenario == "windowed":
+        assert n_gated == len(cases)   # the windows changed every edit
 
 
 def test_editor_candidates_beyond_max_switch(emulated):

@@ -193,7 +193,7 @@ def test_span_on_the_card_matches_the_cpu_span(state120):
     reg_c, _, _ = checkpoint.load_model(path + "regressor0", "cpu")
     cls_c, _, _ = checkpoint.load_model(path + "classifier1", "cpu")
     st = state120
-    st_c = dr.DeviceRolloutState(**{k: v.cpu() for k, v in vars(st).items()})
+    st_c = st.map(lambda v: v.cpu())
     edge_stage.reset_counts()
     editor_fused.launches = 0
     s1, aux1 = dr.device_step(reg, cls, st, c_threshold=0.99)
@@ -236,3 +236,55 @@ def test_span_makes_no_host_sync(state120):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.fixture(scope="module")
+def slack120():
+    """The 120 um state with nucleation slack, its melt pool term at the
+    generate workload's settings, and the melt pool's advance per span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    traj = dd.load_trajectory()
+    st, offset_j, factor = dd.init_scaled_state(
+        traj.x, traj.edges, traj.mask, traj.lxd, traj.patch_size,
+        nucleation_slack=dd.NUCLEATION_SLACK, device="cuda")
+    term, gap = dd.make_melt_term(chip_smoke.GEN["meltpool"], traj.lxd, 6,
+                                  st.xj.shape[0], offset_j, factor, "cuda")
+    return st, term, gap
+
+
+@pytest.mark.parametrize("seed,n_switch,n_elim", [(3, 24, 8), (4, 12, 4)])
+def test_windowed_editor_kernel_matches_plain(slack120, seed, n_switch,
+                                              n_elim):
+    """Nucleated rings and melt pool windows open where x < 0.5."""
+    card()
+    ts, logits, ge, yg, active_g = chip_smoke.windowed_editor_inputs(
+        slack120[0], seed, n_switch, n_elim)
+    before = editor_fused.launches
+    chip_smoke.check_editor_case(ts, logits, ge, yg, 0.6, ts.mask_g.shape[0],
+                                 active_g=active_g)
+    assert editor_fused.launches == before + 1
+
+
+def test_generate_span_makes_no_host_sync(slack120):
+    """A span with the moving melt pool and nucleation never waits for the
+    device either."""
+    dev = card()
+    st, term, gap = slack120
+    reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", dev)
+    cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", dev)
+    rand = torch.ones(st.xj.shape[0], device=dev)
+    rand[torch.tensor([5, 600, 1400])] = 0.0
+    kw = dict(c_threshold=0.99, nuc_density_term=1.0, nuc_rand=rand,
+              nuc_angles=torch.rand(tj.MAX_NUC, 2, device=dev),
+              melt_term=term, melt_left=torch.tensor(20 * gap, device=dev))
+    st, _ = dr.device_step(reg, cls, st, **kw)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            st, aux = dr.device_step(reg, cls, st, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert not bool(aux["nuc_overflow"])

@@ -213,15 +213,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 
 def test_deferred_options_raise(setup):
-    js0, (reg, cls), _, _ = setup
-    ts = port_state(js0)
-    with pytest.raises(NotImplementedError, match="nucleation"):
-        dr.device_step(reg, cls, ts, nuc_density_term=1.0)
-    with pytest.raises(NotImplementedError, match="melt pool"):
-        dr.device_step(reg, cls, ts, melt_term={"r0": 20.0})
+    """What the port still refuses: incremental ELL columns, and the
+    driver's phase-field comparison, planar reconstruction and partitioned
+    rollout."""
+    _, (reg, cls), _, _ = setup
     x, edges, mask, lxd, patch = dd.load_fixture()
     with pytest.raises(NotImplementedError, match="incremental"):
         dr.init_device_state(x, edges, mask, incremental=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="nucleation"):
-        dd.init_scaled_state(x, edges, mask, lxd, patch, nucleation_slack=4,
-                             device="cpu")
+    traj = dd.load_trajectory()
+    for kw, what in (({"compare": True}, "truth"),
+                     ({"reconstruct": True}, "planar"),
+                     ({"partition": 4}, "partitioned")):
+        with pytest.raises(NotImplementedError, match=what):
+            dd.run_device_resident(traj, reg, cls, device="cpu", **kw)

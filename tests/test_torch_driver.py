@@ -1,0 +1,162 @@
+"""The port's generate-mode driver, QoIs and CLI against the JAX package's:
+run_device_resident on one 2-span chunk of a 40 um graph with nucleation
+and the moving melt pool (the same per-chunk draws and window positions,
+the same result), the QoI functions on the same inputs, and the CLI's
+JSON line and refusals on the CPU."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from graingraphnn_torch.cli import test as cli
+from graingraphnn_torch.kernels import editor_fused
+from graingraphnn_torch.rollout import device_driver as dd
+from graingraphnn_torch.rollout import device_rollout as dr
+from graingraphnn_torch.rollout import qoi
+from graingraphnn_torch.train import checkpoint
+from graingraphnn_tpu.rollout import device_driver as jdd
+from graingraphnn_tpu.rollout import device_rollout as jdr
+from graingraphnn_tpu.rollout import qoi as jqoi
+from graingraphnn_tpu.train import checkpoint as jck
+from tests.test_torch_device_rollout import REPO
+from tests.test_torch_fixture import fixture_arrays, jax_start
+
+THRESHOLD = 0.9
+# r0 - z0 = 36.8 at 45 degrees: a window of 0.92 that moves 0.03 a span,
+# so the sweep is (1 - 0.92) // 0.03 = 2 spans: one chunk of eval_every=2
+MELTPOOL = {"r0": 40.8, "z0": 4.0, "melt_pool_angle": np.pi / 4}
+DRIVER_KW = dict(span=6, c_threshold=THRESHOLD, eval_every=2,
+                 nucleation_density=3e-3, seed=5, meltpool=MELTPOOL)
+
+
+def record_chunks(module, name, log):
+    """Wrap module.name (a factory of chunk runs) so each run's inputs
+    land in log; returns the original to put back."""
+    orig = getattr(module, name)
+
+    def factory(*a, **k):
+        run = orig(*a, **k)
+        log.append({"melt_term": k.get("melt_term")})
+
+        def wrapped(st, *args, **kw):
+            log.append([np.array(v) for v in (*args, *kw.values())
+                        if v is not None])
+            return run(st, *args, **kw)
+        return wrapped
+
+    setattr(module, name, factory)
+    return orig
+
+
+def test_driver_matches_jax_on_one_chunk(tmp_path, monkeypatch):
+    traj, hg0 = jax_start(40, 5, 4.0, 1.0)
+    path = tmp_path / "gen40.npz"
+    np.savez(path, **fixture_arrays(traj, hg0, 4.0, 1.0, 5))
+    ttraj = dd.load_trajectory(str(path))
+    mp = REPO + "/artifacts/40um/"
+    pr, hpr, _ = jck.load(mp + "regressor0")
+    pc, hpc, _ = jck.load(mp + "classifier1")
+    reg = checkpoint.params_from_jax(pr, hpr, "cpu")
+    cls = checkpoint.params_from_jax(pc, hpc, "cpu")
+
+    jlog, tlog, probs = [], [], []
+    jorig = record_chunks(jdr, "make_rollout_scan", jlog)
+    torig = record_chunks(dr, "make_rollout", tlog)
+    try:
+        ref = jdd.run_device_resident(
+            hg0, traj, pr, hpr, pc, hpc, compare=False, reconstruct=False,
+            fused_editor=True, **DRIVER_KW)
+        update = editor_fused.update_fused
+        monkeypatch.setattr(editor_fused, "update_fused", lambda *a, **k: (
+            probs.append(torch.sigmoid(a[1])), update(*a, **k))[1])
+        out = dd.run_device_resident(ttraj, reg, cls, device="cpu",
+                                     **DRIVER_KW)
+    finally:
+        jdr.make_rollout_scan, dr.make_rollout = jorig, torig
+
+    # one chunk, with bit-equal draws, window positions and melt term
+    assert len(jlog) == len(tlog) == 2
+    for a, b in zip(tlog[1], jlog[1]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    tm, jm = tlog[0]["melt_term"], jlog[0]["melt_term"]
+    assert tm.keys() == jm.keys()
+    for k in tm:
+        np.testing.assert_array_equal(np.asarray(tm[k]), np.asarray(jm[k]))
+
+    assert out.keys() == ref.keys()
+    near = any(bool(((p - THRESHOLD).abs() < 1e-5).any()) for p in probs)
+    try:
+        for k in ref:
+            if k == "inference_time":
+                continue
+            if k == "misorientation":
+                np.testing.assert_allclose(out[k], ref[k], rtol=1e-5)
+            else:
+                assert out[k] == ref[k], k
+    except AssertionError:
+        if not near:
+            raise
+    assert out["num_grains_live"] > len(ttraj.theta_z) - 1   # nucleated
+    assert np.isfinite(out["misorientation"]).all()
+
+
+def test_qoi_functions_match_jax():
+    rng = np.random.default_rng(0)
+    n0, n1 = 40, 46                 # grain ids grow by nucleation
+    area_traj = [dict(zip(range(1, n0 + 1), rng.integers(50, 900, n0)))]
+    for n in (n0, n1, n1):
+        ids = rng.permutation(np.arange(1, n + 1))[: n - 3] + 0
+        area_traj.append(dict(zip(ids.tolist(), rng.uniform(20, 900, len(ids)))))
+    extraV = [rng.uniform(0, 5, n) for n in (n0, n0, n1, n1)]
+    for fn, args in (
+            ("volume_graph", (area_traj, extraV, n1, 0.7)),
+            ("volume_truth", (rng.uniform(1, 9, (n0, 13)),
+                              rng.uniform(0, 1, (n0, 13)), 6, 13, 2.0, 6.8,
+                              0.08, 500)),
+            ("grain_sizes", (rng.uniform(1, 9, n0), 0.08)),
+            ("size_distribution_ks", (rng.uniform(1, 9, n0),
+                                      rng.uniform(1, 9, n1), 0.08)),
+            ("misorientation_curve", (rng.uniform(0, 1.5, n1 + 1),
+                                      [rng.uniform(0, 9, n1)] * 3)),
+            ("event_hit_rate", ({1, 2, 5, 9}, {2, 9, 11}))):
+        a, b = getattr(qoi, fn)(*args), getattr(jqoi, fn)(*args)
+        np.testing.assert_allclose(np.asarray(a, float), np.asarray(b, float),
+                                   rtol=0, atol=1e-12, err_msg=fn)
+
+
+ARGS = ["--platform", "cpu", "--model_dir", REPO + "/artifacts/40um",
+        "--lxd", "120", "--seed", "5", "--G", "1.904", "--R", "0.558",
+        "--c_threshold", "0.99"]
+
+
+def test_cli_generate_prints_the_json_line(capsys):
+    """Two spans (growth height 5.0; 4.8 / 0.4 rounds down to 11 layers,
+    one span, in both packages), nucleation on."""
+    cli.main(["--generate", "--device_resident", "--growth_height", "5.0",
+              "--nucleation_density", "2e-4", *ARGS])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"final_layer_error", "mean_layer_error",
+                         "events_tp", "events_truth", "events_pred", "KS",
+                         "inference_time_s"}
+    assert line["final_layer_error"] is None and line["events_truth"] == 0
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--generate"], ["--temporal"], ["--interp_frames", "2"],
+    ["--plot3D"], ["--partition", "4"], ["--pallas"]])
+def test_cli_refuses_what_is_not_ported(extra):
+    """PF data (no --generate), the host engine (no --device_resident) and
+    the options of other paths end in an argument error."""
+    base = [] if extra in ([], ["--generate"]) else ["--generate",
+                                                     "--device_resident"]
+    with pytest.raises(SystemExit):
+        cli.main(base + extra + ARGS)
+
+
+def test_cli_refuses_other_starting_graphs():
+    with pytest.raises(NotImplementedError, match="Voronoi"):
+        cli.main(["--generate", "--device_resident", "--platform", "cpu",
+                  "--lxd", "40", "--seed", "5"])

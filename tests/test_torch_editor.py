@@ -27,13 +27,15 @@ def make_graph():
     jj = jj[:, jj[0] >= 0]
     jg = np.asarray(hg0.edge_index_dicts[schema.EDGE_TYPES[1]], np.int64)
     xj = np.asarray(hg0.feature_dicts["joint"], np.float32)
+    xg = np.asarray(hg0.feature_dicts["grain"], np.float32)
     mg = np.asarray(hg0.mask["grain"], np.int32).reshape(-1)
     E_pp = np.full((2, jj.shape[1] + SLACK), -1, np.int32)
     E_pp[:, : jj.shape[1]] = jj
     E_pq = np.full((2, jg.shape[1] + 1), -1, np.int32)
     E_pq[:, : jg.shape[1]] = jg
     return {"E_pp": E_pp, "E_pq": E_pq, "xj": xj, "mask_g": mg,
-            "mask_j": np.ones(len(xj), np.int32), "n_pp": jj.shape[1]}
+            "mask_j": np.ones(len(xj), np.int32), "n_pp": jj.shape[1],
+            "grain_x": xg[:, 0]}
 
 
 @pytest.fixture(scope="module")
@@ -63,26 +65,40 @@ def scenario(g, seed, n_switch, n_elim):
     return logits, ge, y_grain, y_joint, xj
 
 
-def run_both(g, logits, ge, y_grain, y_joint, xj, threshold=0.6):
+def run_both(g, logits, ge, y_grain, y_joint, xj, threshold=0.6,
+             active_j=None, active_g=None):
+    """JAX's fused core and the port's plain editor on the same inputs,
+    with the melt pool's windows (bool arrays) where given."""
     NG = len(g["mask_g"])
+    opt = lambda a, f: None if a is None else f(a)  # noqa: E731
     js = tj.TopoState(
         E_pp=jnp.asarray(g["E_pp"]), E_pq=jnp.asarray(g["E_pq"]),
         xj=jnp.asarray(xj), y_joint=jnp.asarray(y_joint),
         mask_g=jnp.asarray(g["mask_g"]), mask_j=jnp.asarray(g["mask_j"]),
-        append_ptr=jnp.asarray(g["n_pp"], jnp.int32))
+        append_ptr=jnp.asarray(g["n_pp"], jnp.int32),
+        active_j=opt(active_j, jnp.asarray))
     ref = epal.update_fused(js, jnp.asarray(logits), jnp.asarray(ge),
                             jnp.asarray(y_grain), threshold, NG,
-                            use_pallas=False)
+                            use_pallas=False,
+                            active_g=opt(active_g, jnp.asarray))
     ts = ttj.TopoState(
         E_pp=torch.from_numpy(g["E_pp"]), E_pq=torch.from_numpy(g["E_pq"]),
         xj=torch.from_numpy(xj), y_joint=torch.from_numpy(y_joint),
         mask_g=torch.from_numpy(g["mask_g"]),
         mask_j=torch.from_numpy(g["mask_j"]),
-        append_ptr=torch.tensor(g["n_pp"], dtype=torch.int32))
+        append_ptr=torch.tensor(g["n_pp"], dtype=torch.int32),
+        active_j=opt(active_j, torch.from_numpy))
     out = editor_fused.update_fused(ts, torch.from_numpy(logits),
                                     torch.from_numpy(ge),
-                                    torch.from_numpy(y_grain), threshold, NG)
+                                    torch.from_numpy(y_grain), threshold, NG,
+                                    active_g=opt(active_g, torch.from_numpy))
     return ref, out, ts
+
+
+def jax_state(st):
+    """JAX's TopoState of the port's."""
+    return tj.TopoState(**{k: None if v is None else jnp.asarray(v.numpy())
+                           for k, v in vars(st).items()})
 
 
 def assert_equal(ref, out):
@@ -110,6 +126,22 @@ def test_plain_editor_matches_jax_fused_core(graph, seed, n_switch, n_elim):
         assert int((s2.mask_g != ts.mask_g).sum()) > 0
     # the input state is left as it was
     assert torch.equal(ts.E_pp, torch.from_numpy(graph["E_pp"]))
+
+
+@pytest.mark.parametrize("seed", [17, 19])
+def test_windowed_editor_matches_jax(graph, seed):
+    """The melt pool's windows, active where x < 0.5, gate switches and
+    ring collapses exactly as in JAX's fused core; the windows change the
+    edit (as tests/test_device_rollout.py:846-851 asks of JAX's)."""
+    args = scenario(graph, seed, 24, 8)
+    active_j = args[4][:, 0] < 0.5
+    active_g = graph["grain_x"] < 0.5
+    ref, out, _ = run_both(graph, *args, active_j=active_j,
+                           active_g=active_g)
+    assert_equal(ref, out)
+    _, ungated, _ = run_both(graph, *args)
+    assert not (torch.equal(out[0].mask_g, ungated[0].mask_g)
+                and torch.equal(out[1], ungated[1]))
 
 
 def test_plain_editor_matches_jax_on_chained_edits(graph):
@@ -155,8 +187,7 @@ def test_forced_elimination_matches_jax(graph):
     chain = forced_out_chain(ts0)
     assert len(chain) >= 2
     for st, logits, ge, yg in chain:
-        js = tj.TopoState(**{k: jnp.asarray(v.numpy())
-                             for k, v in vars(st).items()})
+        js = jax_state(st)
         ref = epal.update_fused(js, jnp.asarray(logits.numpy()),
                                 jnp.asarray(ge.numpy()),
                                 jnp.asarray(yg.numpy()), 0.6, NG,
@@ -183,7 +214,7 @@ def test_clustered_switches_match_jax(graph):
         mask_j=torch.from_numpy(graph["mask_j"]),
         append_ptr=torch.tensor(graph["n_pp"], dtype=torch.int32))
     st, logits, ge, yg = clustered_switch_inputs(ts0, range(0, 30, 5))
-    js = tj.TopoState(**{k: jnp.asarray(v.numpy()) for k, v in vars(st).items()})
+    js = jax_state(st)
     ref = epal.update_fused(js, jnp.asarray(logits.numpy()),
                             jnp.asarray(ge.numpy()), jnp.asarray(yg.numpy()),
                             0.6, NG, use_pallas=False)

@@ -11,23 +11,34 @@ import pytest
 from graingraphnn_torch.rollout import device_driver as tdd
 from graingraphnn_tpu.graph import schema
 
-LXD, SEED = 120, 5
+LXD, SEED, G, R = 120, 5, 1.904, 0.558
 
 
-def generate(lxd=LXD, seed=SEED):
-    """The arrays that device_driver.init_scaled_state reads from hg0/traj
-    (bench.py:_real_state), as plain numpy."""
+def jax_start(lxd=LXD, seed=SEED, G=G, R=R):
+    """The JAX package's generate-mode trajectory and its t=0 sample
+    (bench.py:_real_state): (traj, hg0)."""
     from graingraphnn_tpu.data import extraction, heterograph
 
     traj = extraction.TrajectoryExtractor(
         lxd=lxd, seed=seed, frames=121, bc="periodic",
-        physical_params={"G": 1.904, "R": 0.558},
+        physical_params={"G": G, "R": R},
     )
     traj.area_counts = dict(zip(*np.unique(traj.alpha_field,
                                            return_counts=True)))
     traj.area_traj.append(dict(traj.area_counts))
     traj.states.append(heterograph.tensorize(traj, 0))
-    hg0 = extraction.make_test_sample(traj, span=6)
+    return traj, extraction.make_test_sample(traj, span=6)
+
+
+def generate(lxd=LXD, seed=SEED, G=G, R=R):
+    """The fixture's arrays of a fresh JAX trajectory."""
+    return fixture_arrays(*jax_start(lxd, seed, G, R), G, R, seed)
+
+
+def fixture_arrays(traj, hg0, G, R, seed):
+    """The arrays that device_driver.init_scaled_state reads from hg0/traj,
+    and the trajectory metadata that the JAX driver's generate mode reads
+    from traj, as plain numpy."""
     return {
         "x_grain": np.asarray(hg0.feature_dicts["grain"], np.float64),
         "x_joint": np.asarray(hg0.feature_dicts["joint"], np.float64),
@@ -38,6 +49,17 @@ def generate(lxd=LXD, seed=SEED):
         "mask_grain": np.asarray(hg0.mask["grain"], np.int32).reshape(-1),
         "lxd": np.float64(traj.lxd),
         "patch_size": np.float64(traj.patch_size),
+        "theta_z": np.asarray(traj.theta_z, np.float64),
+        "area_ids": np.asarray(list(traj.area_traj[0]), np.int64),
+        "area_counts": np.asarray(list(traj.area_traj[0].values()),
+                                  np.int64),
+        "num_regions": np.int64(traj.num_regions),
+        "mesh_size": np.float64(traj.mesh_size),
+        "ini_height": np.float64(traj.ini_height),
+        "final_height": np.float64(traj.final_height),
+        "G": np.float64(G),
+        "R": np.float64(R),
+        "seed": np.int64(seed),
     }
 
 
@@ -62,6 +84,17 @@ def test_fixture_loads_as_host_arrays(fresh):
     np.testing.assert_array_equal(edges["pull"], fresh["edges_pull"])
     assert mask["joint"].shape == (fresh["x_joint"].shape[0],)
     assert int(mask["joint"].sum()) == fresh["x_joint"].shape[0]
+
+
+def test_trajectory_metadata_loads(fresh):
+    """The metadata the port's driver reads (device_driver.load_trajectory)
+    is the JAX trajectory's: orientations, frame-0 areas, heights."""
+    traj = tdd.load_trajectory()
+    np.testing.assert_array_equal(traj.theta_z, fresh["theta_z"])
+    assert traj.area0 == dict(zip(fresh["area_ids"], fresh["area_counts"]))
+    assert len(traj.theta_z) == traj.num_regions + 1
+    assert (traj.G, traj.R, traj.seed) == (G, R, SEED)
+    assert traj.x["grain"].shape[0] == int(fresh["mask_grain"].shape[0])
 
 
 if __name__ == "__main__":
