@@ -16,7 +16,11 @@ editor inputs and on forced scenarios, (6) a CPU reference span, (7) the
 generate path through the port's driver (run_device_resident with
 nucleation and the moving melt pool's whole sweep, counted like (3)), the
 editor kernel against its plain version on each of its spans' windowed
-inputs, one windowed, nucleating span against the CPU, and the port's CLI.
+inputs, one windowed, nucleating span against the CPU, and the port's CLI,
+(8) training at the shipped configs' full width: cli.train on 36 synthetic
+40 um windows (the regressor, then the transfer classifier), train_scanned
+with G,R jitter, one step on the card against the CPU, the eval forward's
+launches, and the saved checkpoints run for one rollout span.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -25,25 +29,33 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import io
 import json
 import math
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
 import torch
 
+from graingraphnn_torch.cli import train as train_cli_mod
+from graingraphnn_torch.graph import synthetic
+from graingraphnn_torch.graph import state as gstate
 from graingraphnn_torch.kernels import _build, edge_stage, editor_fused
-from graingraphnn_torch.models import cells
+from graingraphnn_torch.models import cells, grain_nn
 from graingraphnn_torch.ops import period_conv
 from graingraphnn_torch.rollout import device_driver as dd
 from graingraphnn_torch.rollout import device_rollout as dr
 from graingraphnn_torch.rollout import topology_jit as tj
-from graingraphnn_torch.train import checkpoint
+from graingraphnn_torch.train import checkpoint, trainer
 
 N_SPANS = 20
 C_THRESHOLD = 0.99
@@ -54,6 +66,12 @@ POS_ATOL = 1e-5               # positions, card span against the CPU span
 # melt pool's whole sweep (r0 = 20, z0 = 4, 45 degrees: 86 spans at 120 um)
 GEN = {"span": 6, "eval_every": 5, "nucleation_density": 2e-4,
        "meltpool": {"r0": 20.0, "z0": 4.0, "melt_pool_angle": math.pi / 4}}
+# training: 36 synthetic windows of the 40 um patch's size (the shipped
+# models were trained on 36 windows of one seed), 2 epochs per model, the
+# card-vs-CPU step and the kernel rows at a packed batch of 8
+TRAIN = {"samples": 36, "ng": 120, "epochs": 2, "eval_B": 8}
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
 PEAK_FP32 = 67e12             # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32X3 = 495e12 / 3      # H100 SXM TF32 tensor cores, 3 products per fp32 one
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -154,7 +172,8 @@ def decoder_conv_inputs(reg, sample):
     mask)}."""
     C = reg.hp.layer_size
     h, _c = cells.apply_pgclstm(reg.encoder[0], sample, sample.grain_x,
-                                sample.joint_x, cells.zero_state(sample, C), C)
+                                sample.joint_x, cells.zero_state(sample, C), C,
+                                kernels=True)
     xg = torch.cat([sample.grain_x, h["grain"]], 1).contiguous()
     xj = torch.cat([sample.joint_x, h["joint"]], 1).contiguous()
     cv = reg.decoder[0].conv
@@ -182,16 +201,23 @@ def close(name, out, ref):
 
 
 def phase_edge_stage(reg, state):
-    """Per conv shape: the fused conv (both kernels, as the rollout calls
-    it) against its plain version, then each kernel alone against its own
-    plain version, timed beside it. Returns {(kernel, F_src, F_dst): row}."""
+    """The edge stage's kernels at the rollout's three conv shapes (the
+    first span's decoder convs). Returns {(kernel, F_src, F_dst): row}."""
     sample, _ = dr.make_sample(state)
-    G, C = cells.NUM_GATES, reg.hp.layer_size
+    return conv_kernel_rows(decoder_conv_inputs(reg, sample), reg.hp.layer_size)
+
+
+def conv_kernel_rows(inputs, C, suffix="", workload="rollout"):
+    """Per conv of inputs {name: (conv, x_src, x_dst, nbr, len, mask)}: the
+    fused conv (both kernels, as the forwards call it) against its plain
+    version, then each kernel alone against its own plain version, timed
+    beside it. Returns {(kernel, F_src, F_dst): row} (row names end in
+    suffix)."""
+    G = cells.NUM_GATES
     GC = G * C
     kw = dict(num_gates=G, out_channels=C)
     rows = {}
-    for name, (conv, xs, xd, nbr, ln, m) in decoder_conv_inputs(
-            reg, sample).items():
+    for name, (conv, xs, xd, nbr, ln, m) in inputs.items():
         K, Fs, Fd = nbr.shape[1], xs.shape[1], xd.shape[1]
         # the real masks, a copy with every 7th row fully masked, and one
         # with live slots dropped at random (not a prefix of the row)
@@ -255,20 +281,21 @@ def phase_edge_stage(reg, state):
         ea_flops = ea_tc + ea_fp32
         src = "graingraphnn_torch/csrc/edge_stage.cu"
         rows[("node_proj", Fs, Fd)] = dict(
-            name=f"node_proj_{name}", route="cuda", source=src,
+            name=f"node_proj_{name}{suffix}", route="cuda", source=src,
             replaces=REPLACES[name], max_abs_err=err["node_proj"],
             ms=t["node_proj"], plain_ms=t["node_proj_plain"],
             bound_ms=np_bound, bound_by=np_by,
             library_ms=t["node_proj_library"],
             check=f"pass: atol {ATOL} rtol {RTOL}")
         rows[("edge_attn", Fs, Fd)] = dict(
-            name=f"edge_attn_{name}", route="cuda", source=src,
+            name=f"edge_attn_{name}{suffix}", route="cuda", source=src,
             replaces=REPLACES[name], max_abs_err=err["edge_attn"],
             ms=t["edge_attn"], plain_ms=t["edge_attn_plain"],
             bound_ms=ea_bound, bound_by=ea_by, library_ms=None,
             check=f"pass: atol {ATOL} rtol {RTOL}, also fully masked rows "
                   "and scattered live slots")
-        emit(phase="edge_stage", conv=name, K=K, Ns=xs.shape[0],
+        emit(phase="edge_stage", workload=workload, conv=name, K=K,
+             Ns=xs.shape[0],
              Nd=xd.shape[0], F_src=Fs, F_dst=Fd, live_edges=float(m.sum()),
              max_abs_err=err, max_rel_err=rel, atol=ATOL, rtol=RTOL,
              ms=t, conv_host_us=conv_host_us, node_proj_gflop=np_flops / 1e9,
@@ -962,13 +989,306 @@ def generate_cli(platform):
     return line
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def write_train_pickle(path, n=TRAIN["samples"], ng=TRAIN["ng"]):
+    """n synthetic graphs (spatial_ring_arrays, seeds 0..n-1: ng grains and
+    2 ng joints) in cli.extract --mode=train's pickle layout."""
+    raw = []
+    for seed in range(n):
+        f, e, w, m, t = synthetic.spatial_ring_arrays(ng, seed=seed)
+        raw.append({"feature_dicts": f, "target_dicts": t,
+                    "edge_index_dicts": e, "edge_weight_dicts": w,
+                    "mask": m, "physical_params": {"G": 1.904, "R": 0.558},
+                    "span": 6})
+    with open(path, "wb") as fh:
+        pickle.dump(raw, fh)
+
+
+class StepTimer:
+    """Times every train step (trainer.make_train_step's step function)
+    with CUDA events around it, for the duration of a with block."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        orig = trainer.make_train_step
+
+        def make(*a, **k):
+            step = orig(*a, **k)
+
+            def timed(batch):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                out = step(batch)
+                e1.record()
+                self.events.append((e0, e1))
+                return out
+            return timed
+
+        self._patch = mock.patch.object(trainer, "make_train_step", make)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.events]
+
+
+class EpochSyncs:
+    """Counts the host syncs of each trainer.run_epoch call (PyTorch's sync
+    debug mode warns on every synchronizing call) and times it on the
+    host clock (an epoch ends on its one sync)."""
+
+    def __init__(self):
+        self.syncs, self.ms = [], []
+
+    def __enter__(self):
+        orig = trainer.run_epoch
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    out = orig(*a, **k)
+                finally:
+                    self.ms.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.set_sync_debug_mode("default")
+            self.syncs.append(sum("synchroniz" in str(w.message)
+                                  for w in caught))
+            return out
+
+        self._patch = mock.patch.object(trainer, "run_epoch", run)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+
+def train_cli(args):
+    """cli.train on args; its standard output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_cli_mod.main(args)
+    return out.getvalue()
+
+
+def step_card_vs_cpu(model, hp, batch):
+    """One train step's forward and backward (the torch formulation) on the
+    card and on a CPU copy of the same params and packed batch: the loss
+    within TRAIN_LOSS_RTOL, every gradient within TRAIN_GRAD_ATOL +
+    TRAIN_GRAD_RTOL |g|. Then the eval forward on the hand kernels against
+    the torch formulation on the card, within ATOL + RTOL |ref|. Returns
+    the errors."""
+    cpu_model = copy.deepcopy(model).cpu()
+    model.zero_grad(set_to_none=True)
+    cpu_model.zero_grad(set_to_none=True)
+    loss_fn = trainer.make_loss_fn(hp)
+    l1, _ = loss_fn(model, batch, kernels=False)
+    l1.backward()
+    l0, _ = loss_fn(cpu_model, batch.to("cpu"), kernels=False)
+    l0.backward()
+    l1, l0 = l1.item(), l0.item()
+    loss_rel = abs(l1 - l0) / abs(l0)
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"train step: loss {l1} on the card, {l0} on "
+                           "the CPU")
+    grad_err = 0.0
+    for (name, p1), (_, p0) in zip(model.named_parameters(),
+                                   cpu_model.named_parameters()):
+        if (p1.grad is None) != (p0.grad is None):
+            raise RuntimeError(f"train step: {name} has a grad on one side")
+        if p1.grad is None:
+            continue
+        d = (p1.grad.cpu() - p0.grad).abs()
+        if bool((d > TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * p0.grad.abs()).any()):
+            raise RuntimeError(f"train step: {name} grad max abs err "
+                               f"{d.max().item()}")
+        grad_err = max(grad_err, d.max().item())
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        fast = model(batch, kernels=True)
+        slow = model(batch, kernels=False)
+    eval_err = max(close(f"eval forward {k}", fast[k], slow[k])[0]
+                   for k in fast)
+    return {"loss_card": l1, "loss_cpu": l0,
+            "loss_rel_err": loss_rel, "grad_max_abs_err": grad_err,
+            "eval_max_abs_err": eval_err}
+
+
+def eval_launches(model, hp, batch):
+    """The kernel launches of one eval forward (trainer.make_eval_fn)."""
+    edge_stage.reset_counts()
+    trainer.make_eval_fn(hp, model)(batch)
+    torch.cuda.synchronize()
+    return dict(edge_stage.launches)
+
+
+def profile_train_steps(model, hp, batch, n=4, top=8):
+    """n train steps (as trainer.train runs them: each ends on reading its
+    loss) of `model` on the packed `batch` under torch.profiler: wall ms a
+    step, device ms a step, the device's busy share, CUDA kernels a step
+    and the largest by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opt, sched = trainer.make_optimizer(hp, model, 1000)
+    step = trainer.make_train_step(hp, model, opt, sched)
+    for _ in range(2):
+        float(step(batch))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            float(step(batch))
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(ev.key, getattr(ev, "self_device_time_total", 0) / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if str(ev.device_type).endswith("CUDA")]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"B": hp.batch_size, "wall_ms_per_step": wall / n,
+            "device_ms_per_step": device_ms / n,
+            "device_busy_share": device_ms / wall,
+            "kernels_per_step": sum(r[2] for r in rows) / n,
+            "top": [{"name": k[:80], "ms_per_step": ms / n, "count": c / n}
+                    for k, ms, c in rows[:top]]}
+
+
+def phase_train(state, smi, workdir, profile=False):
+    """The training path on the card at the shipped configs' full width:
+    cli.train on a synthetic 40 um corpus (the regressor, then the transfer
+    classifier from it), counted like the rollout; train_scanned with G,R
+    jitter; one step card against CPU; the eval forward's launches; the
+    saved checkpoints loaded and run for one span of the 120 um rollout.
+    Returns the kernels line's rows at the packed training shapes."""
+    dev = torch.device("cuda")
+    data = os.path.join(workdir, "train.pkl")
+    mdir = os.path.join(workdir, "model")
+    write_train_pickle(data)
+    train_ds, valid_ds = train_cli_mod.load_datasets(data, dev)
+    n_train, n_valid = len(train_ds), len(valid_ds)
+    runs, want = {}, {"node_proj": 0, "edge_attn": 0}
+    edge_stage.reset_counts()
+    for name in ("regressor0", "classifier1"):
+        hp = checkpoint.load_hp(f"artifacts/40um/{name}")
+        # every eval forward launches each kernel 6 times; the train steps
+        # (the torch formulation) none
+        n_eval = (-(-n_train // hp.batch_size)
+                  + (TRAIN["epochs"] + 1) * -(-n_valid // 64))
+        for k in want:
+            want[k] += 6 * n_eval
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with StepTimer() as timer:
+            log = train_cli(["--dataset", data, "--model_dir", mdir,
+                             "--epochs", str(TRAIN["epochs"]),
+                             "--config", f"artifacts/40um/{name}.json"])
+        torch.cuda.synchronize()
+        ms = timer.ms()
+        runs[name] = dict(
+            seconds=time.perf_counter() - t0, steps=len(ms),
+            ms_per_step=sum(ms) / len(ms), step_ms=ms,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            resident_mem_bytes=resident,
+            log_tail=log.strip().splitlines()[-3:])
+        # train() keeps the last, partial batch of an epoch
+        if len(ms) != TRAIN["epochs"] * -(-n_train // hp.batch_size):
+            raise RuntimeError(f"train {name}: {len(ms)} steps")
+    launches = {"node_proj": edge_stage.launches["node_proj"],
+                "edge_attn": edge_stage.launches["edge_attn"],
+                "by_shape": dict(edge_stage.shape_launches)}
+    if {k: launches[k] for k in want} != want:
+        raise RuntimeError(f"train: launches {launches}, want {want}")
+
+    # train_scanned with G,R jitter, on a fresh regressor0
+    hp = checkpoint.load_hp("artifacts/40um/regressor0")
+    model = grain_nn.init_regressor(
+        hp, torch.Generator().manual_seed(0)).to(dev)
+    with EpochSyncs() as ep:
+        _, hist = trainer.train_scanned(
+            hp, model, train_ds, valid_ds, epochs=TRAIN["epochs"],
+            gr_jitter=True, log=lambda line: None)
+    if ep.syncs != [1] * TRAIN["epochs"]:
+        raise RuntimeError(f"train_scanned: host syncs per epoch {ep.syncs}")
+    if not np.isfinite(hist["train_loss"]).all():
+        raise RuntimeError(f"train_scanned: losses {hist['train_loss']}")
+
+    # the saved checkpoints: card against CPU, eval launches, a rollout span
+    B = TRAIN["eval_B"]
+    batch = gstate.pack(gstate.stack(train_ds.samples[:B]))
+    checks, eval_counts, models, profiles = {}, {}, {}, {}
+    for name in ("regressor0", "classifier1"):
+        if profile:
+            model, hp_m, _ = checkpoint.load_model(os.path.join(mdir, name), dev)
+            profiles[name] = profile_train_steps(model, hp_m, gstate.pack(
+                gstate.stack(train_ds.samples[:hp_m.batch_size])))
+        model, hp_m, _ = checkpoint.load_model(os.path.join(mdir, name), dev)
+        checks[name] = step_card_vs_cpu(model, hp_m, batch)
+        eval_counts[name] = eval_launches(model, hp_m, batch)
+        if eval_counts[name] != {"node_proj": 6, "edge_attn": 6}:
+            raise RuntimeError(f"eval forward of {name}: {eval_counts[name]}")
+        models[name] = model
+    edge_stage.reset_counts()
+    editor_fused.launches = 0
+    with torch.no_grad():
+        s1, aux = dr.device_step(models["regressor0"], models["classifier1"],
+                                 state, c_threshold=C_THRESHOLD)
+    torch.cuda.synchronize()
+    span = {"node_proj": edge_stage.launches["node_proj"],
+            "edge_attn": edge_stage.launches["edge_attn"],
+            "editor": editor_fused.launches}
+    if span != {"node_proj": 12, "edge_attn": 12, "editor": 1} or not (
+            bool(torch.isfinite(s1.xj).all()) and bool(torch.isfinite(s1.xg).all())):
+        raise RuntimeError(f"span with the trained checkpoints: {span}")
+
+    with torch.no_grad():
+        rows = conv_kernel_rows(
+            decoder_conv_inputs(models["regressor0"], batch),
+            hp.layer_size, suffix=f"_train{B}", workload=f"train_B{B}")
+    for key, row in rows.items():
+        row["launches"] = launches["by_shape"].get(key, 0)
+    emit(phase="train", nvidia_smi=smi, samples=TRAIN["samples"],
+         n_train=n_train, n_valid=n_valid, grains=TRAIN["ng"],
+         joints=2 * TRAIN["ng"], epochs=TRAIN["epochs"], cli=runs,
+         launches={k: ({str(kk): vv for kk, vv in v.items()}
+                       if k == "by_shape" else v)
+                   for k, v in launches.items()},
+         scanned={"ms_per_epoch": ep.ms, "host_syncs_per_epoch": ep.syncs,
+                  "train_loss": hist["train_loss"],
+                  "valid_loss": hist["valid_loss"]},
+         card_vs_cpu=checks, eval_launches=eval_counts,
+         tolerances={"loss_rtol": TRAIN_LOSS_RTOL,
+                     "grad_atol": TRAIN_GRAD_ATOL,
+                     "grad_rtol": TRAIN_GRAD_RTOL,
+                     "eval_atol": ATOL, "eval_rtol": RTOL},
+         trained_span={"launches": span,
+                       "switches": int((aux["switching"][:, 0] >= 0).sum())},
+         profile=profiles or None)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one rollout by kernel")
+                    help="also profile one rollout and train steps by kernel")
     args = ap.parse_args()
 
-    dev, _smi = phase_device()
+    dev, smi = phase_device()
     phase_build()
     cuda = torch.device("cuda")
     reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", cuda)
@@ -976,15 +1296,23 @@ def main():
     x, edges, mask, lxd, patch = dd.load_fixture()
     state, _, _ = dd.init_scaled_state(x, edges, mask, lxd, patch, device=cuda)
 
-    launches, editor = phase_rollout(reg, cls, state, N_SPANS)
-    conv_rows = phase_edge_stage(reg, state)
-    editor_row = phase_editor(reg, cls, state)
-    if args.profile:
-        phase_profile(reg, cls, state, N_SPANS)
-    reg_cpu, _, _ = checkpoint.load_model("artifacts/40um/regressor0", "cpu")
-    cls_cpu, _, _ = checkpoint.load_model("artifacts/40um/classifier1", "cpu")
-    phase_reference(reg, cls, state, reg_cpu, cls_cpu)
-    generate_row = phase_generate(reg, cls, reg_cpu, cls_cpu, cuda)
+    # the inference phases: no autograd (the edge stage kernels have none)
+    with torch.no_grad():
+        launches, editor = phase_rollout(reg, cls, state, N_SPANS)
+        conv_rows = phase_edge_stage(reg, state)
+        editor_row = phase_editor(reg, cls, state)
+        if args.profile:
+            phase_profile(reg, cls, state, N_SPANS)
+        reg_cpu, _, _ = checkpoint.load_model("artifacts/40um/regressor0",
+                                              "cpu")
+        cls_cpu, _, _ = checkpoint.load_model("artifacts/40um/classifier1",
+                                              "cpu")
+        phase_reference(reg, cls, state, reg_cpu, cls_cpu)
+        generate_row = phase_generate(reg, cls, reg_cpu, cls_cpu, cuda)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_train_",
+                                     dir=here) as workdir:
+        train_rows = phase_train(state, smi, workdir, profile=args.profile)
 
     kernels = [dict(row, launches=launches["by_shape"].get(key, 0))
                for key, row in conv_rows.items()]
@@ -996,6 +1324,7 @@ def main():
               "rollout spans",
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
     kernels.append(generate_row)
+    kernels += list(train_rows.values())
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -1,6 +1,8 @@
 """The fused PeriodConv edge stage as CUDA kernels (csrc/edge_stage.cu):
 `apply_period_conv_cuda` is what ops.period_conv.apply_period_conv runs
-for CUDA tensors, one grouped `node_proj` launch (the four node
+for CUDA tensors when its caller asks for the kernels (forwards without
+autograd: the kernels have no backward, and the wrappers raise when grad
+mode is on and an input requires grad), one grouped `node_proj` launch (the four node
 projections, 3xTF32 tensor cores) then one `edge_attn` launch (a block
 per tile of destination rows and gate, the l2 product once per row on
 3xTF32 tensor cores). Its plain version is
@@ -50,6 +52,15 @@ def _count(kernel, Fs, Fd):
 
 
 def _check(x_src, tensors):
+    # the kernels have no backward: their outputs would carry no grad_fn and
+    # the weights would silently get no gradient
+    if torch.is_grad_enabled():
+        grad = [n for n, (t, _) in tensors.items() if t.requires_grad]
+        if grad:
+            raise RuntimeError(
+                f"edge stage kernels have no backward, and {', '.join(grad)} "
+                "require grad: call them under torch.no_grad() or take the "
+                "torch formulation (apply_period_conv(..., kernels=False))")
     for name, (t, shape) in tensors.items():
         want = torch.int32 if name == "nbr" else torch.float32
         if t.device.type != "cuda" or t.device != x_src.device:

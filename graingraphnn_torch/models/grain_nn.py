@@ -1,17 +1,28 @@
 """GrainNN regressor and classifier.
 
-Each model runs an encoder cell from the zero state, then a decoder cell
+Each model runs an encoder stack from the zero state, then a decoder stack
 that re-reads the same input warm-started with the encoder state, then its
-heads. With the shipped configs each stack is one fused HeteroPGCLSTM cell
-(models/cells.py), so a forward runs six conv applications.
+heads. A stack is one fused HeteroPGCLSTM cell (models/cells.py) followed
+by `layers - 1` SAGE cells; with the shipped configs (one layer) a forward
+runs six conv applications. The regressor's optional `history` branch
+concatenates a temporal LSTM over past gradients to the graph state, and
+its optional `edge_len` head predicts each jj edge's length change.
 
 Parameter names follow the JAX package's tree, so `encoder.0.conv.push.key.w`
-here is `params["encoder"][0]["conv"]["push"]["key"]["w"]` there.
+here is `params["encoder"][0]["conv"]["push"]["key"]["w"]` there. The
+forwards take `kernels`, the conv formulation (ops.period_conv): True for
+the hand kernels on the card (no autograd), False for the torch
+formulation that training differentiates.
+
+Initialisation draws from an explicit torch.Generator with the JAX
+package's distributions (Glorot convs, torch-Linear heads and SAGE convs,
+torch-LSTM history); JAX's random streams cannot be matched, so values
+differ.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -19,37 +30,58 @@ from torch import nn
 from ..graph import schema
 from ..graph.state import GraphSample
 from ..ops.period_conv import Dense
-from . import cells
+from . import cells, lstm
 from .hyper import HyperParams
 
+HISTORY_DIMS = {"joint": 2, "grain": 1}
 
-def _check_supported(hp: HyperParams):
-    if hp.layers != 1:
-        raise NotImplementedError("stacked SAGE cells (layers > 1)")
-    if hp.history:
-        raise NotImplementedError("history LSTM branch")
-    if hp.edge_len:
-        raise NotImplementedError("edge-length head")
+
+def _stack(hp: HyperParams) -> nn.ModuleList:
+    C = hp.layer_size
+    return nn.ModuleList([
+        cells.PGCLSTM(hp.in_grain, hp.in_joint, C) if kind == "pgclstm"
+        else cells.SageCLSTM(C, C, C) for kind in hp.cell_kinds])
+
+
+def _init_stack(stack: nn.ModuleList, hp: HyperParams, gen):
+    for cell, kind in zip(stack, hp.cell_kinds):
+        if kind == "pgclstm":
+            cells.init_pgclstm(cell, gen)
+        else:
+            cells.init_sage_clstm(cell, gen)
+
+
+def _pair(hj: torch.Tensor, sample: GraphSample) -> torch.Tensor:
+    """[h_src, h_dst, length] per directed jj edge."""
+    return torch.cat([hj.index_select(0, sample.jj_src.long()),
+                      hj.index_select(0, sample.jj_dst.long()),
+                      sample.jj_len[:, None]], dim=1)
 
 
 class _EncoderDecoder(nn.Module):
     def __init__(self, hp: HyperParams):
         super().__init__()
-        _check_supported(hp)
         self.hp = hp
-        C = hp.layer_size
-        self.encoder = nn.ModuleList(
-            [cells.PGCLSTM(hp.in_grain, hp.in_joint, C)])
-        self.decoder = nn.ModuleList(
-            [cells.PGCLSTM(hp.in_grain, hp.in_joint, C)])
+        self.encoder = _stack(hp)
+        self.decoder = _stack(hp)
 
-    def encode_decode(self, sample: GraphSample) -> Dict[str, torch.Tensor]:
+    def _apply_stack(self, stack, sample, states, kernels):
         C = self.hp.layer_size
-        enc = cells.apply_pgclstm(
-            self.encoder[0], sample, sample.grain_x, sample.joint_x,
-            cells.zero_state(sample, C), C)
-        h, _c = cells.apply_pgclstm(
-            self.decoder[0], sample, sample.grain_x, sample.joint_x, enc, C)
+        if states is None:
+            states = [cells.zero_state(sample, C) for _ in stack]
+        new_states = []
+        g_in, j_in = sample.grain_x, sample.joint_x
+        for cell, kind, st in zip(stack, self.hp.cell_kinds, states):
+            h, c = cells.apply_cell(cell, sample, g_in, j_in, st, C,
+                                    kind=kind, kernels=kernels)
+            new_states.append((h, c))
+            g_in, j_in = h["grain"], h["joint"]
+        return new_states
+
+    def encode_decode(self, sample: GraphSample, *, kernels: bool
+                      ) -> Dict[str, torch.Tensor]:
+        enc = self._apply_stack(self.encoder, sample, None, kernels)
+        h, _c = self._apply_stack(self.decoder, sample, enc, kernels)[-1]
         return h
 
 
@@ -57,16 +89,31 @@ class Regressor(_EncoderDecoder):
     def __init__(self, hp: HyperParams):
         super().__init__(hp)
         C = hp.layer_size
+        head_in = 2 * C if hp.history else C
         self.head = nn.ModuleDict({
-            "grain": Dense((C, hp.n_grain_targets), (hp.n_grain_targets,)),
-            "joint": Dense((C, hp.n_joint_targets), (hp.n_joint_targets,)),
+            "grain": Dense((head_in, hp.n_grain_targets), (hp.n_grain_targets,)),
+            "joint": Dense((head_in, hp.n_joint_targets), (hp.n_joint_targets,)),
         })
+        if hp.history:
+            self.lstm = nn.ModuleDict({
+                k: lstm.LSTM(HISTORY_DIMS[k], C) for k in ("grain", "joint")})
+        if hp.edge_len:
+            # sized to its input [h_src, h_dst, length], as in the JAX package
+            self.lin1 = Dense((2 * head_in + 1, 1), (1,))
 
-    def forward(self, sample: GraphSample) -> Dict[str, torch.Tensor]:
+    def forward(self, sample: GraphSample, *, kernels: bool
+                ) -> Dict[str, torch.Tensor]:
         """Returns 'joint' [NJ, 2] tanh(dx, dy), 'grain' [NG, 2] (tanh
-        darea, relu extraV) and 'grain_area' [NG], the predicted area."""
-        h = self.encode_decode(sample)
+        darea, relu extraV), 'grain_area' [NG], the predicted area, and with
+        edge_len 'edge' [E], the tanh length change."""
+        h = self.encode_decode(sample, kernels=kernels)
         hg, hj = h["grain"], h["joint"]
+        if self.hp.history:
+            w = self.hp.window
+            hg = torch.cat([hg, self.lstm["grain"](lstm.history_inputs(
+                sample.grain_x, HISTORY_DIMS["grain"], w))], dim=1)
+            hj = torch.cat([hj, self.lstm["joint"](lstm.history_inputs(
+                sample.joint_x, HISTORY_DIMS["joint"], w))], dim=1)
         hd = self.head
         y_joint = torch.tanh(hj @ hd["joint"].w + hd["joint"].b)
         y_grain_raw = hg @ hd["grain"].w + hd["grain"].b
@@ -74,37 +121,78 @@ class Regressor(_EncoderDecoder):
         extrav = torch.relu(y_grain_raw[:, 1])
         area = (darea / schema.TARGET_SCALING["grain"]
                 + sample.grain_x[:, schema.GRAIN_AREA_COL])
-        return {
+        out = {
             "joint": y_joint,
             "grain": torch.stack([darea, extrav], dim=1),
             "grain_area": area,
         }
+        if self.hp.edge_len:
+            out["edge"] = torch.tanh(
+                _pair(hj, sample) @ self.lin1.w + self.lin1.b)[:, 0]
+        return out
 
 
 class Classifier(_EncoderDecoder):
     def __init__(self, hp: HyperParams):
         super().__init__(hp)
-        head_in = 2 * hp.layer_size + 1
+        # the JAX package sizes the heads 3C + 1 with history, though its
+        # pair feature stays 2C + 1
+        head_in = (3 if hp.history else 2) * hp.layer_size + 1
         self.lin1 = Dense((head_in, 2), (2,))   # length prediction
         self.lin2 = Dense((head_in, 1), (1,))   # event logit
 
-    def forward(self, sample: GraphSample) -> Dict[str, torch.Tensor]:
+    def forward(self, sample: GraphSample, *, kernels: bool
+                ) -> Dict[str, torch.Tensor]:
         """Returns 'edge_event' [E] raw logits per directed jj edge and
         'edge' [E, 2] tanh length prediction."""
-        hj = self.encode_decode(sample)["joint"]
-        pair = torch.cat([
-            hj[sample.jj_src.long()], hj[sample.jj_dst.long()],
-            sample.jj_len[:, None],
-        ], dim=1)
+        pair = _pair(self.encode_decode(sample, kernels=kernels)["joint"],
+                     sample)
         logits = (pair @ self.lin2.w + self.lin2.b)[:, 0]
         edge = torch.tanh(pair @ self.lin1.w + self.lin1.b)
         return {"edge_event": logits, "edge": edge}
 
 
 def build(hp: HyperParams) -> nn.Module:
-    """The model the config names, with zero weights (load them with
+    """The model the config names, with zero weights (initialise them with
+    init_regressor / init_classifier, or load them with
     train.checkpoint.params_from_jax)."""
-    return {"regressor": Regressor, "classifier": Classifier}[hp.model_type](hp)
+    kinds = {"regressor": Regressor, "classifier": Classifier}
+    if hp.model_type not in kinds:
+        raise ValueError(f"model_type {hp.model_type!r}")
+    return kinds[hp.model_type](hp)
+
+
+def init_regressor(hp: HyperParams, generator: torch.Generator) -> Regressor:
+    """A regressor with fresh weights on the CPU: Glorot convs with zero
+    biases, torch-Linear heads, torch-LSTM history branch."""
+    model = Regressor(hp)
+    _init_stack(model.encoder, hp, generator)
+    _init_stack(model.decoder, hp, generator)
+    for k in ("grain", "joint"):
+        cells.torch_linear_init(model.head[k], generator)
+    if hp.history:
+        for k in ("grain", "joint"):
+            lstm.init_lstm(model.lstm[k], generator)
+    if hp.edge_len:
+        cells.torch_linear_init(model.lin1, generator)
+    return model
+
+
+def init_classifier(hp: HyperParams, generator: torch.Generator,
+                    regressor: Optional[nn.Module] = None) -> Classifier:
+    """A classifier with fresh weights on the CPU; with `regressor`, its
+    encoder and decoder are copies of the regressor's (transfer learning)."""
+    model = Classifier(hp)
+    if regressor is not None:
+        for name in ("encoder", "decoder"):
+            getattr(model, name).load_state_dict(
+                getattr(regressor, name).state_dict())
+    else:
+        _init_stack(model.encoder, hp, generator)
+        _init_stack(model.decoder, hp, generator)
+    cells.torch_linear_init(model.lin1, generator)
+    cells.torch_linear_init(model.lin2, generator)
+    return model
 
 
 def count_params(model: nn.Module) -> int:

@@ -135,12 +135,12 @@ def make_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
 
 
 def forward_stage(regressor, classifier, state, ring):
-    """ELL rebuild + model forwards. Returns (sample, y_r, y_c,
-    ring_overflow)."""
+    """ELL rebuild + model forwards on the hand kernels, in inference mode.
+    Returns (sample, y_r, y_c, ring_overflow)."""
     sample, overflow = make_sample(state, ring)
-    with torch.no_grad():
-        y_r = regressor(sample)
-        y_c = classifier(sample)
+    with torch.inference_mode():
+        y_r = regressor(sample, kernels=True)
+        y_c = classifier(sample, kernels=True)
     return sample, y_r, y_c, overflow
 
 

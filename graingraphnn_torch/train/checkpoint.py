@@ -1,13 +1,15 @@
-"""Checkpoint loading: `<path>.ckpt` (a pickle of numpy parameter trees, as
-the JAX package writes it) plus `<path>.json` (the HyperParams fields).
-
-Saving waits for the training port."""
+"""Checkpoints: `<path>.ckpt` (a pickle of numpy parameter trees in the JAX
+package's layout, with the decision threshold under "extra") plus
+`<path>.json` (the HyperParams fields). The port writes what the JAX
+package's `train.checkpoint.load` reads, and reads what it writes."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import pickle
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +32,13 @@ class _NumpyUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+def load_pickle(path: str):
+    """A pickle of numpy arrays in standard containers (a checkpoint, or
+    cli.extract's dataset), read through _NumpyUnpickler."""
+    with open(path, "rb") as f:
+        return _NumpyUnpickler(f).load()
+
+
 def _to_torch(tree):
     if isinstance(tree, dict):
         return {k: _to_torch(v) for k, v in tree.items()}
@@ -41,11 +50,14 @@ def _to_torch(tree):
 def load(path: str) -> Tuple[Any, HyperParams, Dict[str, Any]]:
     """Returns (params, hp, extra): params is the JAX package's parameter
     tree with float32 CPU tensors as leaves."""
-    with open(path + ".ckpt", "rb") as f:
-        payload = _NumpyUnpickler(f).load()
+    payload = load_pickle(path + ".ckpt")
+    return _to_torch(payload["params"]), load_hp(path), payload.get("extra", {})
+
+
+def load_hp(path: str) -> HyperParams:
+    """The HyperParams of <path>.json."""
     with open(path + ".json") as f:
-        hp = HyperParams(**json.load(f))
-    return _to_torch(payload["params"]), hp, payload.get("extra", {})
+        return HyperParams(**json.load(f))
 
 
 def _flatten(tree, prefix=""):
@@ -105,3 +117,17 @@ def load_model(path: str, device="cuda"):
     """(model, hp, extra) for a checkpoint pair on `device`."""
     tree, hp, extra = load(path)
     return params_from_jax(tree, hp, device), hp, extra
+
+
+def save(path: str, model: nn.Module, hp: HyperParams,
+         extra: Optional[Dict[str, Any]] = None):
+    """Writes <path>.ckpt ({"params": the JAX tree with numpy leaves,
+    "extra": extra}) and <path>.json (hp)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {"params": params_to_jax(model)}
+    if extra:
+        payload["extra"] = dict(extra)
+    with open(path + ".ckpt", "wb") as f:
+        pickle.dump(payload, f)
+    with open(path + ".json", "w") as f:
+        json.dump(dataclasses.asdict(hp), f, indent=1)

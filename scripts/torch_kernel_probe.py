@@ -120,6 +120,7 @@ def editor_by_switches(reg, cls, state):
                               "max_switch": ms_, "ms": ms}), flush=True)
 
 
+@torch.no_grad()    # the kernels have no backward
 def main():
     cs.phase_device()
     _build.build(

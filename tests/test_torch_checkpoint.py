@@ -127,7 +127,17 @@ def test_package_imports_neither_jax_nor_the_jax_package():
 
 
 def test_unsupported_configs_raise():
-    for hp in (hyper.regressor(0, layers=2), hyper.regressor(0, history=True),
-               hyper.regressor(0, edge_len=True)):
-        with pytest.raises(NotImplementedError):
-            grain_nn.build(hp)
+    """An unknown model type raises. The configs the port refused before
+    training was ported (layers=2, history, edge_len) now build, with the
+    JAX package's parameter tree."""
+    with pytest.raises(ValueError, match="model_type"):
+        grain_nn.build(dataclasses.replace(hyper.regressor(0),
+                                           model_type="gnn"))
+    for kw in ({"layers": 2}, {"history": True}, {"edge_len": True}):
+        hp = hyper.regressor(0, **kw)
+        shapes = jax.eval_shape(lambda k: jgn.init_regressor(k, hp),
+                                jax.random.PRNGKey(0))
+        want = {k: tuple(v.shape) for k, v in checkpoint._flatten(shapes).items()}
+        got = {k: tuple(v.shape) for k, v in
+               grain_nn.build(hp).named_parameters()}
+        assert got == want, kw

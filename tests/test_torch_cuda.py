@@ -38,7 +38,7 @@ def random_conv(seed, Fs, Fd, G, C, dev):
     with torch.no_grad():
         for p in conv.parameters():
             p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
-    return conv.to(dev)
+    return conv.requires_grad_(False).to(dev)
 
 
 @pytest.mark.parametrize("K,Ns,Nd,Fs,Fd", [(3, 1043, 2086, 107, 104),
@@ -66,9 +66,10 @@ def test_edge_stage_kernel_matches_plain(K, Ns, Nd, Fs, Fd):
     torch.cuda.synchronize()
     assert edge_stage.launches == {k: v + 1 for k, v in before.items()}
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
-    # dispatch by device: CUDA tensors go to the kernels
+    # the caller's choice: kernels=True sends CUDA tensors to the kernels
     again = period_conv.apply_period_conv(conv, xs, xd, nbr, ln, mask,
-                                          num_gates=G, out_channels=C)
+                                          num_gates=G, out_channels=C,
+                                          kernels=True)
     assert edge_stage.launches == {k: v + 2 for k, v in before.items()}
     torch.testing.assert_close(again, out, atol=0, rtol=0)
 
@@ -288,3 +289,47 @@ def test_generate_span_makes_no_host_sync(slack120):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert not bool(aux["nuc_overflow"])
+
+
+@pytest.fixture(scope="module")
+def train_batch8():
+    """Eight synthetic 40 um training windows (120 grains, 240 joints),
+    packed on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from graingraphnn_torch.graph import state as gstate
+    from graingraphnn_torch.graph import synthetic
+
+    samples = [gstate.build_sample(*synthetic.spatial_ring_arrays(120, seed=s),
+                                   device="cuda") for s in range(8)]
+    return gstate.pack(gstate.stack(samples))
+
+
+@pytest.mark.parametrize("name", ["regressor0", "classifier1"])
+def test_eval_forward_on_the_kernels_matches_the_torch_formulation(
+        train_batch8, name):
+    """The eval forward at a packed batch of 8: 6 node_proj and 6 edge_attn
+    launches, outputs within atol = rtol = 1e-4 of the torch formulation."""
+    dev = card()
+    model, hp, _ = checkpoint.load_model(f"artifacts/40um/{name}", dev)
+    edge_stage.reset_counts()
+    with torch.no_grad():
+        fast = model(train_batch8, kernels=True)
+        assert edge_stage.launches == {"node_proj": 6, "edge_attn": 6}
+        slow = model(train_batch8, kernels=False)
+    assert edge_stage.launches == {"node_proj": 6, "edge_attn": 6}
+    for k in fast:
+        torch.testing.assert_close(fast[k], slow[k], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", ["regressor0", "classifier1"])
+def test_train_step_on_the_card_matches_the_cpu(train_batch8, name):
+    """One train step's loss (rtol 1e-5) and gradients (atol 1e-5 + rtol
+    1e-4) on the card against the CPU, same params and packed batch."""
+    dev = card()
+    model, hp, _ = checkpoint.load_model(f"artifacts/40um/{name}", dev)
+    edge_stage.reset_counts()
+    errs = chip_smoke.step_card_vs_cpu(model, hp, train_batch8)
+    assert errs["loss_rel_err"] <= chip_smoke.TRAIN_LOSS_RTOL
+    # the kernels ran only in the eval forward, never under autograd
+    assert edge_stage.launches == {"node_proj": 6, "edge_attn": 6}

@@ -51,7 +51,7 @@ def test_shipped_model_matches_jax(graph40, name):
         else jgn.apply_classifier
     ref = jax.jit(lambda p, s: apply(p, hp, s))(params, jsample)
     with torch.no_grad():
-        out = model(tsample)
+        out = model(tsample, kernels=True)
     assert sorted(out) == sorted(ref)
     for k in ref:
         assert tuple(out[k].shape) == ref[k].shape, k
@@ -86,7 +86,8 @@ def test_pgclstm_step_matches_jax_fresh_weights(graph40):
                "joint": torch.from_numpy(hc["cj"])})
     with torch.no_grad():
         th, tc = cells.apply_pgclstm(cell, tsample, tsample.grain_x,
-                                     tsample.joint_x, tstate, C)
+                                     tsample.joint_x, tstate, C,
+                                     kernels=False)
     for a, b in ((th, jh), (tc, jc)):
         for k in ("grain", "joint"):
             np.testing.assert_allclose(a[k].numpy(), np.asarray(b[k]),

@@ -57,10 +57,12 @@ def _conv(params, Fs, Fd, G, C):
 def _port(case, G, C):
     params, xs, xd, nbr, elen, mask = case
     conv = _conv(params, xs.shape[1], xd.shape[1], G, C)
-    out = tpc.apply_period_conv(
-        conv, torch.from_numpy(xs), torch.from_numpy(xd),
-        torch.from_numpy(nbr), torch.from_numpy(elen), torch.from_numpy(mask),
-        num_gates=G, out_channels=C)
+    with torch.no_grad():
+        out = tpc.apply_period_conv(
+            conv, torch.from_numpy(xs), torch.from_numpy(xd),
+            torch.from_numpy(nbr), torch.from_numpy(elen),
+            torch.from_numpy(mask), num_gates=G, out_channels=C,
+            kernels=False)
     return out.numpy()
 
 
@@ -112,7 +114,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     params, xs, xd, nbr, elen, mask = _case(1, 4, 8, 3)
     conv = _conv(params, xs.shape[1], xd.shape[1], 4, 8)
     from graingraphnn_torch.kernels import edge_stage
-    with pytest.raises(ValueError, match="on cpu"):
+    with torch.no_grad(), pytest.raises(ValueError, match="on cpu"):
         edge_stage.apply_period_conv_cuda(
             conv, torch.from_numpy(xs), torch.from_numpy(xd),
             torch.from_numpy(nbr), torch.from_numpy(elen),
