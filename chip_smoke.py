@@ -17,10 +17,19 @@ generate path through the port's driver (run_device_resident with
 nucleation and the moving melt pool's whole sweep, counted like (3)), the
 editor kernel against its plain version on each of its spans' windowed
 inputs, one windowed, nucleating span against the CPU, and the port's CLI,
-(8) training at the shipped configs' full width: cli.train on 36 synthetic
-40 um windows (the regressor, then the transfer classifier), train_scanned
-with G,R jitter, one step on the card against the CPU, the eval forward's
-launches, and the saved checkpoints run for one rollout span.
+(8) the starting-graph generator on the host: its 120 um graph against the
+committed fixture, bit for bit, and its generation and raster seconds at
+40, 120 and 240 um, (9) the JAX package's generate recipe through the
+port's CLI at 40 um (seed 3, G 4, R 1, the moving melt pool, the planar
+reconstruction rasterised after every chunk), counted, with one span
+against the CPU and the kernels at its shapes, (10) 10 spans of the
+generated 240 um graph on the sort builder and on the persistent ELL
+column tables (topology bit-equal, ms per span of each), one span against the
+CPU, a profile, and the kernels at its shapes, (11) training at the
+shipped configs' full width: cli.train on 36 synthetic 40 um windows (the
+regressor, then the transfer classifier), train_scanned with G,R jitter,
+one step on the card against the CPU, the eval forward's launches, and
+the saved checkpoints run for one rollout span.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -47,7 +56,7 @@ import numpy as np
 import torch
 
 from graingraphnn_torch.cli import train as train_cli_mod
-from graingraphnn_torch.graph import synthetic
+from graingraphnn_torch.graph import planar, synthetic
 from graingraphnn_torch.graph import state as gstate
 from graingraphnn_torch.kernels import _build, edge_stage, editor_fused
 from graingraphnn_torch.models import cells, grain_nn
@@ -66,6 +75,14 @@ POS_ATOL = 1e-5               # positions, card span against the CPU span
 # melt pool's whole sweep (r0 = 20, z0 = 4, 45 degrees: 86 spans at 120 um)
 GEN = {"span": 6, "eval_every": 5, "nucleation_density": 2e-4,
        "meltpool": {"r0": 20.0, "z0": 4.0, "melt_pool_angle": math.pi / 4}}
+# the generated workloads: the JAX package's generate recipe at 40 um (its
+# CLI with the checkpoint's threshold), and 10 static spans at 240 um
+GEN40 = ["--generate", "--device_resident", "--model_dir", "artifacts/40um",
+         "--seed", "3", "--G", "4", "--R", "1", "--meltpool", "cylinder",
+         "--r0", "20", "--z0", "4", "--eval_every", "5"]
+GEN40_MELTPOOL = {"r0": 20.0, "z0": 4.0, "melt_pool_angle": math.pi / 4}
+R240 = {"lxd": 240, "seed": 5, "G": 1.904, "R": 0.558, "spans": 10,
+        "repeats": 3}
 # training: 36 synthetic windows of the 40 um patch's size (the shipped
 # models were trained on 36 windows of one seed), 2 epochs per model, the
 # card-vs-CPU step and the kernel rows at a packed batch of 8
@@ -566,6 +583,18 @@ def editor_bound(args):
     return bound(nbytes)
 
 
+def counted_launches():
+    return {"node_proj": edge_stage.launches["node_proj"],
+            "edge_attn": edge_stage.launches["edge_attn"],
+            "by_shape": dict(edge_stage.shape_launches),
+            "editor": editor_fused.launches}
+
+
+def reset_launches():
+    edge_stage.reset_counts()
+    editor_fused.launches = 0
+
+
 def phase_rollout(reg, cls, state, n_spans):
     """The counted main-path run, after a warm-up: every launch count set
     to 0 and the peak memory reset just before, both read just after. One
@@ -575,17 +604,13 @@ def phase_rollout(reg, cls, state, n_spans):
     run = dr.make_rollout(reg, cls, n_steps=n_spans, c_threshold=C_THRESHOLD)
     run(state)                                   # warm-up
     torch.cuda.synchronize()
-    edge_stage.reset_counts()
-    editor_fused.launches = 0
+    reset_launches()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     final, aux = run(state)                      # the counted main-path run
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    launches = {"node_proj": edge_stage.launches["node_proj"],
-                "edge_attn": edge_stage.launches["edge_attn"],
-                "by_shape": dict(edge_stage.shape_launches),
-                "editor": editor_fused.launches}
+    launches = counted_launches()
     with Recorder(capture=True) as cap:          # the captured run
         again, _ = run(state)
         torch.cuda.synchronize()
@@ -637,31 +662,9 @@ def phase_rollout(reg, cls, state, n_spans):
 def phase_profile(reg, cls, state, n_spans, top=14):
     """Device time by kernel over one rollout under torch.profiler, and the
     device's busy share of that run's wall time (profiler on)."""
-    from torch.profiler import ProfilerActivity, profile
-
     run = dr.make_rollout(reg, cls, n_steps=n_spans, c_threshold=C_THRESHOLD)
     run(state)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        rows.append((ev.key, us / 1e3, ev.count))
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    emit(phase="profile", spans=n_spans, wall_ms=wall * 1e3,
-         device_ms=busy_ms, device_busy_share=busy_ms / (wall * 1e3),
-         kernels=len(rows), top=[{"name": k[:90], "ms": ms, "count": n}
-                                 for k, ms, n in rows[:top]])
+    emit(phase="profile", spans=n_spans, **profile_run(run, state, top))
 
 
 def phase_reference(reg, cls, state, reg_cpu, cls_cpu):
@@ -779,10 +782,12 @@ def phase_generate(reg, cls, reg_cpu, cls_cpu, dev):
     nucleating span on the card against the CPU, and the CLI's JSON line.
     Returns the kernels line's editor row at this path's shape."""
     traj = dd.load_trajectory()
+    # no raster (generate40 times it); each observation still rebuilds the
+    # planar graph on the host, as JAX's does, and its seconds are reported
     kw = dict(span=GEN["span"], c_threshold=C_THRESHOLD,
               eval_every=GEN["eval_every"],
               nucleation_density=GEN["nucleation_density"], seed=traj.seed,
-              meltpool=GEN["meltpool"], device=dev)
+              meltpool=GEN["meltpool"], reconstruct=False, device=dev)
     state0, offset_j, factor = dd.init_scaled_state(
         traj.x, traj.edges, traj.mask, traj.lxd, traj.patch_size,
         nucleation_slack=dd.NUCLEATION_SLACK, device=dev)
@@ -794,15 +799,18 @@ def phase_generate(reg, cls, reg_cpu, cls_cpu, dev):
     n_spans = chunks * GEN["eval_every"]       # the last chunk runs whole
     dd.run_device_resident(traj, reg, cls, **kw)        # warm-up
     torch.cuda.synchronize()
-    edge_stage.reset_counts()
-    editor_fused.launches = 0
+    reset_launches()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with Recorder(capture=False) as rec:            # the counted run
+    with Recorder(capture=False) as rec, PlanarTimer() as pt:  # counted
         res = dd.run_device_resident(traj, reg, cls, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if len(pt.rebuild) != chunks + 1 or pt.raster:
+        raise RuntimeError(f"generate: {len(pt.rebuild)} rebuilds, "
+                           f"{len(pt.raster)} rasters")
+    rebuild_in_loop = sum(pt.rebuild[1:])       # frame 0's is before it
     peak = torch.cuda.max_memory_allocated()
     launches = {"node_proj": edge_stage.launches["node_proj"],
                 "edge_attn": edge_stage.launches["edge_attn"],
@@ -850,6 +858,8 @@ def phase_generate(reg, cls, reg_cpu, cls_cpu, dev):
          nucleation_density=GEN["nucleation_density"],
          meltpool=GEN["meltpool"], win=melt_term["win"], gap=gap,
          seconds=wall, ms_per_span=wall / n_spans * 1e3,
+         rebuild_s=pt.rebuild, rebuild_in_loop_s=rebuild_in_loop,
+         ms_per_span_less_rebuild=(wall - sum(pt.rebuild)) / n_spans * 1e3,
          enqueue_seconds=rec.enqueue_s, driver_inference_s=res["inference_time"],
          peak_mem_bytes=peak, resident_mem_bytes=resident, launches=launches,
          capacity_flags=flags, nucleations=nucleated,
@@ -987,6 +997,345 @@ def generate_cli(platform):
     if set(line) != keys:
         raise RuntimeError(f"cli: keys {sorted(line)}")
     return line
+
+
+# ---------------------------------------------------------------------------
+# the generated starting graphs
+# ---------------------------------------------------------------------------
+
+
+def same_trajectory(a, b):
+    """The fields of two Trajectories that differ (arrays compared bit for
+    bit, dtypes included)."""
+    bad = []
+    for part in ("x", "edges", "mask"):
+        da, db = getattr(a, part), getattr(b, part)
+        if da.keys() != db.keys():
+            bad.append(part)
+            continue
+        bad += [f"{part}.{k}" for k in da if da[k].dtype != db[k].dtype
+                or not np.array_equal(da[k], db[k])]
+    if not np.array_equal(a.theta_z, b.theta_z):
+        bad.append("theta_z")
+    for k in ("area0", "lxd", "patch_size", "num_regions", "mesh_size",
+              "ini_height", "final_height", "G", "R", "seed", "bc", "lyd",
+              "imagesize"):
+        if getattr(a, k) != getattr(b, k):
+            bad.append(k)
+    return bad
+
+
+class PlanarTimer:
+    """Host seconds inside PlanarGraph.rebuild_regions and rasterize, per
+    call, for the duration of a with block."""
+
+    def __init__(self):
+        self.rebuild, self.raster = [], []
+
+    def __enter__(self):
+        def timed(orig, out):
+            def f(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **k)
+                finally:
+                    out.append(time.perf_counter() - t0)
+            return f
+
+        self._patches = [
+            mock.patch.object(planar.PlanarGraph, "rebuild_regions",
+                              timed(planar.PlanarGraph.rebuild_regions,
+                                    self.rebuild)),
+            mock.patch.object(planar.PlanarGraph, "rasterize",
+                              timed(planar.PlanarGraph.rasterize,
+                                    self.raster))]
+        for p in self._patches:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self._patches):
+            p.__exit__(*exc)
+
+
+def phase_generator():
+    """The port's generator on this host: the 120 um graph against the
+    committed fixture, bit for bit (numpy's legacy RandomState, LAPACK's
+    SVD inside multivariate_normal and scipy's Qhull must give the JAX
+    package's graph), and generation and raster seconds at 40, 120 and
+    240 um. Returns {lxd: Trajectory}."""
+    import scipy
+
+    trajs, sizes = {}, []
+    for lxd, seed, G, R in ((40, 3, 4.0, 1.0), (120, 5, 1.904, 0.558),
+                            (R240["lxd"], R240["seed"], R240["G"],
+                             R240["R"])):
+        with PlanarTimer() as pt:
+            t0 = time.perf_counter()
+            trajs[lxd] = dd.generate_trajectory(lxd, seed, G, R)
+            seconds = time.perf_counter() - t0
+        t = trajs[lxd]
+        sizes.append(dict(lxd=lxd, seed=seed, grains=t.num_regions,
+                          junctions=len(t.x["joint"]),
+                          pull_columns=int(t.edges["pull"].shape[1]),
+                          raster_side=t.imagesize[0], seconds=seconds,
+                          raster_seconds=pt.raster[0]))
+    bad = same_trajectory(trajs[120], dd.load_trajectory())
+    emit(phase="generator", numpy=np.__version__, scipy=scipy.__version__,
+         fixture_equal=not bad, differing=bad, sizes=sizes)
+    if bad:
+        raise RuntimeError(f"generator: the 120 um graph differs from the "
+                           f"fixture in {bad}")
+    return trajs
+
+
+def span_card_vs_cpu(reg, cls, reg_cpu, cls_cpu, state, **kw):
+    """One span from the same state on the card and on the CPU: topology
+    bit-equal unless a switch probability lies within 1e-5 of the
+    threshold, positions within POS_ATOL."""
+    st_cpu = state.map(lambda v: v.cpu())
+    kw_cpu = dict(kw)
+    if kw.get("melt_term") is not None:
+        kw_cpu["melt_term"] = dict(
+            kw["melt_term"], offset_x=kw["melt_term"]["offset_x"].cpu())
+        kw_cpu["melt_left"] = kw["melt_left"].cpu()
+    s1, a1 = dr.device_step(reg, cls, state, c_threshold=C_THRESHOLD, **kw)
+    s0, a0 = dr.device_step(reg_cpu, cls_cpu, st_cpu, c_threshold=C_THRESHOLD,
+                            **kw_cpu)
+    _, _, y_c0, _ = dr.forward_stage(reg_cpu, cls_cpu, st_cpu, tj.RING_MAX)
+    p = torch.sigmoid(y_c0["edge_event"])
+    near = bool(((p - C_THRESHOLD).abs() < 1e-5).any())
+    ints = ["E_pp", "E_pq", "mask_g", "mask_j", "n_pp"] + [
+        f for f in ("pull_cols", "push_cols", "connect_cols")
+        if getattr(state, f) is not None]
+    same = all(torch.equal(getattr(s1, f).cpu(), getattr(s0, f))
+               for f in ints)
+    if not same and not near:
+        raise RuntimeError("span: topology differs from the CPU span")
+    pos = (s1.xj[:, :2].cpu() - s0.xj[:, :2]).abs().max().item()
+    if not pos <= POS_ATOL:
+        raise RuntimeError(f"span: positions differ by {pos}")
+    return dict(topology_equal=same, threshold_adjacent=near,
+                position_max_abs_err=pos, fields=ints,
+                switches=int((a1["switching"][:, 0] >= 0).sum()),
+                grain_events=int((a1["grain_events"] >= 0).sum()))
+
+
+def editor_row(reg, cls, state, suffix, launches):
+    """The editor kernel against its plain version on a state's first-span
+    inputs and on forced switches and eliminations, timed on the first."""
+    first = editor_inputs(reg, cls, state)
+    NG = state.xg.shape[0]
+    err = 0.0
+    for (ts, logits, ge, yg), thr in (
+            (first, C_THRESHOLD),
+            (forced_editor_inputs(first[0], 0, 8, 2)[:4], 0.6),
+            (forced_editor_inputs(first[0], 1, 24, 4)[:4], 0.6)):
+        err = max(err, check_editor_case(ts, logits, ge, yg, thr, NG)[1])
+    args = (*first, C_THRESHOLD, None)
+    ms = editor_ms(args, NG)
+    ts, logits, ge, yg = first
+    t0 = time.perf_counter()
+    editor_fused.update_fused(_to(ts, "cpu"), logits.cpu(), ge.cpu(),
+                              yg.cpu(), C_THRESHOLD, NG)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by = editor_bound(args)
+    return dict(name=f"editor{suffix}", route="cuda",
+                source="graingraphnn_torch/csrc/editor.cu",
+                replaces=REPLACES["editor"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, launches=launches,
+                check=f"pass: integers bit-equal, floats atol {EDITOR_ATOL}, "
+                      "first span and 2 forced cases")
+
+
+def shape_rows(reg, cls, state, suffix, workload, launches):
+    """The kernels line's rows at a state's shapes: node_proj and edge_attn
+    of the three convs, and the editor."""
+    sample, _ = dr.make_sample(state)
+    rows = conv_kernel_rows(decoder_conv_inputs(reg, sample),
+                            reg.hp.layer_size, suffix=suffix,
+                            workload=workload)
+    out = [dict(row, launches=launches["by_shape"].get(key, 0))
+           for key, row in rows.items()]
+    return out + [editor_row(reg, cls, state, suffix, launches["editor"])]
+
+
+def phase_generate40(traj40, reg, cls, reg_cpu, cls_cpu, dev):
+    """The JAX package's generate recipe through the port's CLI on the
+    card: lxd 40, seed 3, G 4, R 1, the moving melt pool (r0 20, z0 4),
+    the checkpoint's threshold, reconstruction on, 20 spans in 4 chunks.
+    A warm-up run, then the counted one: launches, wall ms per span, the
+    reconstruction's seconds, peak memory. Then one span from the run's
+    final state against the CPU, and the kernels at this graph's shapes.
+    Returns the kernels line's rows."""
+    from graingraphnn_torch.cli import test as cli
+
+    def run():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(GEN40)
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    run()                                           # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(capture=False) as rec, PlanarTimer() as pt:
+        t0 = time.perf_counter()
+        line = run()
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counted_launches()
+    n = rec.spans
+    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n}
+    if n != 20 or any(launches[k] != v for k, v in want.items()):
+        raise RuntimeError(f"generate40: {n} spans, launches {launches}")
+    if set(line) != {"final_layer_error", "mean_layer_error", "events_tp",
+                     "events_truth", "events_pred", "KS",
+                     "inference_time_s"}:
+        raise RuntimeError(f"generate40: CLI keys {sorted(line)}")
+    final = rec.final
+    for name in ("xg", "xj"):
+        if not bool(torch.isfinite(getattr(final, name)).all()):
+            raise RuntimeError(f"generate40: non-finite {name}")
+    # the generator's raster, then the driver's: frame 0 before its timed
+    # loop, and one after every chunk
+    if len(pt.raster) != 6 or len(pt.rebuild) != 6:
+        raise RuntimeError(f"generate40: {len(pt.raster)} rasters")
+    in_loop = sum(pt.raster[2:]) + sum(pt.rebuild[2:])
+
+    melt_term, gap = dd.make_melt_term(GEN40_MELTPOOL, traj40.lxd, 6,
+                                       final.xj.shape[0],
+                                       np.zeros((len(traj40.x["joint"]), 2)),
+                                       1.0, dev)
+    span = span_card_vs_cpu(
+        reg, cls, reg_cpu, cls_cpu, final, melt_term=melt_term,
+        melt_left=torch.tensor(np.float32(n * gap), device=dev))
+    state, _, _ = dd.init_scaled_state(traj40.x, traj40.edges, traj40.mask,
+                                       traj40.lxd, traj40.patch_size,
+                                       device=dev)
+    emit(phase="generate40", cli_args=GEN40, cli=line, spans=n,
+         seconds=wall, inference_s=line["inference_time_s"],
+         ms_per_span=line["inference_time_s"] / n * 1e3,
+         enqueue_seconds=rec.enqueue_s,
+         reconstruct_in_loop_s=in_loop, raster_s=pt.raster,
+         rebuild_s=pt.rebuild,
+         launches={k: ({str(kk): vv for kk, vv in v.items()}
+                       if k == "by_shape" else v)
+                   for k, v in launches.items()},
+         peak_mem_bytes=peak, resident_mem_bytes=resident,
+         grains=traj40.num_regions, junctions=len(traj40.x["joint"]),
+         live_grains=int(final.mask_g.sum()), reference_span=span)
+    return shape_rows(reg, cls, state, "_40um", "generate40", launches)
+
+
+def timed_runs(run, states, repeats):
+    """ms per span of run(state) for each state, alternating, `repeats`
+    times each; and the host's time inside the spans."""
+    ms = {k: [] for k in states}
+    host = {k: [] for k in states}
+    for _ in range(repeats):
+        for k, st in states.items():
+            torch.cuda.synchronize()
+            with Recorder(capture=False) as rec:
+                t0 = time.perf_counter()
+                run(st)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            ms[k].append(dt / rec.spans * 1e3)
+            host[k].append(rec.enqueue_s / rec.spans * 1e3)
+    return ms, host
+
+
+def profile_run(run, state, top=12):
+    """Device time by kernel over run(state) under torch.profiler, and the
+    device's busy share of the run's wall time (profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(ev.key, getattr(ev, "self_device_time_total", 0) / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if str(ev.device_type).endswith("CUDA")]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall, "kernels": len(rows),
+            "top": [{"name": k[:90], "ms": m, "count": c}
+                    for k, m, c in rows[:top]]}
+
+
+def phase_rollout240(traj, reg, cls, reg_cpu, cls_cpu, dev):
+    """10 static spans of the generated 240 um graph: on the default ELL
+    builder (the sort) counted, with the capacity flags checked and peak
+    memory; the same spans on the persistent column tables (the JAX
+    package's path at this size), topology bit-equal; ms per span of each
+    (min of 3) with the host's time inside the spans; one span against
+    the CPU; a profiled run; the kernels at this graph's shapes. Returns
+    the kernels line's rows."""
+    n = R240["spans"]
+    args = (traj.x, traj.edges, traj.mask, traj.lxd, traj.patch_size)
+    st_srt, _, factor = dd.init_scaled_state(*args, device=dev)
+    st_inc, _, _ = dd.init_scaled_state(*args, incremental=True, device=dev)
+    if st_inc.pull_cols is None or st_srt.pull_cols is not None:
+        raise RuntimeError("rollout240: the wrong ELL builder was chosen")
+    run = dr.make_rollout(reg, cls, n_steps=n, c_threshold=C_THRESHOLD)
+    for st in (st_srt, st_inc):
+        run(st)                                     # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fin_srt, aux = run(st_srt)                      # the counted run
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counted_launches()
+    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n}
+    if any(launches[k] != v for k, v in want.items()):
+        raise RuntimeError(f"rollout240: launches {launches}")
+    fin_inc, _ = run(st_inc)
+    ints = ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp")
+    if not all(torch.equal(getattr(fin_inc, f), getattr(fin_srt, f))
+               for f in ints):
+        raise RuntimeError("rollout240: the column tables and the sort "
+                           "builder end in different topologies")
+    for name in ("xg", "xj"):
+        if not bool(torch.isfinite(getattr(fin_srt, name)).all()):
+            raise RuntimeError(f"rollout240: non-finite {name}")
+    pos = max((getattr(fin_inc, f) - getattr(fin_srt, f)).abs().max().item()
+              for f in ("xg", "xj"))
+    ms, host = timed_runs(run, {"sort": st_srt, "columns": st_inc},
+                          R240["repeats"])
+    span = span_card_vs_cpu(reg, cls, reg_cpu, cls_cpu, st_srt)
+    prof = profile_run(run, st_srt)
+    edges = float(aux["message_edges"].sum())
+    emit(phase="rollout240", lxd=traj.lxd, seed=traj.seed,
+         grains=traj.num_regions, junctions=len(traj.x["joint"]),
+         pull_columns=int(traj.edges["pull"].shape[1]),
+         domain_factor=factor, spans=n,
+         launches={k: ({str(kk): vv for kk, vv in v.items()}
+                       if k == "by_shape" else v)
+                   for k, v in launches.items()},
+         capacity_flags={f: int(aux[f].sum()) for f in
+                         ("ring_overflow", "pp_overflow", "nuc_overflow")},
+         elim_saturated=int(aux["elim_saturated"].sum()),
+         switches=int((aux["switching"][..., 0] >= 0).sum()),
+         grain_events=int((aux["grain_events"] >= 0).sum()),
+         topology_equal_columns=True, position_max_abs_diff_columns=pos,
+         ms_per_span=ms, ms_per_span_min={k: min(v) for k, v in ms.items()},
+         host_ms_per_span=host, edges=edges,
+         edges_per_s=edges / (min(ms["sort"]) * n / 1e3),
+         peak_mem_bytes=peak, resident_mem_bytes=resident,
+         reference_span=span, profile=prof)
+    return shape_rows(reg, cls, st_srt, "_240um", "rollout240", launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1243,8 +1592,7 @@ def phase_train(state, smi, workdir, profile=False):
         if eval_counts[name] != {"node_proj": 6, "edge_attn": 6}:
             raise RuntimeError(f"eval forward of {name}: {eval_counts[name]}")
         models[name] = model
-    edge_stage.reset_counts()
-    editor_fused.launches = 0
+    reset_launches()
     with torch.no_grad():
         s1, aux = dr.device_step(models["regressor0"], models["classifier1"],
                                  state, c_threshold=C_THRESHOLD)
@@ -1309,6 +1657,11 @@ def main():
                                               "cpu")
         phase_reference(reg, cls, state, reg_cpu, cls_cpu)
         generate_row = phase_generate(reg, cls, reg_cpu, cls_cpu, cuda)
+        trajs = phase_generator()
+        gen40_rows = phase_generate40(trajs[40], reg, cls, reg_cpu, cls_cpu,
+                                      cuda)
+        r240_rows = phase_rollout240(trajs[R240["lxd"]], reg, cls, reg_cpu,
+                                     cls_cpu, cuda)
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_train_",
                                      dir=here) as workdir:
@@ -1324,6 +1677,7 @@ def main():
               "rollout spans",
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
     kernels.append(generate_row)
+    kernels += gen40_rows + r240_rows
     kernels += list(train_rows.values())
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

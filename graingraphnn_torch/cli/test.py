@@ -6,17 +6,17 @@ rollout:
       --nucleation_density=2e-4 --meltpool=cylinder --r0=20 --z0=4 \
       --c_threshold=0.99 --eval_every=5
 
-Runs on the card unless --platform=cpu. The starting graph is the
-committed 120 um fixture (data/gen120_seed5.npz); other (lxd, seed, G, R)
-need the Voronoi generator, which is not ported. Prints one JSON line with
-the JAX package's CLI keys.
+Runs on the card unless --platform=cpu. The starting graph of any
+(lxd, seed, G, R) comes from the seeded Voronoi generator
+(device_driver.generate_trajectory), and the planar graph is rebuilt and
+rasterised after every chunk inside the timed loop. Prints one JSON line
+with the JAX package's CLI keys.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 
 import torch
@@ -25,23 +25,14 @@ from ..rollout import device_driver as dd
 from ..train import checkpoint
 
 
-def starting_trajectory(lxd: int, seed: int, G: float, R: float):
-    """The committed fixture when (lxd, seed, G, R) are its own."""
-    traj = dd.load_trajectory()
-    if not (lxd == traj.lxd and seed == traj.seed
-            and math.isclose(G, traj.G) and math.isclose(R, traj.R)):
-        raise NotImplementedError(
-            f"--generate at lxd={lxd} seed={seed} G={G} R={R}: the port has "
-            f"the starting graph lxd={traj.lxd:g} seed={traj.seed} "
-            f"G={traj.G} R={traj.R} only; the Voronoi generator waits for "
-            "ROADMAP Queue 1 item 8")
-    return traj
-
-
 def main(argv=None):
     p = argparse.ArgumentParser("Rollout inference (PyTorch/CUDA port)")
     p.add_argument("--platform", default="gpu", choices=["gpu", "cpu"])
     p.add_argument("--model_dir", type=str, default="./model/")
+    p.add_argument("--rawdat_dir", type=str, default="",
+                   help="phase-field data; generate mode ignores it")
+    p.add_argument("--cache_dir", type=str, default="./data_cache",
+                   help="phase-field cache; generate mode ignores it")
     p.add_argument("--regressor_id", type=int, default=0)
     p.add_argument("--classifier_id", type=int, default=1)
     p.add_argument("--seed", type=int, default=10020)
@@ -62,12 +53,22 @@ def main(argv=None):
                    default=0.7853981633974483)
     p.add_argument("--c_threshold", type=float, default=0.0,
                    help="override the checkpoint's edge-event threshold")
+    p.add_argument("--no-compare", dest="compare", action="store_false",
+                   help="generate mode never compares (no phase-field "
+                        "truth)")
+    p.set_defaults(compare=True)
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--device_resident", action="store_true",
                    help="spans advance on the device, QoIs pulled every "
                         "--eval_every spans (the port's only rollout)")
     p.add_argument("--eval_every", type=int, default=1)
+    p.add_argument("--fused_editor", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="the single-launch editor (the port's only one): "
+                        "auto and on take it, off is refused")
     # options of the JAX CLI that the port refuses
+    p.add_argument("--jit_editor", action="store_true")
+    p.add_argument("--clamp_gr", type=str, default="")
     p.add_argument("--temporal", action="store_true")
     p.add_argument("--interp_frames", type=int, default=0)
     p.add_argument("--plot3D", dest="plot3d", action="store_true")
@@ -76,11 +77,20 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if not args.generate:
-        p.error("phase-field data (no --generate) is not ported: "
-                "extraction waits for ROADMAP Queue 1 item 8")
+        p.error("phase-field data (no --generate) is not ported: it needs "
+                "the phase-field extraction (data.extraction's load_pf_file "
+                "and extract)")
     if not args.device_resident:
-        p.error("the host engine is not ported (ROADMAP Queue 1 item 5); "
-                "pass --device_resident")
+        p.error("the host engine (rollout.engine) is not ported; pass "
+                "--device_resident")
+    if args.fused_editor == "off":
+        p.error("--fused_editor off: the HLO editor (rollout.topology_jit."
+                "update_jit) is not ported")
+    for flag, given in (("--jit_editor", args.jit_editor),
+                        ("--clamp_gr", args.clamp_gr)):
+        if given:
+            p.error(f"{flag} is an option of the host engine "
+                    "(rollout.engine), which is not ported")
     for flag, given in (("--temporal", args.temporal),
                         ("--interp_frames", args.interp_frames),
                         ("--plot3D", args.plot3d),
@@ -96,7 +106,8 @@ def main(argv=None):
                                "--platform=cpu to run the plain versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    traj = starting_trajectory(args.lxd, args.seed, args.G, args.R)
+    traj = dd.generate_trajectory(args.lxd, args.seed, args.G, args.R,
+                                  span=args.span or 6)
     reg, _, _ = checkpoint.load_model(
         os.path.join(args.model_dir, f"regressor{args.regressor_id}"), device)
     cls, _, extra = checkpoint.load_model(

@@ -20,3 +20,17 @@ def periodic_dist(p: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
     """Euclidean distance with minimum-image wraparound."""
     rel = min_image(p - pc)
     return torch.sqrt(torch.sum(rel * rel, dim=-1))
+
+
+def periodic_move(p: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
+    """Shift point(s) `p` by whole periods so they lie in the same image as
+    `pc`."""
+    return p + wrap_shift(p - pc)
+
+
+def periodic_unit(p: torch.Tensor, pc: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Unit vector from `pc` toward `p` under minimum image."""
+    rel = min_image(p - pc)
+    norm = torch.sqrt(torch.sum(rel * rel, dim=-1, keepdim=True))
+    return rel / torch.clamp_min(norm, eps)

@@ -1,16 +1,21 @@
-"""Driver of the device-resident rollout: the patch-rescaled starting state
-and the generate-mode run with its quantities of interest.
+"""Driver of the device-resident rollout: the starting graph, the
+patch-rescaled starting state and the generate-mode run with its
+quantities of interest.
 
-For domains larger than the 40 um training patch, local geometry is scaled
-to the training distribution, with per-joint offsets kept for
-reconstruction in global coordinates. `run_device_resident` advances the
-spans on the device in chunks of `eval_every` (rollout.device_rollout) and
-pulls the state to the host between chunks for the QoIs (rollout.qoi).
+`generate_trajectory` makes the starting graph of any (lxd, seed, G, R)
+with the seeded Voronoi generator (data.extraction); `load_trajectory`
+reads the committed 120 um one. For domains larger than the 40 um
+training patch, local geometry is scaled to the training distribution,
+with per-joint offsets kept for reconstruction in global coordinates.
+`run_device_resident` advances the spans on the device in chunks of
+`eval_every` (rollout.device_rollout) and pulls the state to the host
+between chunks for the QoIs (rollout.qoi) and the planar reconstruction
+(graph.planar: the grain polygons rebuilt from the junction incidence
+and, with reconstruct=True, rasterised), both inside the timed loop.
 
 Scope: generate mode (no phase-field truth), periodic boundary, with
 nucleation and the moving melt pool. The comparison with a phase-field
-truth, the planar reconstruction and the partitioned rollout are not
-ported.
+truth (layer error, KS) and the partitioned rollout are not ported.
 """
 
 from __future__ import annotations
@@ -18,12 +23,13 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..graph import schema
+from ..graph.planar import PlanarGraph
 from . import device_rollout as dr
 from . import topology_jit as tj
 from .qoi import event_hit_rate, misorientation_curve, volume_graph
@@ -65,12 +71,61 @@ class Trajectory:
     G: float
     R: float
     seed: int
+    bc: str
+    lyd: float
+    imagesize: Tuple[int, int]   # the frame-0 raster's (x, y) size
+
+
+def trajectory_from_extractor(traj, hg0) -> Trajectory:
+    """The Trajectory of a generate-mode extractor (data.extraction) and
+    its t=0 sample (make_test_sample), with the fixture's dtypes."""
+    pull, connect = schema.EDGE_TYPES[1], schema.EDGE_TYPES[2]
+    x_joint = np.asarray(hg0.feature_dicts["joint"], np.float64)
+    area0 = traj.area_traj[0]
+    return Trajectory(
+        x={"grain": np.asarray(hg0.feature_dicts["grain"], np.float64),
+           "joint": x_joint},
+        edges={"pull": np.asarray(hg0.edge_index_dicts[pull], np.int32),
+               "connect": np.asarray(hg0.edge_index_dicts[connect],
+                                     np.int32)},
+        mask={"grain": np.asarray(hg0.mask["grain"], np.int32).reshape(-1),
+              "joint": np.ones(len(x_joint), np.int32)},
+        lxd=float(traj.lxd), patch_size=float(traj.patch_size),
+        theta_z=np.asarray(traj.theta_z, np.float64),
+        area0=dict(zip(np.asarray(list(area0), np.int64),
+                       np.asarray(list(area0.values()), np.int64))),
+        num_regions=int(traj.num_regions), mesh_size=float(traj.mesh_size),
+        ini_height=float(traj.ini_height),
+        final_height=float(traj.final_height),
+        G=float(traj.physical_params["G"]),
+        R=float(traj.physical_params["R"]), seed=int(traj.seed),
+        bc=traj.BC, lyd=float(traj.lyd), imagesize=tuple(traj.imagesize))
+
+
+def generate_trajectory(lxd: float, seed: int, G: float, R: float,
+                        span: int = 6) -> Trajectory:
+    """The generate-mode starting graph of (lxd, seed, G, R): the seeded
+    periodic Voronoi microstructure, its frame-0 areas from the raster,
+    tensorised and made the t=0 sample with window `span`."""
+    from ..data import extraction, heterograph
+
+    traj = extraction.TrajectoryExtractor(
+        lxd=lxd, seed=seed, frames=121, bc="periodic",
+        physical_params={"G": G, "R": R})
+    traj.area_counts = dict(zip(*np.unique(traj.alpha_field,
+                                           return_counts=True)))
+    traj.area_traj.append(dict(traj.area_counts))
+    traj.states.append(heterograph.tensorize(traj, 0))
+    return trajectory_from_extractor(
+        traj, extraction.make_test_sample(traj, span=span))
 
 
 def load_trajectory(path: str = FIXTURE_120) -> Trajectory:
-    """The committed starting graph with its trajectory metadata."""
+    """The committed starting graph with its trajectory metadata (a
+    periodic, square domain)."""
     x, edges, mask, lxd, patch = load_fixture(path)
     with np.load(path) as z:
+        side = int(lxd / float(z["mesh_size"])) + 1
         return Trajectory(
             x=x, edges=edges, mask=mask, lxd=lxd, patch_size=patch,
             theta_z=z["theta_z"], area0=dict(zip(z["area_ids"],
@@ -78,15 +133,18 @@ def load_trajectory(path: str = FIXTURE_120) -> Trajectory:
             num_regions=int(z["num_regions"]), mesh_size=float(z["mesh_size"]),
             ini_height=float(z["ini_height"]),
             final_height=float(z["final_height"]), G=float(z["G"]),
-            R=float(z["R"]), seed=int(z["seed"]))
+            R=float(z["R"]), seed=int(z["seed"]), bc="periodic", lyd=lxd,
+            imagesize=(side, side))
 
 
 def init_scaled_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
                       mask: Dict[str, np.ndarray], lxd: float,
                       patch_size: float, *, pp_cap=None,
+                      incremental: bool = False,
                       nucleation_slack: int = 0, device="cuda"):
     """Patch-rescaled device state from host arrays (float64 features,
-    E_pq/E_pp COO, masks). Returns (state, offset_j, domain_factor)."""
+    E_pq/E_pp COO, masks); incremental as init_device_state takes it.
+    Returns (state, offset_j, domain_factor)."""
     x = {k: np.array(v, dtype=np.float64) for k, v in x.items()}
     connect = np.asarray(edges["connect"], np.int64)
     edges = {"pull": np.asarray(edges["pull"], np.int64),
@@ -101,7 +159,8 @@ def init_scaled_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
         x["grain"][:, :2] -= x["grain"][:, :2] - x["grain"][:, :2] % 1
     st = dr.init_device_state(
         {k: v.astype(np.float32) for k, v in x.items()}, edges, mask,
-        pp_cap=pp_cap, nucleation_slack=nucleation_slack, device=device)
+        pp_cap=pp_cap, incremental=incremental,
+        nucleation_slack=nucleation_slack, device=device)
     return st, offset_j, domain_factor
 
 
@@ -134,8 +193,9 @@ def run_device_resident(
     c_threshold: float = 0.6,
     eval_every: int = 1,
     compare: bool = False,
-    reconstruct: bool = False,
+    reconstruct: bool = True,
     growth_height: float = -1.0,
+    reconst_mesh_size: float = 0.08,
     verbose: bool = False,
     nucleation_density: float = 0.0,
     seed: int = 0,
@@ -149,22 +209,25 @@ def run_device_resident(
     after each chunk. nucleation_density > 0 nucleates (per-joint uniform
     draws from numpy.random.default_rng(seed), taken per chunk at the joint
     rows' capacity); meltpool = {r0, z0, melt_pool_angle} sweeps the moving
-    melt pool across the domain, which sets the number of spans. Returns
-    the result dict (event counts, elimination-budget deferrals, live
-    grains, misorientation per observed layer; no layer error or KS: there
-    is no truth to compare with)."""
+    melt pool across the domain, which sets the number of spans. Each
+    observation (frame 0, then after every chunk) rebuilds the planar
+    graph from E_pq/E_pp and, with reconstruct=True, rasterises it at
+    reconst_mesh_size. Returns the result dict (event counts,
+    elimination-budget deferrals, live grains, misorientation per
+    observed layer; no layer error or KS: there is no truth to compare
+    with)."""
     if compare:
         raise NotImplementedError(
-            "compare=True: the phase-field truth QoIs (layer error, KS) wait "
-            "for ROADMAP Queue 1 item 8")
-    if reconstruct:
-        raise NotImplementedError(
-            "reconstruct=True: the planar reconstruction (graph/planar, "
-            "which needs PIL) waits for ROADMAP Queue 1 item 8")
+            "compare=True: the phase-field truth QoIs (layer error, KS) "
+            "need the phase-field extraction (data.extraction's load_pf_file "
+            "and extract), which is not ported")
     if partition:
         raise NotImplementedError(
-            "partition: the partitioned rollout waits for ROADMAP Queue 1 "
-            "item 7")
+            "partition: the partitioned rollout "
+            "(parallel.partitioned_rollout) is not ported")
+    if traj.bc != "periodic":
+        raise ValueError("the device-resident rollout covers the periodic "
+                         "boundary only")
     nuc = nucleation_density > 0
     st, offset_j, domain_factor = init_scaled_state(
         traj.x, traj.edges, traj.mask, traj.lxd, traj.patch_size,
@@ -189,11 +252,22 @@ def run_device_resident(
     extraV_traj = []
     grain_event_list: list = []
     grain_acc_list = [(traj.ini_height, 0, 0, 0)]
+    pg = PlanarGraph(bc=traj.bc, imagesize=traj.imagesize)
+    pg.raise_err = False
+    imagesize = ((int(traj.lxd / reconst_mesh_size) + 1,
+                  int(traj.lyd / reconst_mesh_size) + 1)
+                 if reconstruct else (0, 0))
 
     def observe(state: dr.DeviceRolloutState, frame: int):
-        """Areas and excess volumes of the live grains, on the host."""
+        """Areas and excess volumes of the live grains, and the planar
+        graph rebuilt (and rasterised) from the junction incidence, on the
+        host."""
         xg = state.xg.cpu().numpy().astype(np.float64)
+        xj = state.xj.cpu().numpy().astype(np.float64)
         mg = state.mask_g.cpu().numpy()
+        mj = state.mask_j.cpu().numpy()
+        E_pq = state.E_pq.cpu().numpy()
+        E_pp = state.E_pp.cpu().numpy()
         area_sum = np.sum(xg[:, 3] * mg) / (traj.lxd / traj.patch_size) ** 2
         live = np.nonzero(mg > 0)[0]
         area = xg[live, 3] * s_full ** 2 / area_sum
@@ -201,6 +275,22 @@ def run_device_resident(
             mg * xg[:, 4] / schema.TARGET_SCALING["grain"] * s_full ** 3)
         if frame > 0:
             area_traj.append(dict(zip((live + 1).tolist(), area)))
+
+        pos_j = xj[:, :2].copy()
+        if domain_factor > 1:
+            n = len(offset_j)
+            pos_j[:n] = (pos_j[:n] + offset_j) / domain_factor
+        pg.vertices = {int(i): pos_j[i].tolist()
+                       for i in np.nonzero(mj == 1)[0]}
+        v2j: Dict[int, set] = {}
+        for j, g in E_pq[:, E_pq[0] >= 0].T.tolist():
+            v2j.setdefault(j, set()).add(g + 1)
+        pg.joint2vertex = {tuple(sorted(v)): k for k, v in v2j.items()}
+        pg.vertex2joint = {v: k for k, v in pg.joint2vertex.items()}
+        pg.edges = E_pp[:, E_pp[0] >= 0].T.tolist()
+        pg.rebuild_regions()
+        if reconstruct:
+            pg.rasterize(imagesize)
 
     nuc_density_term = (nucleation_density * traj.lxd * traj.lxd
                         * TRAIN_DELTA_Z if nuc else 0.0)

@@ -15,12 +15,22 @@ Every array keeps a fixed shape with -1 sentinels for dead columns, so the
 loop makes no data-dependent host decision; the capacity flags stay on the
 device and are checked once after the loop (check_capacity).
 
+The ELL tables come from a stable sort of the COO lists every span or,
+where the caller asks for them (init_device_state(incremental=True), the
+JAX package's path past 16384 pull columns), from persistent column
+tables (pull_cols, push_cols, connect_cols) that finalize_stage keeps
+current by re-ranking only the destinations an edit touched
+(update_ell_cols). Both give the same slots: the k-th live edge into a
+destination by ascending column. The sort is the default: on the H100 it
+is the cheaper of the two at every size measured, since the tables'
+fallback rebuild is computed every span to keep the span free of host
+syncs.
+
 Grain centers are the masked mean of each grain's junction ring unwrapped
 into the periodic image of the previous center, taken mod 1; arithmetic is
 float32. Scope: periodic boundary; the static or the moving melt pool;
 generate-mode nucleation into padded rows and columns
-(init_device_state(nucleation_slack)); ELL tables rebuilt from scratch
-every span.
+(init_device_state(nucleation_slack)).
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ from . import topology_jit as tj
 
 TRAIN_FRAMES = 120
 NEG = -1e30
+# destinations a span's edit may touch before finalize_stage takes the
+# column tables' fallback rebuild (maintained_cols's t_max)
+TOUCH_MAX = 256
 
 
 @dataclasses.dataclass
@@ -50,6 +63,11 @@ class DeviceRolloutState:
     mask_g: torch.Tensor  # [NG] int32
     mask_j: torch.Tensor  # [NJ] int32
     n_pp: torch.Tensor    # [] int32 live E_pp columns (append cursor)
+    # persistent ELL column tables (None: rebuilt by a sort every span):
+    # cols[d, k] = COO column of the k-th live edge into d, -1 dead
+    pull_cols: Optional[torch.Tensor] = None     # [NG, ring] over E_pq row 1
+    push_cols: Optional[torch.Tensor] = None     # [NJ, 3] over E_pq row 0
+    connect_cols: Optional[torch.Tensor] = None  # [NJ, 3] over E_pp row 1
     # nucleation cursors (None without nucleation slack): next grain row,
     # next joint row, next free E_pq column
     n_g: Optional[torch.Tensor] = None
@@ -66,33 +84,130 @@ def _wrap(rel):
     return rel - (rel > 0.5).to(rel.dtype) + (rel < -0.5).to(rel.dtype)
 
 
-def build_ell(src, dst, attr, num_dst: int, max_deg: int):
-    """Destination-major ELL from a padded COO list. The slot of an edge is
-    its rank among the live edges into the same destination by ascending
-    column, from a stable sort. Returns (nbr [D, K] int32, len [D, K]
-    float32, mask [D, K] float32, overflow): overflow flags a destination
-    whose live degree exceeds max_deg (its extra edges are dropped)."""
+def _ell_slots(src, dst, num_dst: int, max_deg: int):
+    """Slots of a padded COO list in a destination-major ELL: the rank of
+    each live edge among the live edges into its destination by ascending
+    column, from a stable sort. Returns (order, flat, ok, overflow):
+    sorted position -> column, its flat ELL index (num_dst * max_deg
+    where it has none), whether it has a slot, and whether a
+    destination's live degree exceeds max_deg."""
     E = src.shape[0]
-    dev = src.device
     live = (src >= 0) & (dst >= 0)
     dstk = torch.where(live, dst, num_dst).to(torch.int32)
     ds, order = torch.sort(dstk, stable=True)
     first = torch.searchsorted(ds, ds, side="left")
-    slot = torch.arange(E, device=dev) - first
+    slot = torch.arange(E, device=src.device) - first
     ok = (ds < num_dst) & (slot < max_deg)
     flat = torch.where(ok, ds.long() * max_deg + slot, num_dst * max_deg)
-    size = num_dst * max_deg + 1
+    return order, flat, ok, ok.sum() < live.sum()
 
-    def scatter(vals, dtype):
-        out = torch.zeros(size, dtype=dtype, device=dev)
-        return out.index_put_((flat,), vals.to(dtype))[:-1].reshape(
-            num_dst, max_deg)
 
-    nbr = scatter(src[order], torch.int32)
-    length = scatter(attr[order], torch.float32)
-    mask = scatter(ok, torch.float32)
-    overflow = ok.sum() < live.sum()
+def _scatter_ell(flat, vals, num_dst: int, max_deg: int, fill, dtype):
+    out = torch.full((num_dst * max_deg + 1,), fill, dtype=dtype,
+                     device=flat.device)
+    return out.index_put_((flat,), vals.to(dtype))[:-1].reshape(
+        num_dst, max_deg)
+
+
+def build_ell(src, dst, attr, num_dst: int, max_deg: int):
+    """Destination-major ELL from a padded COO list (slots by _ell_slots).
+    Returns (nbr [D, K] int32, len [D, K] float32, mask [D, K] float32,
+    overflow): overflow flags a destination whose live degree exceeds
+    max_deg (its extra edges are dropped)."""
+    order, flat, ok, overflow = _ell_slots(src, dst, num_dst, max_deg)
+    nbr = _scatter_ell(flat, src[order], num_dst, max_deg, 0, torch.int32)
+    length = _scatter_ell(flat, attr[order], num_dst, max_deg, 0,
+                          torch.float32)
+    mask = _scatter_ell(flat, ok, num_dst, max_deg, 0, torch.float32)
     return nbr, length, mask, overflow
+
+
+def build_pull_cols(src, dst, num_dst: int, ring: int):
+    """The ELL's column table from scratch: cols[d, k] = the COO column of
+    the k-th live edge into d by ascending column (build_ell's slot
+    order), -1 dead. Returns (cols [num_dst, ring] int32, overflow)."""
+    order, flat, _, overflow = _ell_slots(src, dst, num_dst, ring)
+    return _scatter_ell(flat, order, num_dst, ring, -1, torch.int32), overflow
+
+
+def ell_from_cols(cols, src, attr):
+    """The ELL through a current column table: neighbor ids and edge
+    attributes gathered at the stored columns. Equals build_ell's
+    (nbr, len, mask)."""
+    live = cols >= 0
+    c = torch.where(live, cols, 0).long()
+    nbr = torch.where(live, src[c], 0).to(torch.int32)
+    length = torch.where(live, attr[c], 0.0).to(torch.float32)
+    return nbr, length, live.to(torch.float32)
+
+
+def update_ell_cols(cols, E_old, E_new, dst_row: int, *, t_max: int = 64):
+    """Keep a column table current across an edit. Only destinations of a
+    changed COO column (before or after the edit) can change their slots:
+    up to t_max of them are re-ranked over the post-edit list, each slot
+    k found by a binary search for the first column where the row's
+    running count of live matches reaches k + 1. dst_row is the COO row
+    that holds the ELL destination: 1 for pull (E_pq) and connect (E_pp),
+    0 for push (E_pq).
+
+    Returns (cols, touch_over, deg_over): more than t_max destinations
+    touched (those past t_max kept stale slots; maintained_cols falls back
+    to a rebuild), and a touched destination's live degree past the
+    table's width (a capacity bust)."""
+    num_dst, ring = cols.shape
+    dev = cols.device
+    changed = torch.any(E_old != E_new, dim=0)
+    live_old = (E_old[0] >= 0) & (E_old[1] >= 0)
+    live_new = (E_new[0] >= 0) & (E_new[1] >= 0)
+    d_old = torch.where(changed & live_old, E_old[dst_row], num_dst).long()
+    d_new = torch.where(changed & live_new, E_new[dst_row], num_dst).long()
+    flag = torch.zeros(num_dst + 1, dtype=torch.bool, device=dev)
+    flag = flag.index_fill_(0, d_old, True).index_fill_(0, d_new, True)
+    flag = flag[:num_dst]
+    n_touched = flag.sum()
+
+    # the touched destinations, compacted to the front of [t_max]
+    pos = torch.cumsum(flag.to(torch.int32), 0) - 1
+    lane = torch.where(flag & (pos < t_max), pos, t_max).long()
+    touched = torch.full((t_max + 1,), -1, dtype=torch.int32, device=dev)
+    touched[lane] = torch.arange(num_dst, dtype=torch.int32, device=dev)
+    touched = touched[:t_max]
+
+    match = (live_new[None, :] & (E_new[dst_row][None, :] == touched[:, None])
+             & (touched[:, None] >= 0))                       # [t_max, E]
+    cum = torch.cumsum(match.to(torch.int32), dim=1, dtype=torch.int32)
+    deg = cum[:, -1]
+    deg_over = (deg > ring).any()
+    kk = torch.arange(1, ring + 1, dtype=torch.int32, device=dev)
+    rows = torch.searchsorted(cum, kk.expand(t_max, ring).contiguous(),
+                              side="left").to(torch.int32)
+    rows = torch.where(kk[None, :] <= deg[:, None], rows, -1)
+
+    out = torch.cat([cols, cols.new_full((1, ring), -1)])
+    out[torch.where(touched >= 0, touched, num_dst).long()] = rows
+    return out[:num_dst], n_touched > t_max, deg_over
+
+
+def maintained_cols(cols, E_old, E_new, dst_row: int, *, t_max: int = 64):
+    """update_ell_cols, falling back to a from-scratch build when the edit
+    touched more than t_max destinations. Both are computed and the flag
+    selects on the device, so the span makes no host sync. Returns (cols,
+    overflow): a destination's live degree past the table's width."""
+    num_dst, ring = cols.shape
+    cols2, touch_over, deg_over = update_ell_cols(
+        cols, E_old, E_new, dst_row, t_max=t_max)
+    rebuilt, rb_over = build_pull_cols(E_new[1 - dst_row], E_new[dst_row],
+                                       num_dst, ring)
+    return (torch.where(touch_over, rebuilt, cols2),
+            torch.where(touch_over, rb_over, deg_over))
+
+
+def update_pull_cols(cols, E_pq_old, E_pq_new, *, t_max: int = 64):
+    """update_ell_cols over E_pq (destination row 1) with no fallback: the
+    touch-budget bust is folded into the returned overflow flag."""
+    cols2, touch_over, deg_over = update_ell_cols(
+        cols, E_pq_old, E_pq_new, 1, t_max=t_max)
+    return cols2, touch_over | deg_over
 
 
 def _coo_lengths(pos_src, pos_dst, src, dst):
@@ -104,19 +219,38 @@ def _coo_lengths(pos_src, pos_dst, src, dst):
 
 
 def make_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
-    """The padded GraphSample of the forward. Returns (sample,
-    ring_overflow)."""
+    """The padded GraphSample of the forward, its ELL tables read through
+    the state's column tables where it keeps them. Returns (sample,
+    ring_overflow); with column tables the overflow was checked when they
+    were last updated, and this one is False."""
     xg, xj = state.xg, state.xj
     NG, NJ = xg.shape[0], xj.shape[0]
+    if state.pull_cols is not None and state.pull_cols.shape[-1] != ring:
+        raise ValueError(
+            f"pull_cols built with ring={state.pull_cols.shape[-1]} but "
+            f"sample requested ring={ring}")
     pos_g, pos_j = xg[:, :2], xj[:, :2]
     pq_len = _coo_lengths(pos_j, pos_g, state.E_pq[0], state.E_pq[1])
     pp_len = _coo_lengths(pos_j, pos_j, state.E_pp[0], state.E_pp[1])
-    push_nbr, push_len, push_mask, _ = build_ell(
-        state.E_pq[1], state.E_pq[0], pq_len, NJ, schema.JG_DEGREE)
-    connect_nbr, connect_len, connect_mask, _ = build_ell(
-        state.E_pp[0], state.E_pp[1], pp_len, NJ, schema.JJ_DEGREE)
-    pull_nbr, pull_len, pull_mask, overflow = build_ell(
-        state.E_pq[0], state.E_pq[1], pq_len, NG, ring)
+    if state.push_cols is not None:
+        push_nbr, push_len, push_mask = ell_from_cols(
+            state.push_cols, state.E_pq[1], pq_len)
+    else:
+        push_nbr, push_len, push_mask, _ = build_ell(
+            state.E_pq[1], state.E_pq[0], pq_len, NJ, schema.JG_DEGREE)
+    if state.connect_cols is not None:
+        connect_nbr, connect_len, connect_mask = ell_from_cols(
+            state.connect_cols, state.E_pp[0], pp_len)
+    else:
+        connect_nbr, connect_len, connect_mask, _ = build_ell(
+            state.E_pp[0], state.E_pp[1], pp_len, NJ, schema.JJ_DEGREE)
+    if state.pull_cols is not None:
+        pull_nbr, pull_len, pull_mask = ell_from_cols(
+            state.pull_cols, state.E_pq[0], pq_len)
+        overflow = torch.zeros((), dtype=torch.bool, device=xg.device)
+    else:
+        pull_nbr, pull_len, pull_mask, overflow = build_ell(
+            state.E_pq[0], state.E_pq[1], pq_len, NG, ring)
     jj_live = (state.E_pp[0] >= 0).to(torch.float32)
     sample = GraphSample(
         grain_x=xg, joint_x=xj,
@@ -247,10 +381,12 @@ def melt_stage(state, pred_j, pred_g, melt_term, melt_left):
     return pred_j, pred_g, aw_g > 0.9999, aw_j > 0.9999
 
 
-def compact_stage(E_pp_in):
+def compact_stage(E_pp_in, return_perm: bool = False):
     """Stable partition of E_pp, live columns first (prefix sums and one
     scatter), so the append cursor never outgrows the capacity. Returns
-    (E_pp, n_pp)."""
+    (E_pp, n_pp), and with return_perm also pos: pos[c] is the new column
+    of old column c (live columns keep their order, so a column table
+    stays valid through pos)."""
     livec = E_pp_in[0] >= 0
     n_live = livec.sum().to(torch.int32)
     c_live = torch.cumsum(livec.to(torch.int32), 0)
@@ -258,15 +394,20 @@ def compact_stage(E_pp_in):
     pos = torch.where(livec, c_live - 1, n_live + c_dead - 1).long()
     out = torch.zeros_like(E_pp_in)
     out[:, pos] = E_pp_in
+    if return_perm:
+        return out, n_live, pos
     return out, n_live
 
 
-def centers_stage(xg, xj, E_pq, ring):
-    """Grain centers from the post-edit junction rings."""
+def centers_stage(xg, xj, E_pq, ring, pull_cols=None):
+    """Grain centers from the post-edit junction rings (read through the
+    post-edit pull_cols where the state keeps them)."""
     NG = xg.shape[0]
-    nbr, _len, rmask, _ = build_ell(
-        E_pq[0], E_pq[1], torch.zeros(E_pq.shape[1], device=xg.device),
-        NG, ring)
+    zeros = torch.zeros(E_pq.shape[1], device=xg.device)
+    if pull_cols is not None:
+        nbr, _len, rmask = ell_from_cols(pull_cols, E_pq[0], zeros)
+    else:
+        nbr, _len, rmask, _ = build_ell(E_pq[0], E_pq[1], zeros, NG, ring)
     ring_pos = xj[nbr.long(), :2]
     prev_c = xg[:, :2]
     unwrapped = prev_c[:, None, :] + _wrap(ring_pos - prev_c[:, None, :])
@@ -280,20 +421,44 @@ def centers_stage(xg, xj, E_pq, ring):
     return xg
 
 
-def finalize_stage(E_pp_new, E_pq_new, xg, xj, *, ring: int):
-    """Post-edit finalize: stable E_pp compaction and grain centers.
-    Returns (E_pp, n_pp, xg)."""
-    E_pp, n_pp = compact_stage(E_pp_new)
-    xg = centers_stage(xg, xj, E_pq_new, ring)
-    return E_pp, n_pp, xg
+def finalize_stage(E_pp_old, E_pq_old, E_pp_new, E_pq_new, pull_cols,
+                   push_cols, connect_cols, xg, xj, *, ring: int):
+    """Post-edit finalize: the column tables kept current across the edit
+    (where the state keeps them, touch budget TOUCH_MAX), stable E_pp
+    compaction and grain centers. connect_cols is updated on the pre-compaction columns and
+    then mapped through the compaction. Returns (E_pp, n_pp, pull_cols,
+    push_cols, connect_cols, xg, overflow)."""
+    overflow = torch.zeros((), dtype=torch.bool, device=xg.device)
+    if pull_cols is not None:
+        pull_cols, ov = maintained_cols(pull_cols, E_pq_old, E_pq_new, 1,
+                                        t_max=TOUCH_MAX)
+        overflow = overflow | ov
+    if push_cols is not None:
+        push_cols, ov = maintained_cols(push_cols, E_pq_old, E_pq_new, 0,
+                                        t_max=TOUCH_MAX)
+        overflow = overflow | ov
+    if connect_cols is not None:
+        connect_cols, ov = maintained_cols(connect_cols, E_pp_old, E_pp_new,
+                                           1, t_max=TOUCH_MAX)
+        overflow = overflow | ov
+        E_pp, n_pp, perm = compact_stage(E_pp_new, return_perm=True)
+        live = connect_cols >= 0
+        connect_cols = torch.where(
+            live, perm[torch.where(live, connect_cols, 0).long()],
+            -1).to(torch.int32)
+    else:
+        E_pp, n_pp = compact_stage(E_pp_new)
+    xg = centers_stage(xg, xj, E_pq_new, ring, pull_cols=pull_cols)
+    return E_pp, n_pp, pull_cols, push_cols, connect_cols, xg, overflow
 
 
 def device_step(regressor, classifier, state: DeviceRolloutState, *,
                 r_threshold: float = 1e-4, c_threshold: float = 0.6,
                 span: int = 6, ring: int = tj.RING_MAX,
                 max_elim: int = tj.MAX_ELIM, max_switch: int = tj.MAX_SWITCH,
-                nuc_density_term: float = 0.0, nuc_rand=None,
-                nuc_angles=None, melt_term=None, melt_left=None):
+                nuc_density_term: float = 0.0,
+                nuc_rand=None, nuc_angles=None, melt_term=None,
+                melt_left=None):
     """One rollout span. Returns (next_state, aux): aux holds the span's
     grain events, extra events, switching pairs, message-edge count and
     capacity flags, all on the device. nuc_density_term > 0 turns on
@@ -348,18 +513,21 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
                         | (n_j > state.xj.shape[0] - 2 * tj.MAX_NUC)
                         | (n_pq > state.E_pq.shape[1] - 9 * tj.MAX_NUC))
         tstate = dataclasses.replace(t2, q_ptr=None)
-    E_pp, n_pp, xg = finalize_stage(tstate.E_pp, tstate.E_pq, xg, tstate.xj,
-                                    ring=ring)
+    (E_pp, n_pp, pull_cols, push_cols, connect_cols, xg,
+     ov_fin) = finalize_stage(
+        state.E_pp, state.E_pq, tstate.E_pp, tstate.E_pq, state.pull_cols,
+        state.push_cols, state.connect_cols, xg, tstate.xj, ring=ring)
     new_state = DeviceRolloutState(
         xg=xg, xj=tstate.xj, E_pp=E_pp, E_pq=tstate.E_pq,
         mask_g=tstate.mask_g, mask_j=tstate.mask_j, n_pp=n_pp,
+        pull_cols=pull_cols, push_cols=push_cols, connect_cols=connect_cols,
         n_g=n_g, n_j=n_j, n_pq=n_pq)
     aux = {
         "grain_events": ge,
         "extra_events": extra,
         "switching": switching,
         "message_edges": message_edges,
-        "ring_overflow": overflow,
+        "ring_overflow": overflow | ov_fin,
         # the editor's appends past the capacity are dropped: fatal
         "pp_overflow": tstate.append_ptr > state.E_pp.shape[1],
         # candidates past the budget wait for the next span
@@ -415,23 +583,45 @@ def _to_device(a, dtype, device):
     return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
 
 
+def _cols_np(src, dst, num_dst: int, cap: int, what: str) -> np.ndarray:
+    """A column table on the host (numpy stable sort, any size); raises
+    where a destination's live degree exceeds cap."""
+    src = np.asarray(src)
+    dst = np.asarray(dst)
+    live = (src >= 0) & (dst >= 0)
+    cols = np.full((num_dst, cap), -1, np.int32)
+    dstk = np.where(live, dst, num_dst)
+    order = np.argsort(dstk, kind="stable")
+    ds = dstk[order]
+    slot = np.arange(len(ds)) - np.searchsorted(ds, ds, side="left")
+    ok = (ds < num_dst) & (slot < cap)
+    if (ds < num_dst).sum() != ok.sum():
+        raise ValueError(f"init {what} bust: a destination exceeds "
+                         f"capacity {cap}")
+    cols[ds[ok], slot[ok]] = order[ok]
+    return cols
+
+
 def init_device_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
                       mask: Dict[str, np.ndarray], *,
-                      pp_cap: Optional[int] = None,
-                      incremental: bool = False, nucleation_slack: int = 0,
+                      pp_cap: Optional[int] = None, ring: int = tj.RING_MAX,
+                      incremental: bool = False,
+                      nucleation_slack: int = 0,
                       device="cuda") -> DeviceRolloutState:
     """Pack host arrays (x/edges/mask dicts of the rollout engine) into a
     padded state on `device`. The E_pp capacity defaults to the live count
     plus one span's edit slack, rounded to 128 columns; E_pq gets a dead
-    tail column so first-k queries that come up short read -1. The ELL
-    tables are rebuilt from scratch every span (a stable sort, any size);
-    persistent incremental columns are not ported.
+    tail column so first-k queries that come up short read -1.
+
+    incremental=True seeds persistent column tables (pull_cols, push_cols,
+    connect_cols; a capacity bust raises here) that each span keeps
+    current, the JAX package's path past 16384 pull columns; False (the
+    default) rebuilds the ELL tables by a sort every span. Both give the
+    same slots.
 
     nucleation_slack > 0 makes room for that many nucleations: 6 E_pp and
     9 E_pq columns, one grain row and two joint rows each (dead pads), and
     seeds the cursors n_g, n_j and n_pq."""
-    if incremental:
-        raise NotImplementedError("incremental ELL columns")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_device_state: no CUDA device; pass "
@@ -464,6 +654,15 @@ def init_device_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
         cursors = {k: torch.tensor(v, dtype=torch.int32, device=device)
                    for k, v in (("n_g", n_g0), ("n_j", n_j0),
                                 ("n_pq", pull_in.shape[1]))}
+    tables = {}
+    if incremental:
+        NG, NJ = len(x["grain"]), len(x["joint"])
+        tables = {k: torch.from_numpy(v).to(device) for k, v in (
+            ("pull_cols", _cols_np(pull[0], pull[1], NG, ring, "pull ring")),
+            ("push_cols", _cols_np(pull[1], pull[0], NJ, schema.JG_DEGREE,
+                                   "push deg")),
+            ("connect_cols", _cols_np(E_pp[0], E_pp[1], NJ,
+                                      schema.JJ_DEGREE, "connect deg")))}
     return DeviceRolloutState(
         xg=_to_device(x["grain"], torch.float32, device),
         xj=_to_device(x["joint"], torch.float32, device),
@@ -474,5 +673,25 @@ def init_device_state(x: Dict[str, np.ndarray], edges: Dict[str, np.ndarray],
         mask_j=_to_device(np.asarray(mask["joint"]).reshape(-1), torch.int32,
                           device),
         n_pp=torch.tensor(connect.shape[1], dtype=torch.int32, device=device),
-        **cursors,
+        **tables, **cursors,
     )
+
+
+def state_from_heterograph(hg0, *, pp_cap: Optional[int] = None,
+                           incremental: bool = False,
+                           nucleation_slack: int = 0,
+                           device="cuda") -> DeviceRolloutState:
+    """The device state of a test-mode HeteroState, unscaled: its float32
+    features, pull and connect COO lists and grain mask (every joint
+    live)."""
+    x = {"grain": np.asarray(hg0.feature_dicts["grain"], np.float32),
+         "joint": np.asarray(hg0.feature_dicts["joint"], np.float32)}
+    edges = {"pull": np.asarray(hg0.edge_index_dicts[schema.EDGE_TYPES[1]],
+                                np.int64),
+             "connect": np.asarray(
+                 hg0.edge_index_dicts[schema.EDGE_TYPES[2]], np.int64)}
+    mask = {"grain": np.asarray(hg0.mask["grain"], np.int64).reshape(-1),
+            "joint": np.ones(len(x["joint"]), np.int64)}
+    return init_device_state(x, edges, mask, pp_cap=pp_cap,
+                             incremental=incremental,
+                             nucleation_slack=nucleation_slack, device=device)

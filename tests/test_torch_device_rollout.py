@@ -19,6 +19,7 @@ from graingraphnn_tpu.data import extraction, heterograph
 from graingraphnn_tpu.rollout import device_driver as jdd
 from graingraphnn_tpu.rollout import device_rollout as jdr
 from graingraphnn_tpu.train import checkpoint as jck
+from tests.test_torch_fixture import jax_start
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("xg", "xj", "E_pp", "E_pq", "mask_g", "mask_j", "n_pp")
@@ -213,16 +214,238 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 
 def test_deferred_options_raise(setup):
-    """What the port still refuses: incremental ELL columns, and the
-    driver's phase-field comparison, planar reconstruction and partitioned
-    rollout."""
+    """What the port's driver still refuses: the phase-field comparison
+    and the partitioned rollout."""
     _, (reg, cls), _, _ = setup
-    x, edges, mask, lxd, patch = dd.load_fixture()
-    with pytest.raises(NotImplementedError, match="incremental"):
-        dr.init_device_state(x, edges, mask, incremental=True, device="cpu")
     traj = dd.load_trajectory()
     for kw, what in (({"compare": True}, "truth"),
-                     ({"reconstruct": True}, "planar"),
                      ({"partition": 4}, "partitioned")):
         with pytest.raises(NotImplementedError, match=what):
             dd.run_device_resident(traj, reg, cls, device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# persistent ELL column tables
+# ---------------------------------------------------------------------------
+
+def random_coo(rng, num_dst, E, deg, n_src=99, dead=0.2):
+    """A padded COO list whose live destinations have at most deg edges."""
+    dst = rng.integers(0, num_dst, E)
+    src = rng.integers(0, n_src, E)
+    off = rng.uniform(size=E) < dead
+    for d in range(num_dst):
+        cols = np.nonzero((dst == d) & ~off)[0]
+        off[cols[deg:]] = True
+    src[off], dst[off] = -1, -1
+    return np.stack([src, dst]).astype(np.int32)
+
+
+def random_edit(rng, E, num_dst, n_src=99, frac=0.1):
+    """Kills, rewires and revivals of a copy of E."""
+    E_new = E.copy()
+    kill = rng.uniform(size=E.shape[1]) < frac
+    E_new[:, kill] = -1
+    rewire = (rng.uniform(size=E.shape[1]) < frac) & (E_new[0] >= 0)
+    E_new[1, rewire] = rng.integers(0, num_dst, int(rewire.sum()))
+    revive = (rng.uniform(size=E.shape[1]) < frac / 2) & (E_new[0] < 0)
+    E_new[0, revive] = rng.integers(0, n_src, int(revive.sum()))
+    E_new[1, revive] = rng.integers(0, num_dst, int(revive.sum()))
+    return E_new
+
+
+@pytest.mark.parametrize("dst_row", [0, 1])
+@pytest.mark.parametrize("t_max", [3, 64])
+def test_column_tables_bit_identical_to_jax(dst_row, t_max):
+    """build_pull_cols, ell_from_cols, update_ell_cols, maintained_cols
+    (t_max=3 forces its fallback) and update_pull_cols on random edits."""
+    rng = np.random.default_rng(7 + dst_row)
+    num_dst, E, ring = 40, 192, 6
+    Ed = random_coo(rng, num_dst, E, ring)
+    if dst_row == 0:
+        Ed = Ed[::-1].copy()
+    src, dst = Ed[1 - dst_row], Ed[dst_row]
+    jcols, jov = jdr.build_pull_cols(jnp.asarray(src), jnp.asarray(dst),
+                                     num_dst, ring)
+    tcols, tov = dr.build_pull_cols(torch.from_numpy(src.copy()),
+                                    torch.from_numpy(dst.copy()), num_dst,
+                                    ring)
+    np.testing.assert_array_equal(tcols.numpy(), np.asarray(jcols))
+    assert bool(tov) == bool(jov) is False
+    attr = rng.uniform(0.1, 1, E).astype(np.float32)
+    for a, b in zip(dr.ell_from_cols(tcols, torch.from_numpy(src.copy()),
+                                     torch.from_numpy(attr)),
+                    jdr.ell_from_cols(jcols, jnp.asarray(src),
+                                      jnp.asarray(attr))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    n_busts = 0
+    for it in range(6):
+        E_new = random_edit(rng, Ed, num_dst) if dst_row else \
+            random_edit(rng, Ed[::-1].copy(), num_dst)[::-1].copy()
+        ja, jb = jnp.asarray(Ed), jnp.asarray(E_new)
+        ta, tb = torch.from_numpy(Ed), torch.from_numpy(E_new)
+        ref = jdr.update_ell_cols(jcols, ja, jb, dst_row, t_max=t_max)
+        out = dr.update_ell_cols(tcols, ta, tb, dst_row, t_max=t_max)
+        for a, b in zip(out, ref):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        n_busts += bool(ref[1])
+        ref = jdr.maintained_cols(jcols, ja, jb, dst_row, t_max=t_max)
+        out = dr.maintained_cols(tcols, ta, tb, dst_row, t_max=t_max)
+        for a, b in zip(out, ref):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        if dst_row == 1:
+            ref = jdr.update_pull_cols(jcols, ja, jb, t_max=t_max)
+            out = dr.update_pull_cols(tcols, ta, tb, t_max=t_max)
+            for a, b in zip(out, ref):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        if bool(out[1]):                 # a degree past the ring: restart
+            continue
+        Ed, jcols, tcols = E_new, ref[0], out[0]
+    assert (n_busts > 0) == (t_max == 3)
+
+
+@pytest.fixture(scope="module")
+def small40():
+    """The 40 um graph with random narrow models that eliminate often
+    (r_threshold 0.05), as the JAX package's own test of its columns."""
+    from graingraphnn_tpu.models import grain_nn, hyper
+
+    traj, hg0 = jax_start(40, 5, 4.0, 1.0)
+    hp_r = hyper.regressor(0, layer_size=16)
+    hp_c = hyper.classifier_transfered(1, layer_size=16)
+    rp = grain_nn.init_regressor(jax.random.PRNGKey(0), hp_r)
+    cp = grain_nn.init_classifier(jax.random.PRNGKey(1), hp_c,
+                                  regressor_params=rp)
+    models = (checkpoint.params_from_jax(rp, hp_r, "cpu"),
+              checkpoint.params_from_jax(cp, hp_c, "cpu"))
+    return hg0, (rp, hp_r, cp, hp_c), models
+
+
+SMALL_KW = dict(c_threshold=0.5, r_threshold=0.05)
+COLS = ("pull_cols", "push_cols", "connect_cols")
+
+
+def test_incremental_spans_match_the_sort_builder(small40):
+    """Three spans on the column tables equal three spans rebuilt by the
+    sort, also with a touch budget of 2 that takes the fallback every
+    span; the tables at the end equal tables built from scratch."""
+    hg0, _, (reg, cls) = small40
+    st_inc = dr.state_from_heterograph(hg0, incremental=True, device="cpu")
+    st_srt = dr.state_from_heterograph(hg0, incremental=False, device="cpu")
+    s_i, _ = dr.make_sample(st_inc)
+    s_s, _ = dr.make_sample(st_srt)
+    for f in ("pull_nbr", "pull_len", "pull_mask", "push_nbr", "push_len",
+              "push_mask", "connect_nbr", "connect_len", "connect_mask"):
+        np.testing.assert_array_equal(getattr(s_i, f).numpy(),
+                                      getattr(s_s, f).numpy(), err_msg=f)
+    assert dr.state_from_heterograph(hg0, device="cpu").pull_cols is None
+    outs = {}
+    for name, st, touch_max in (("inc", st_inc, dr.TOUCH_MAX),
+                                ("srt", st_srt, dr.TOUCH_MAX),
+                                ("fallback", st_inc, 2)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(dr, "TOUCH_MAX", touch_max)
+            outs[name] = dr.make_rollout(reg, cls, n_steps=3,
+                                         **SMALL_KW)(st)
+    assert int((outs["inc"][1]["grain_events"] >= 0).sum()) > 0
+    for name in ("srt", "fallback"):
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                getattr(outs["inc"][0], f).numpy(),
+                getattr(outs[name][0], f).numpy(), err_msg=f"{name} {f}")
+        for k in ("grain_events", "switching", "ring_overflow"):
+            np.testing.assert_array_equal(outs["inc"][1][k].numpy(),
+                                          outs[name][1][k].numpy())
+    si = outs["inc"][0]
+    for cols, (s, d, n, k) in zip(
+            (si.pull_cols, si.push_cols, si.connect_cols),
+            ((si.E_pq[0], si.E_pq[1], si.xg.shape[0], 16),
+             (si.E_pq[1], si.E_pq[0], si.xj.shape[0], 3),
+             (si.E_pp[0], si.E_pp[1], si.xj.shape[0], 3))):
+        np.testing.assert_array_equal(cols.numpy(),
+                                      dr.build_pull_cols(s, d, n, k)[0].numpy())
+
+
+def test_incremental_span_matches_jax(small40):
+    """Three spans on the column tables, each from the same JAX state: the
+    tables the span leaves are bit-equal to JAX's maintained ones."""
+    hg0, (rp, hp_r, cp, hp_c), (reg, cls) = small40
+    js = jdr.state_from_heterograph(hg0, incremental=True)
+    step = jax.jit(lambda s: jdr.device_step(rp, hp_r, cp, hp_c, s,
+                                             fused_editor=True, **SMALL_KW))
+    n_elim = 0
+    for _ in range(3):
+        js_next, jaux = step(js)
+        ts = dr.DeviceRolloutState(**{
+            k: torch.from_numpy(np.array(getattr(js, k)))
+            for k in FIELDS + COLS})
+        t_next, taux = dr.device_step(reg, cls, ts, **SMALL_KW)
+        for k in INT_FIELDS + COLS:
+            np.testing.assert_array_equal(getattr(t_next, k).numpy(),
+                                          np.asarray(getattr(js_next, k)),
+                                          err_msg=k)
+        assert bool(taux["ring_overflow"]) == bool(jaux["ring_overflow"])
+        n_elim += int((np.asarray(jaux["grain_events"]) >= 0).sum())
+        js = js_next
+    assert n_elim > 0
+
+
+def test_tables_follow_nucleation_under_the_melt_pool(small40, monkeypatch):
+    """Nucleating spans under the moving melt pool on the generated 40 um
+    graph with nucleation slack: on the column tables, with the touch
+    budget of TOUCH_MAX and of 2 (the fallback), the spans equal the sort
+    builder's bit for bit (topology, cursors, positions), and after every
+    span each table equals one built from scratch."""
+    _, _, (reg, cls) = small40
+    t = dd.generate_trajectory(40, 3, 4.0, 1.0)
+    meltpool = {"r0": 20.0, "z0": 4.0, "melt_pool_angle": np.pi / 4}
+    touches = []
+    update = dr.update_ell_cols
+    monkeypatch.setattr(dr, "update_ell_cols", lambda *a, **k: (
+        lambda out: (touches.append(bool(out[1])), out)[1])(update(*a, **k)))
+    n_steps = 4
+    ends = {}
+    for name, incremental, touch_max in (("srt", False, dr.TOUCH_MAX),
+                                         ("inc", True, dr.TOUCH_MAX),
+                                         ("fallback", True, 2)):
+        monkeypatch.setattr(dr, "TOUCH_MAX", touch_max)
+        st, offset_j, factor = dd.init_scaled_state(
+            t.x, t.edges, t.mask, t.lxd, t.patch_size,
+            incremental=incremental, nucleation_slack=dd.NUCLEATION_SLACK,
+            device="cpu")
+        term, gap = dd.make_melt_term(meltpool, t.lxd, 6, st.xj.shape[0],
+                                      offset_j, factor, "cpu")
+        rng = np.random.default_rng(0)
+        n_g0 = int(st.n_g)
+        del touches[:]
+        states = []
+        for i in range(n_steps):
+            st, aux = dr.device_step(
+                reg, cls, st, **SMALL_KW, nuc_density_term=10.0,
+                nuc_rand=torch.from_numpy(rng.random(
+                    st.xj.shape[0]).astype(np.float32)),
+                nuc_angles=torch.from_numpy(rng.random(
+                    (4, 2)).astype(np.float32)),
+                melt_term=term, melt_left=torch.tensor(np.float32(i * gap)))
+            assert not any(bool(aux[f]) for f in (
+                "ring_overflow", "pp_overflow", "nuc_overflow"))
+            states.append(st)
+            if incremental:
+                for cols, (src, dst, n, k) in zip(
+                        (st.pull_cols, st.push_cols, st.connect_cols),
+                        ((st.E_pq[0], st.E_pq[1], st.xg.shape[0], 16),
+                         (st.E_pq[1], st.E_pq[0], st.xj.shape[0], 3),
+                         (st.E_pp[0], st.E_pp[1], st.xj.shape[0], 3))):
+                    np.testing.assert_array_equal(
+                        cols.numpy(),
+                        dr.build_pull_cols(src, dst, n, k)[0].numpy(),
+                        err_msg=f"{name} span {i}")
+        assert int(st.n_g) > n_g0, "no nucleation"
+        if incremental:
+            assert any(touches) == (touch_max == 2), name
+        ends[name] = states
+    for name in ("inc", "fallback"):
+        for i, (a, b) in enumerate(zip(ends[name], ends["srt"])):
+            for f in FIELDS + ("n_g", "n_j", "n_pq"):
+                np.testing.assert_array_equal(
+                    getattr(a, f).numpy(), getattr(b, f).numpy(),
+                    err_msg=f"{name} span {i} {f}")

@@ -146,17 +146,85 @@ def test_cli_generate_prints_the_json_line(capsys):
 
 @pytest.mark.parametrize("extra", [
     [], ["--generate"], ["--temporal"], ["--interp_frames", "2"],
-    ["--plot3D"], ["--partition", "4"], ["--pallas"]])
+    ["--plot3D"], ["--partition", "4"], ["--pallas"],
+    ["--fused_editor", "off"], ["--jit_editor"], ["--clamp_gr", "1,2,1,2"]])
 def test_cli_refuses_what_is_not_ported(extra):
-    """PF data (no --generate), the host engine (no --device_resident) and
-    the options of other paths end in an argument error."""
+    """PF data (no --generate), the host engine (no --device_resident, or
+    its options) and the options of other paths end in an argument
+    error."""
     base = [] if extra in ([], ["--generate"]) else ["--generate",
                                                      "--device_resident"]
     with pytest.raises(SystemExit):
         cli.main(base + extra + ARGS)
 
 
-def test_cli_refuses_other_starting_graphs():
-    with pytest.raises(NotImplementedError, match="Voronoi"):
-        cli.main(["--generate", "--device_resident", "--platform", "cpu",
-                  "--lxd", "40", "--seed", "5"])
+def test_cli_runs_any_starting_graph(capsys):
+    """The 40 um starting graph of the JAX package's generate recipe
+    (seed 3, G 4, R 1), two spans, with the JAX CLI's phase-field flags,
+    which generate mode ignores."""
+    cli.main(["--generate", "--device_resident", "--platform", "cpu",
+              "--model_dir", REPO + "/artifacts/40um", "--lxd", "40",
+              "--seed", "3", "--G", "4", "--R", "1", "--growth_height", "5.0",
+              "--eval_every", "2", "--no-compare", "--fused_editor", "on",
+              "--rawdat_dir", "/nonexistent", "--cache_dir", "/nonexistent"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["events_truth"] == 0 and line["events_pred"] >= 0
+    assert line["KS"] is None
+
+
+def observed(module, log):
+    """Record every rasterize call of module's PlanarGraph: the rebuilt
+    graph and the raster it paints."""
+    orig = module.PlanarGraph.rasterize
+
+    def rasterize(self, imagesize=None):
+        out = orig(self, imagesize)
+        log.append({"regions": dict(self.regions),
+                    "region_coors": dict(self.region_coors),
+                    "joint2vertex": dict(self.joint2vertex),
+                    "edges": [list(e) for e in self.edges],
+                    "alpha": out.copy()})
+        return out
+    return rasterize
+
+
+def test_reconstruction_matches_jax_on_one_chunk(monkeypatch):
+    """reconstruct=True on a 40 um graph, one chunk of two spans: both
+    drivers rebuild the planar graph and rasterise it at frame 0 and after
+    the chunk, and the two packages' graphs and rasters agree. No switch
+    probability of this run lies within 1e-5 of the threshold, so the
+    chunk's topology is held bit for bit."""
+    from graingraphnn_torch.graph import planar as tp
+    from graingraphnn_tpu.graph import planar as jp
+
+    traj, hg0 = jax_start(40, 3, 4.0, 1.0)
+    ttraj = dd.generate_trajectory(40, 3, 4.0, 1.0)
+    mp = REPO + "/artifacts/40um/"
+    pr, hpr, _ = jck.load(mp + "regressor0")
+    pc, hpc, _ = jck.load(mp + "classifier1")
+    reg = checkpoint.params_from_jax(pr, hpr, "cpu")
+    cls = checkpoint.params_from_jax(pc, hpc, "cpu")
+    kw = dict(span=6, c_threshold=THRESHOLD, eval_every=2, growth_height=5.0)
+    jlog, tlog, probs = [], [], []
+    monkeypatch.setattr(jp.PlanarGraph, "rasterize", observed(jp, jlog))
+    monkeypatch.setattr(tp.PlanarGraph, "rasterize", observed(tp, tlog))
+    jdd.run_device_resident(hg0, traj, pr, hpr, pc, hpc, compare=False,
+                            reconstruct=True, fused_editor=True, **kw)
+    update = editor_fused.update_fused
+    monkeypatch.setattr(editor_fused, "update_fused", lambda *a, **k: (
+        probs.append(torch.sigmoid(a[1])), update(*a, **k))[1])
+    dd.run_device_resident(ttraj, reg, cls, device="cpu", **kw)
+
+    assert len(jlog) == len(tlog) == 2
+    assert tlog[0]["alpha"].shape == (501, 501)
+    assert len(probs) == 2
+    assert not any(bool(((p - THRESHOLD).abs() < 1e-5).any()) for p in probs)
+    for a, b in zip(tlog, jlog):
+        for k in ("regions", "joint2vertex", "edges"):
+            assert a[k] == b[k], k
+        assert a["region_coors"].keys() == b["region_coors"].keys()
+        for g in a["region_coors"]:
+            np.testing.assert_allclose(a["region_coors"][g],
+                                       b["region_coors"][g], rtol=0,
+                                       atol=1e-6)
+        np.testing.assert_array_equal(a["alpha"], b["alpha"])

@@ -97,6 +97,25 @@ def test_trajectory_metadata_loads(fresh):
     assert traj.x["grain"].shape[0] == int(fresh["mask_grain"].shape[0])
 
 
+def test_port_generator_reproduces_the_fixture():
+    """The port's own generator (Voronoi graph, raster areas, tensorize,
+    test sample) gives the committed fixture's trajectory exactly."""
+    out = tdd.generate_trajectory(LXD, SEED, G, R)
+    ref = tdd.load_trajectory()
+    for part in ("x", "edges", "mask"):
+        a, b = getattr(out, part), getattr(ref, part)
+        assert a.keys() == b.keys(), part
+        for k in a:
+            assert a[k].dtype == b[k].dtype, (part, k)
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{part} {k}")
+    np.testing.assert_array_equal(out.theta_z, ref.theta_z)
+    assert out.area0 == ref.area0
+    assert [type(k) for k in out.area0] == [type(k) for k in ref.area0]
+    for k in ("lxd", "patch_size", "num_regions", "mesh_size", "ini_height",
+              "final_height", "G", "R", "seed", "bc", "lyd", "imagesize"):
+        assert getattr(out, k) == getattr(ref, k), k
+
+
 if __name__ == "__main__":
     import jax
 
