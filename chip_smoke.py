@@ -29,7 +29,14 @@ CPU, a profile, and the kernels at its shapes, (11) training at the
 shipped configs' full width: cli.train on 36 synthetic 40 um windows (the
 regressor, then the transfer classifier), train_scanned with G,R jitter,
 one step on the card against the CPU, the eval forward's launches, and
-the saved checkpoints run for one rollout span.
+the saved checkpoints run for one rollout span, (12) the batched rollout
+(before training in the run): 8 lanes of the generated 120 um graph
+(seeds 5-12) stacked and run 20 static spans with one forward of each
+model and one editor launch a span for all lanes, counted and timed
+beside the single-lane span, each lane against its single-lane run, one
+span against the CPU, the packed path at 2 lanes against the stacked
+one, the editor over 8 lanes against its plain version, and the kernels
+at the packed shapes.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -83,6 +90,15 @@ GEN40 = ["--generate", "--device_resident", "--model_dir", "artifacts/40um",
 GEN40_MELTPOOL = {"r0": 20.0, "z0": 4.0, "melt_pool_angle": math.pi / 4}
 R240 = {"lxd": 240, "seed": 5, "G": 1.904, "R": 0.558, "spans": 10,
         "repeats": 3}
+# the batched rollout: bench.py's 8 lanes of 120 um (seeds 5-12, G 1.904,
+# R 0.558), 20 static spans; the packed path (pack_states, budgets x B)
+# at the 2 lanes the editor kernel's per-lane limits allow, on the first
+# two of those lanes (where the switch budget binds from the second span)
+# and on the JAX package's own two 40 um test lanes (seeds 5, 7, G 4, R 1)
+BATCHED = {"lxd": 120, "seeds": tuple(range(5, 13)), "G": 1.904,
+           "R": 0.558, "spans": 20, "repeats": 5, "packed_lanes": 2,
+           "packed_spans": 5, "packed40": {"seeds": (5, 7), "G": 4.0,
+                                           "R": 1.0}}
 # training: 36 synthetic windows of the 40 um patch's size (the shipped
 # models were trained on 36 windows of one seed), 2 epochs per model, the
 # card-vs-CPU step and the kernel rows at a packed batch of 8
@@ -748,12 +764,13 @@ class Recorder:
         def candidates(orig):
             def f(state, area, thr, max_elim=tj.MAX_ELIM, active_g=None):
                 out = orig(state, area, thr, max_elim, active_g=active_g)
-                self.cand[0] += int(orig(state, area, thr, max_elim)[1])
-                self.cand[1] += int(out[1])
+                self.cand[0] += int(orig(state, area, thr, max_elim)[1].sum())
+                self.cand[1] += int(out[1].sum())
                 return out
             return f
 
         self._wrap(dr, "device_step", step)
+        self._wrap(dr, "batched_step", step)
         self._wrap(dr, "make_rollout", rollout)
         if self.capture:
             self._wrap(editor_fused, "update_fused", update)
@@ -1339,6 +1356,367 @@ def phase_rollout240(traj, reg, cls, reg_cpu, cls_cpu, dev):
 
 
 # ---------------------------------------------------------------------------
+# the batched rollout
+# ---------------------------------------------------------------------------
+
+INTS = ("E_pp", "E_pq", "mask_g", "mask_j", "n_pp")
+
+
+def stack_editor_lanes(cases):
+    """Editor inputs of B lanes [(state, logits, ge, y_grain[, active_g])]
+    as one lane-stacked (state, logits, ge, y_grain, active_g), padded to
+    common sizes as stack_states pads a state: dead rows, -1 columns,
+    logits at NEG, windows shut on the padding."""
+    NG = max(c[0].mask_g.shape[0] for c in cases)
+    NJ = max(c[0].mask_j.shape[0] for c in cases)
+    EP = max(c[0].E_pp.shape[1] for c in cases)
+    EQ = max(c[0].E_pq.shape[1] for c in cases)
+    pad = dr._pad
+
+    def lanes(fn):
+        return torch.stack([fn(*c) for c in cases])
+
+    def window(w, like, n):
+        return pad(torch.ones_like(like, dtype=torch.bool) if w is None
+                   else w, n, 0, False)
+
+    ts = tj.TopoState(
+        E_pp=lanes(lambda t, *_: pad(t.E_pp, EP, 1, -1)),
+        E_pq=lanes(lambda t, *_: pad(t.E_pq, EQ, 1, -1)),
+        xj=lanes(lambda t, *_: pad(t.xj, NJ, 0, 0.0)),
+        y_joint=lanes(lambda t, *_: pad(t.y_joint, NJ, 0, 0.0)),
+        mask_g=lanes(lambda t, *_: pad(t.mask_g, NG, 0, 0)),
+        mask_j=lanes(lambda t, *_: pad(t.mask_j, NJ, 0, 0)),
+        append_ptr=lanes(lambda t, *_: t.append_ptr.reshape(())),
+        active_j=lanes(lambda t, *_: window(t.active_j, t.mask_j, NJ)))
+    return (ts, lanes(lambda t, lg, *_: pad(lg, EP, 0, dr.NEG)),
+            lanes(lambda t, lg, ge, *_: ge),
+            lanes(lambda t, lg, ge, yg, *_: pad(yg, NG, 0, 0.0)),
+            lanes(lambda t, lg, ge, yg, *ag: window(ag[0] if ag else None,
+                                                    t.mask_g, NG)))
+
+
+def lane_of(state, b, like):
+    """Lane b of a stacked state cut to the single-lane state like's sizes,
+    and whether the lane's padding past them is dead."""
+    ng, nj = like.xg.shape[0], like.xj.shape[0]
+    ep, eq = like.E_pp.shape[1], like.E_pq.shape[1]
+    dead = not (bool(state.mask_g[b, ng:].any())
+                or bool(state.mask_j[b, nj:].any())
+                or bool((state.E_pp[b, :, ep:] >= 0).any())
+                or bool((state.E_pq[b, :, eq:] >= 0).any()))
+    return dr.DeviceRolloutState(
+        xg=state.xg[b, :ng], xj=state.xj[b, :nj], E_pp=state.E_pp[b, :, :ep],
+        E_pq=state.E_pq[b, :, :eq], mask_g=state.mask_g[b, :ng],
+        mask_j=state.mask_j[b, :nj], n_pp=state.n_pp[b]), dead
+
+
+def same_lane(state, b, single):
+    """(lane b of a stacked state has single's topology and dead padding,
+    the largest position difference between them)."""
+    lane, dead = lane_of(state, b, single)
+    same = dead and all(torch.equal(getattr(lane, f), getattr(single, f))
+                        for f in INTS)
+    pos = max((lane.xj[:, :2] - single.xj[:, :2]).abs().max().item(),
+              (lane.xg[:, :2] - single.xg[:, :2]).abs().max().item())
+    return same, pos
+
+
+def near_threshold(logits, live):
+    p = torch.sigmoid(logits)[live]
+    return bool(((p - C_THRESHOLD).abs() < 1e-5).any())
+
+
+def lanes_vs_singles(reg, cls, state, singles, n):
+    """The batched run span by span beside each lane's single-lane run:
+    a lane's topology must stay bit-equal to its single run's unless a
+    switch probability of that lane's span lies within 1e-5 of the
+    threshold, after which the lane is no longer compared. Returns the
+    lanes still equal at the end, where each other lane parted, and the
+    largest position difference of equal lanes."""
+    st, sts, parted, pos = state, list(singles), {}, 0.0
+    for i in range(n):
+        near = [near_threshold(dr.forward_stage(reg, cls, s, tj.RING_MAX)[2]
+                               ["edge_event"], s.E_pp[0] >= 0) for s in sts]
+        st, _ = dr.batched_step(reg, cls, st, c_threshold=C_THRESHOLD)
+        sts = [dr.device_step(reg, cls, s, c_threshold=C_THRESHOLD)[0]
+               for s in sts]
+        for b, s in enumerate(sts):
+            if b in parted:
+                continue
+            same, d = same_lane(st, b, s)
+            if same:
+                pos = max(pos, d)
+            elif near[b]:
+                parted[b] = i
+            else:
+                raise RuntimeError(f"batched: lane {b} differs from its "
+                                   f"single-lane run at span {i}")
+    return dict(spans=n, lanes_equal=len(sts) - len(parted),
+                parted_at_threshold={str(b): i for b, i in parted.items()},
+                position_max_abs_diff=pos)
+
+
+def batched_span_card_vs_cpu(reg, cls, reg_cpu, cls_cpu, state):
+    """One batched span of a stacked state on the card and on the CPU:
+    every lane's topology bit-equal unless a switch probability lies
+    within 1e-5 of the threshold, positions within POS_ATOL."""
+    st_cpu = state.map(lambda v: v.cpu())
+    B = state.xg.shape[0]
+    sample, _, _ = dr._pack_build_sample(st_cpu)
+    near = near_threshold(cls_cpu(sample, kernels=True)["edge_event"],
+                          (st_cpu.E_pp[:, 0] >= 0).reshape(-1))
+    s1, a1 = dr.batched_step(reg, cls, state, c_threshold=C_THRESHOLD)
+    s0, _ = dr.batched_step(reg_cpu, cls_cpu, st_cpu,
+                            c_threshold=C_THRESHOLD)
+    same = all(torch.equal(getattr(s1, f).cpu(), getattr(s0, f))
+               for f in INTS)
+    if not same and not near:
+        raise RuntimeError("batched span: topology differs from the CPU span")
+    pos = (s1.xj[..., :2].cpu() - s0.xj[..., :2]).abs().max().item()
+    if not pos <= POS_ATOL:
+        raise RuntimeError(f"batched span: positions differ by {pos}")
+    return dict(lanes=B, topology_equal=same, threshold_adjacent=near,
+                position_max_abs_err=pos,
+                switches=int((a1["switching"][..., 0] >= 0).sum()),
+                grain_events=int((a1["grain_events"] >= 0).sum()))
+
+
+def packed_lane(p_state, b, singles):
+    """Lane b of a pack_states state in its own ids: (mask_g, mask_j, live
+    E_pp columns in order, E_pq, xj)."""
+    g0 = sum(s.xg.shape[0] for s in singles[:b])
+    j0 = sum(s.xj.shape[0] for s in singles[:b])
+    q0 = sum(s.E_pq.shape[1] for s in singles[:b])
+    ng, nj = singles[b].xg.shape[0], singles[b].xj.shape[0]
+    eq = singles[b].E_pq.shape[1]
+    in_lane = (p_state.E_pp[0] >= j0) & (p_state.E_pp[0] < j0 + nj)
+    q = p_state.E_pq[:, q0:q0 + eq]
+    off = torch.tensor([[j0], [g0]], dtype=q.dtype, device=q.device)
+    return (p_state.mask_g[g0:g0 + ng], p_state.mask_j[j0:j0 + nj],
+            p_state.E_pp[:, in_lane] - j0, torch.where(q >= 0, q - off, -1),
+            p_state.xj[j0:j0 + nj])
+
+
+def packed_vs_stacked(reg, cls, singles, n):
+    """pack_states on the single-lane make_rollout's span with the budgets
+    x B against stack_states on the batched span, span by span from their
+    own states: each lane's rows, live jj edges in order and pull edges
+    equal. The packed budgets are shared by the lanes, so a lane may part
+    only in a span where a budget binds (some lane has more switch
+    candidates than MAX_SWITCH or more elimination candidates than
+    MAX_ELIM, and the packed run shares out the budget otherwise) or a
+    switch probability lies within 1e-5 of the threshold; it is not
+    compared after. Returns the spans each lane stayed equal
+    and where and why the others parted."""
+    B = len(singles)
+    p_st, s_st = dr.pack_states(singles), dr.stack_states(singles)
+    equal, parted, pos = [0] * B, {}, 0.0
+    for i in range(n):
+        p_st, _ = dr.device_step(reg, cls, p_st, c_threshold=C_THRESHOLD,
+                                 max_elim=tj.MAX_ELIM * B,
+                                 max_switch=tj.MAX_SWITCH * B)
+        with Recorder(capture=True) as cap:
+            s_st, s_aux = dr.batched_step(reg, cls, s_st,
+                                          c_threshold=C_THRESHOLD)
+        ts, lg = cap.editor[0][:2]
+        E = ts.E_pp
+        live = E[:, 0] >= 0
+        n_sw = ((torch.sigmoid(lg) > C_THRESHOLD) & live
+                & (E[:, 0] < E[:, 1])).sum(-1)
+        for b in range(B):
+            if b in parted:
+                continue
+            lane, _ = lane_of(s_st, b, singles[b])
+            mg, mj, pp, pq, xj = packed_lane(p_st, b, singles)
+            s_pp = s_st.E_pp[b]
+            if (torch.equal(mg, lane.mask_g) and torch.equal(mj, lane.mask_j)
+                    and torch.equal(pp, s_pp[:, s_pp[0] >= 0])
+                    and torch.equal(pq, lane.E_pq)):
+                equal[b] += 1
+                pos = max(pos, (xj[:, :2] - lane.xj[:, :2]).abs().max().item())
+                continue
+            why = [w for w, hit in (
+                ("switch budget", bool((n_sw > tj.MAX_SWITCH).any())),
+                ("elimination budget", bool(s_aux["elim_saturated"].any())),
+                ("threshold", near_threshold(lg, live))) if hit]
+            if not why:
+                raise RuntimeError(f"packed: lane {b} differs from the "
+                                   f"stacked run at span {i}")
+            parted[b] = (i, why)
+    return dict(lanes=B, spans=n, budgets=[tj.MAX_SWITCH * B,
+                                           tj.MAX_ELIM * B],
+                spans_equal=equal,
+                parted={str(b): {"span": i, "why": w}
+                        for b, (i, w) in parted.items()},
+                position_max_abs_diff=pos)
+
+
+def packed_refused(reg, cls, singles):
+    """A packed state of len(singles) lanes needs budgets past the editor
+    kernel's per-lane limits: its span must raise, with no fallback."""
+    B = len(singles)
+    try:
+        dr.device_step(reg, cls, dr.pack_states(singles),
+                       c_threshold=C_THRESHOLD, max_elim=tj.MAX_ELIM * B,
+                       max_switch=tj.MAX_SWITCH * B)
+    except ValueError as e:
+        return str(e)
+    raise RuntimeError(f"packed: a span of {B} packed lanes did not raise")
+
+
+def batched_editor_row(reg, cls, state, suffix, launches):
+    """The editor kernel over all lanes on the first batched span's inputs
+    against its plain version (the lanes one by one on the CPU), timed
+    beside one lane's launch alone."""
+    with Recorder(capture=True) as cap:
+        dr.make_rollout_batched(reg, cls, n_steps=1,
+                                c_threshold=C_THRESHOLD)(state)
+    args = cap.editor[0]
+    ts, logits, ge, yg, thr, _ = args
+    NG = ts.mask_g.shape[-1]
+    (s_p, sw_p, _), err = check_editor_case(ts, logits, ge, yg, thr, NG)
+    # and forced switches and eliminations in every lane
+    forced = stack_editor_lanes([forced_editor_inputs(
+        ts.map(lambda v: v[b]), b, 24, 4) for b in range(ts.E_pp.shape[0])])
+    (f_p, _, _), f_err = check_editor_case(*forced[:4], 0.6, NG,
+                                           active_g=forced[4])
+    err = max(err, f_err)
+    ms = editor_ms(args, NG)
+    one_ms = editor_ms((ts.map(lambda v: v[0]), logits[0], ge[0], yg[0], thr,
+                        None), NG)
+    t0 = time.perf_counter()
+    editor_fused.update_fused(_to(ts, "cpu"), logits.cpu(), ge.cpu(),
+                              yg.cpu(), thr, NG)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by = editor_bound(args)
+    return dict(name=f"editor{suffix}", route="cuda",
+                source="graingraphnn_torch/csrc/editor.cu",
+                replaces=REPLACES["editor"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, launches=launches, lanes=ts.E_pp.shape[0],
+                one_lane_ms=one_ms,
+                switches=int((sw_p[..., 0] >= 0).sum()),
+                grains_deleted=int((ts.mask_g.cpu() != s_p.mask_g).sum()),
+                forced_grains_deleted=int(
+                    (forced[0].mask_g.cpu() != f_p.mask_g).sum()),
+                check=f"pass: integers bit-equal, floats atol {EDITOR_ATOL}, "
+                      "first batched span and forced switches and "
+                      "eliminations in every lane, all lanes in one launch")
+
+
+def phase_batched(reg, cls, reg_cpu, cls_cpu, dev, profile=False):
+    """bench.py's batched rollout through the port: 8 lanes of the
+    generated 120 um graph (seeds 5-12), patch-rescaled and stacked, 20
+    static spans. The counted run (launches, capacity flags, peak memory),
+    ms per span and edges/s (min of 5, the host's time inside the spans)
+    beside the single-lane static span of seed 5, the aten calls of a
+    span of each, no host sync, each lane span by span against its
+    single-lane run, one batched span against the CPU, the packed path
+    at 2 lanes against the stacked one (and its refusal at 8), the editor
+    over all lanes against its plain version, and the kernels at the
+    packed shapes. Returns the kernels line's rows."""
+    cfg = BATCHED
+    t0 = time.perf_counter()
+    trajs = [dd.generate_trajectory(cfg["lxd"], seed, cfg["G"], cfg["R"])
+             for seed in cfg["seeds"]]
+    gen_s = time.perf_counter() - t0
+    singles = [dd.init_scaled_state(t.x, t.edges, t.mask, t.lxd,
+                                    t.patch_size, device=dev)[0]
+               for t in trajs]
+    state = dr.stack_states(singles)
+    B, n = len(singles), cfg["spans"]
+    suffix = f"_{B}x{cfg['lxd']}um"
+    run = dr.make_rollout_batched(reg, cls, n_steps=n,
+                                  c_threshold=C_THRESHOLD)
+    run(state)                                      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    final, aux = run(state)                         # the counted run
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counted_launches()
+    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n}
+    if any(launches[k] != v for k, v in want.items()):
+        raise RuntimeError(f"batched: launches {launches}, want {want}")
+    flags = {f: int(aux[f].sum()) for f in
+             ("ring_overflow", "pp_overflow", "nuc_overflow")}
+    if any(flags.values()):
+        raise RuntimeError(f"batched: capacity flags {flags}")
+    for name in ("xg", "xj"):
+        if not bool(torch.isfinite(getattr(final, name)).all()):
+            raise RuntimeError(f"batched: non-finite {name}")
+    ms, host = timed_runs(run, {"batched": state}, cfg["repeats"])
+    run1 = dr.make_rollout(reg, cls, n_steps=n, c_threshold=C_THRESHOLD)
+    _, aux1 = run1(singles[0])
+    ms1, host1 = timed_runs(run1, {"single": singles[0]}, cfg["repeats"])
+    edges = float(aux["message_edges"].sum())
+    edges1 = float(aux1["message_edges"].sum())
+    calls = {"batched_span": aten_calls(lambda: dr.batched_step(
+                 reg, cls, state, c_threshold=C_THRESHOLD))["span"],
+             "single_static_span": aten_calls(lambda: dr.device_step(
+                 reg, cls, singles[0], c_threshold=C_THRESHOLD))["span"]}
+    if calls["batched_span"] > 2 * calls["single_static_span"]:
+        raise RuntimeError(f"batched: aten calls {calls}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")         # a host sync raises
+    try:
+        dr.batched_step(reg, cls, state, c_threshold=C_THRESHOLD)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    lanes = lanes_vs_singles(reg, cls, state, singles, n)
+    span = batched_span_card_vs_cpu(reg, cls, reg_cpu, cls_cpu,
+                                    dr.stack_states(singles[:2]))
+    packed = {"120um": packed_vs_stacked(
+        reg, cls, singles[:cfg["packed_lanes"]], cfg["packed_spans"])}
+    p40 = cfg["packed40"]
+    packed["40um"] = packed_vs_stacked(reg, cls, [dd.init_scaled_state(
+        t.x, t.edges, t.mask, t.lxd, t.patch_size, device=dev)[0]
+        for t in (dd.generate_trajectory(40, seed, p40["G"], p40["R"])
+                  for seed in p40["seeds"])], cfg["packed_spans"])
+    if min(packed["40um"]["spans_equal"]) < 1:
+        raise RuntimeError(f"packed: no span compared at 40 um: {packed}")
+    packed["refused_at_8"] = packed_refused(reg, cls, singles)
+    editor = batched_editor_row(reg, cls, state, suffix, launches["editor"])
+    prof = profile_run(run, state) if profile else None
+    sample, _, _ = dr._pack_build_sample(state)
+    rows = conv_kernel_rows(decoder_conv_inputs(reg, sample),
+                            reg.hp.layer_size, suffix=suffix,
+                            workload="batched")
+    emit(phase="batched", lanes=B, lxd=cfg["lxd"], seeds=cfg["seeds"],
+         G=cfg["G"], R=cfg["R"], spans=n, generation_s=gen_s,
+         grains=[int(s.mask_g.sum()) for s in singles],
+         junctions=[int(s.mask_j.sum()) for s in singles],
+         packed_rows={"grains": int(sample.grain_x.shape[0]),
+                      "junctions": int(sample.joint_x.shape[0])},
+         launches={k: ({str(kk): vv for kk, vv in v.items()}
+                       if k == "by_shape" else v)
+                   for k, v in launches.items()},
+         capacity_flags=flags,
+         elim_saturated=int(aux["elim_saturated"].sum()),
+         switches=int((aux["switching"][..., 0] >= 0).sum()),
+         grain_events=int((aux["grain_events"] >= 0).sum()),
+         edges=edges, ms_per_span=ms["batched"],
+         ms_per_span_min=min(ms["batched"]),
+         host_ms_per_span=host["batched"],
+         edges_per_s=edges / (min(ms["batched"]) * n / 1e3),
+         single_lane={"edges": edges1, "ms_per_span": ms1["single"],
+                      "host_ms_per_span": host1["single"],
+                      "edges_per_s": edges1 / (min(ms1["single"]) * n / 1e3)},
+         aten_calls=calls, no_host_sync=True,
+         peak_mem_bytes=peak, resident_mem_bytes=resident,
+         lanes_vs_singles=lanes, reference_span=span, packed=packed,
+         editor={k: editor[k] for k in ("ms", "one_lane_ms", "plain_ms",
+                                        "switches", "grains_deleted",
+                                        "forced_grains_deleted")},
+         profile=prof)
+    return [dict(row, launches=launches["by_shape"].get(key, 0))
+            for key, row in rows.items()] + [editor]
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -1633,7 +2011,8 @@ def phase_train(state, smi, workdir, profile=False):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one rollout and train steps by kernel")
+                    help="also profile one rollout, the batched rollout and "
+                         "train steps by kernel")
     args = ap.parse_args()
 
     dev, smi = phase_device()
@@ -1662,6 +2041,8 @@ def main():
                                       cuda)
         r240_rows = phase_rollout240(trajs[R240["lxd"]], reg, cls, reg_cpu,
                                      cls_cpu, cuda)
+        batched_rows = phase_batched(reg, cls, reg_cpu, cls_cpu, cuda,
+                                     profile=args.profile)
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_train_",
                                      dir=here) as workdir:
@@ -1677,7 +2058,7 @@ def main():
               "rollout spans",
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
     kernels.append(generate_row)
-    kernels += gen40_rows + r240_rows
+    kernels += gen40_rows + r240_rows + batched_rows
     kernels += list(train_rows.values())
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

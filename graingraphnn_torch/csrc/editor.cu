@@ -19,24 +19,27 @@
 // tiny (the state is ~120 KB); the time is the chain's length times the
 // cost of one step: its scans' reads and instructions, spread over the
 // block, plus its barriers. Design: ONE block of EDITOR_THREADS threads
-// (512 measured fastest; 256 and 1024 slower). Every thread runs the same
-// control flow on the same scalar values; each scan (first-k search,
-// count, rewrite) is spread over the block with a chunked prefix sum and
-// __syncthreads(). Block-uniform state (the state's description, the
-// switch lists, first-k results) lives once in shared memory, written by
-// thread 0 behind a barrier, so no thread keeps large per-thread arrays
-// in local memory. E_pq's junction row only changes to -1, so an index
-// of each junction's E_pq columns, built once per launch, answers the
-// switch's queries about junctions by walking a list of ~3 columns.
-// Per switch: the two grain rings and the two border tests from that
-// index (a scan where a key is not a junction), ONE pass for the two
-// joint-neighbor first-k queries (the pair shares its reads), a
-// warp-parallel lookahead with no barrier, and ONE pass for the writes to
-// E_pp. The candidate switches come from one compaction and a rank-based
-// top-max_switch selection; a ring collapse finds the grains across all
-// its ring edges in two atomicMin passes. The state's arrays stay in
-// device memory, where L1 and L2 hold them through the chain: a version
-// that staged them in shared memory saved only ~5 % at 120 um.
+// per lane (512 measured fastest; 256 and 1024 slower); a batched rollout
+// edits its B independent lanes in one launch of B blocks, the TPU
+// kernel's vmap grid dimension, each at one lane's budgets. Every thread
+// of a block runs the same control flow on the same scalar values; each
+// scan (first-k search, count, rewrite) is spread over the block with a
+// chunked prefix sum and __syncthreads(). Block-uniform state (the
+// state's description, the switch lists, first-k results) lives once in
+// shared memory, written by thread 0 behind a barrier, so no thread keeps
+// large per-thread arrays in local memory. E_pq's junction row only
+// changes to -1, so an index of each junction's E_pq columns, built once
+// per launch, answers the switch's queries about junctions by walking a
+// list of ~3 columns. Per switch: the two grain rings and the two border
+// tests from that index (a scan where a key is not a junction), ONE pass
+// for the two joint-neighbor first-k queries (the pair shares its reads),
+// a warp-parallel lookahead, one barrier between the switch's reads and
+// its writes, and ONE pass for the writes to E_pp. The candidate switches
+// come from one compaction and a rank-based top-max_switch selection; a
+// ring collapse finds the grains across all its ring edges in two
+// atomicMin passes. The state's arrays stay in device memory, where L1
+// and L2 hold them through the chain: a version that staged them in
+// shared memory saved only ~5 % at 120 um.
 //
 // Build with -fmad=false: the switch reposition and the displacement
 // rollback are float32 arithmetic whose results the plain version
@@ -453,6 +456,10 @@ __device__ __noinline__ int2 switch_one(Ed& S, int e, const int* events, int K,
   (void)pn10;
   (void)pn21;
 
+  // every thread has read what this switch decides on (the rings in E_pq,
+  // the neighbours and the lookahead's columns in E_pp, the positions)
+  // before any thread writes them
+  __syncthreads();
   if (!valid) return make_int2(force1, force2);
   if (threadIdx.x == 0) {
     if (p1s < S.NJ) { posx(S, p1s) = cx; posy(S, p1s) = cy; }
@@ -804,20 +811,39 @@ __device__ __noinline__ void edit(Ed& S, const float* prob, const float* yg0,
   put_extra(s_drop, ts_budget);
 }
 
-// G holds the state's arrays and the scratch for the ring counts, the
-// candidates and the junction index, all in device memory.
+// G holds lane 0's state arrays and scratch, all in device memory; block
+// b edits lane b, whose arrays follow lane 0's at a fixed stride (the
+// state's own sizes; scr for the scratch). Lanes share no memory.
 __global__ void __launch_bounds__(NT) editor_kernel(
-    Ed G, const float* __restrict__ prob, const float* __restrict__ yg0,
-    const int* __restrict__ ge, int GE, float threshold, int num_grains,
-    int MS, int* ptr_io, int* sw, int* extra, int max_extra) {
+    Ed G, int scr, const float* __restrict__ prob,
+    const float* __restrict__ yg0, const int* __restrict__ ge, int GE,
+    float threshold, int num_grains, int MS, int* ptr_io, int* sw,
+    int* extra, int max_extra) {
+  const size_t b = blockIdx.x;
   if (threadIdx.x == 0) {
     s_S = G;
-    s_S.ptr = *ptr_io;
+    s_S.pp0 += b * 2 * G.EP;
+    s_S.pp1 += b * 2 * G.EP;
+    s_S.pq0 += b * 2 * G.EQ;
+    s_S.pq1 += b * 2 * G.EQ;
+    s_S.xj += b * G.NJ * G.xs;
+    s_S.yj += b * 2 * G.NJ;
+    s_S.mg += b * G.NG;
+    s_S.mj += b * G.NJ;
+    s_S.aj += b * G.NJ;
+    s_S.ag += b * G.NG;
+    s_S.cnt += b * scr;
+    s_S.cp += b * scr;
+    s_S.cc += b * scr;
+    s_S.jo += b * scr;
+    s_S.jc += b * scr;
+    s_S.ptr = ptr_io[b];
   }
   __syncthreads();
-  edit(s_S, prob, yg0, ge, GE, threshold, num_grains, MS, sw, extra, max_extra);
+  edit(s_S, prob + b * G.EP, yg0 + b * G.NG, ge + b * GE, GE, threshold,
+       num_grains, MS, sw + b * 2 * MS, extra + b * max_extra, max_extra);
   __syncthreads();
-  if (threadIdx.x == 0) *ptr_io = s_S.ptr;
+  if (threadIdx.x == 0) ptr_io[b] = s_S.ptr;
 }
 
 }  // namespace
@@ -828,27 +854,31 @@ const char* ggnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// One span's edit in place on the state arrays (pp [2, EP], pq [2, EQ],
-// xj [NJ, xs], yj [NJ, 2], mg [NG], mj [NJ], ptr [1]); writes sw
-// [MS, 2] and extra [max_extra]; aj [NJ] and ag [NG] are the active
-// windows. scratch is [num_grains + 2 * EP + NJ + 1 + EQ] int32.
-int editor_update(int* pp, int EP, int* pq, int EQ, float* xj, int NJ,
-                  int xs, float* yj, int* mg, int* mj, int NG,
+// One span's edit of B independent lanes in place, one block per lane.
+// Each lane's arrays are contiguous and follow the previous lane's: pp
+// [B, 2, EP], pq [B, 2, EQ], xj [B, NJ, xs], yj [B, NJ, 2], mg [B, NG],
+// mj [B, NJ], ptr [B], prob [B, EP], yg0 [B, NG], ge [B, GE], the active
+// windows aj [B, NJ] and ag [B, NG]; writes sw [B, MS, 2] and extra
+// [B, max_extra]. scratch is [B, num_grains + 2 * EP + NJ + 1 + EQ]
+// int32. MS and GE are per-lane budgets.
+int editor_update(int B, int* pp, int EP, int* pq, int EQ, float* xj,
+                  int NJ, int xs, float* yj, int* mg, int* mj, int NG,
                   const float* prob, const float* yg0, const int* ge, int GE,
                   const int* aj, const int* ag, float threshold,
                   int num_grains, int MS, int* ptr, int* sw, int* extra,
                   int* scratch, int max_extra, void* stream) {
   const int ts_budget = GE > MAX_TWOSIDED ? GE : MAX_TWOSIDED;
-  if (MS < 0 || MS > MAX_MS || GE < 0 || GE > MAX_GE || ts_budget > KMAX ||
-      xs < 8 || EP < 1 || EQ < 1 || num_grains > NG)
+  if (B < 1 || MS < 0 || MS > MAX_MS || GE < 0 || GE > MAX_GE ||
+      ts_budget > KMAX || xs < 8 || EP < 1 || EQ < 1 || num_grains > NG)
     return cudaErrorInvalidValue;
+  const int scr = num_grains + 2 * EP + NJ + 1 + EQ;
   int* const jo = scratch + num_grains + 2 * EP;
   Ed S{pp, pp + EP, EP, pq, pq + EQ, EQ, NJ, xj, xs, yj,
        mg, NG, mj, aj, ag, scratch, reinterpret_cast<float*>(scratch + num_grains),
        scratch + num_grains + EP, jo, jo + NJ + 1, 0};
   cudaGetLastError();   // clear any stale error
-  editor_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      S, prob, yg0, ge, GE, threshold, num_grains, MS, ptr, sw, extra,
+  editor_kernel<<<B, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      S, scr, prob, yg0, ge, GE, threshold, num_grains, MS, ptr, sw, extra,
       max_extra);
   return static_cast<int>(cudaGetLastError());
 }

@@ -85,64 +85,96 @@ def _wrap(rel):
 
 
 def _ell_slots(src, dst, num_dst: int, max_deg: int):
-    """Slots of a padded COO list in a destination-major ELL: the rank of
-    each live edge among the live edges into its destination by ascending
-    column, from a stable sort. Returns (order, flat, ok, overflow):
-    sorted position -> column, its flat ELL index (num_dst * max_deg
-    where it has none), whether it has a slot, and whether a
-    destination's live degree exceeds max_deg."""
-    E = src.shape[0]
+    """Slots of a padded COO list [E] (or B lanes' lists [B, E]) in a
+    destination-major ELL: the rank of each live edge among the live edges
+    into its destination by ascending column, from one stable sort (a
+    lane's destinations offset by lane * num_dst). Returns (order, flat,
+    ok, overflow): sorted position -> flat column, its flat ELL index
+    (past the lanes' num_dst * max_deg where it has none), whether it has
+    a slot, and whether a destination's live degree exceeds max_deg (per
+    lane)."""
+    lead = src.shape[:-1]
+    B, E = lead.numel(), src.shape[-1]
     live = (src >= 0) & (dst >= 0)
-    dstk = torch.where(live, dst, num_dst).to(torch.int32)
+    if lead:
+        lane = torch.arange(B, dtype=torch.int32, device=src.device)
+        dst = dst + lane.reshape(lead + (1,)) * num_dst
+    n = B * num_dst
+    dstk = torch.where(live, dst, n).to(torch.int32).reshape(-1)
     ds, order = torch.sort(dstk, stable=True)
     first = torch.searchsorted(ds, ds, side="left")
-    slot = torch.arange(E, device=src.device) - first
-    ok = (ds < num_dst) & (slot < max_deg)
-    flat = torch.where(ok, ds.long() * max_deg + slot, num_dst * max_deg)
-    return order, flat, ok, ok.sum() < live.sum()
+    slot = torch.arange(B * E, device=src.device) - first
+    ok = (ds < n) & (slot < max_deg)
+    flat = torch.where(ok, ds.long() * max_deg + slot, n * max_deg)
+    if not lead:
+        return order, flat, ok, ok.sum() < live.sum()
+    n_ok = torch.zeros(B + 1, dtype=torch.int64, device=src.device)
+    n_ok.scatter_add_(0, torch.where(ok, ds // num_dst, B).long(),
+                      ok.long())
+    return order, flat, ok, n_ok[:B].reshape(lead) < live.sum(-1)
 
 
-def _scatter_ell(flat, vals, num_dst: int, max_deg: int, fill, dtype):
-    out = torch.full((num_dst * max_deg + 1,), fill, dtype=dtype,
+def _scatter_ell(flat, vals, num_dst: int, max_deg: int, fill, dtype,
+                 lead=()):
+    n = torch.Size(lead).numel() * num_dst
+    out = torch.full((n * max_deg + 1,), fill, dtype=dtype,
                      device=flat.device)
     return out.index_put_((flat,), vals.to(dtype))[:-1].reshape(
-        num_dst, max_deg)
+        *lead, num_dst, max_deg)
 
 
 def build_ell(src, dst, attr, num_dst: int, max_deg: int):
-    """Destination-major ELL from a padded COO list (slots by _ell_slots).
-    Returns (nbr [D, K] int32, len [D, K] float32, mask [D, K] float32,
-    overflow): overflow flags a destination whose live degree exceeds
-    max_deg (its extra edges are dropped)."""
+    """Destination-major ELL from a padded COO list (slots by _ell_slots),
+    of one lane or of each of B lanes (a leading axis on every input and
+    output). Returns (nbr [(B,) D, K] int32, len [(B,) D, K] float32,
+    mask [(B,) D, K] float32, overflow [(B,)]): overflow flags a
+    destination whose live degree exceeds max_deg (its extra edges are
+    dropped)."""
+    lead = src.shape[:-1]
     order, flat, ok, overflow = _ell_slots(src, dst, num_dst, max_deg)
-    nbr = _scatter_ell(flat, src[order], num_dst, max_deg, 0, torch.int32)
-    length = _scatter_ell(flat, attr[order], num_dst, max_deg, 0,
-                          torch.float32)
-    mask = _scatter_ell(flat, ok, num_dst, max_deg, 0, torch.float32)
+    nbr = _scatter_ell(flat, src.reshape(-1)[order], num_dst, max_deg, 0,
+                       torch.int32, lead)
+    length = _scatter_ell(flat, attr.reshape(-1)[order], num_dst, max_deg,
+                          0, torch.float32, lead)
+    mask = _scatter_ell(flat, ok, num_dst, max_deg, 0, torch.float32, lead)
     return nbr, length, mask, overflow
 
 
 def build_pull_cols(src, dst, num_dst: int, ring: int):
-    """The ELL's column table from scratch: cols[d, k] = the COO column of
-    the k-th live edge into d by ascending column (build_ell's slot
-    order), -1 dead. Returns (cols [num_dst, ring] int32, overflow)."""
+    """The ELL's column table from scratch: cols[(b,) d, k] = the COO
+    column of the k-th live edge into d by ascending column (build_ell's
+    slot order), -1 dead. Returns (cols [(B,) num_dst, ring] int32,
+    overflow [(B,)])."""
+    lead = src.shape[:-1]
     order, flat, _, overflow = _ell_slots(src, dst, num_dst, ring)
-    return _scatter_ell(flat, order, num_dst, ring, -1, torch.int32), overflow
+    if lead:
+        order = torch.remainder(order, src.shape[-1])
+    return (_scatter_ell(flat, order, num_dst, ring, -1, torch.int32, lead),
+            overflow)
+
+
+def _take(src, idx):
+    """src[idx] of one lane, or src[b][idx[b]] of each lane b: src [(B,) E],
+    idx [(B,) ...] int64."""
+    return torch.gather(src, -1, idx.reshape(*src.shape[:-1], -1)).reshape(
+        idx.shape)
 
 
 def ell_from_cols(cols, src, attr):
-    """The ELL through a current column table: neighbor ids and edge
-    attributes gathered at the stored columns. Equals build_ell's
-    (nbr, len, mask)."""
+    """The ELL through a current column table (one lane or B): neighbor
+    ids and edge attributes gathered at the stored columns. Equals
+    build_ell's (nbr, len, mask)."""
     live = cols >= 0
     c = torch.where(live, cols, 0).long()
-    nbr = torch.where(live, src[c], 0).to(torch.int32)
-    length = torch.where(live, attr[c], 0.0).to(torch.float32)
+    nbr = torch.where(live, _take(src, c), 0).to(torch.int32)
+    length = torch.where(live, _take(attr, c), 0.0).to(torch.float32)
     return nbr, length, live.to(torch.float32)
 
 
 def update_ell_cols(cols, E_old, E_new, dst_row: int, *, t_max: int = 64):
-    """Keep a column table current across an edit. Only destinations of a
+    """Keep a column table current across an edit, of one lane or of each
+    of B lanes (a leading axis on every input and output, and a touch
+    budget per lane). Only destinations of a
     changed COO column (before or after the edit) can change their slots:
     up to t_max of them are re-ranked over the post-edit list, each slot
     k found by a binary search for the first column where the row's
@@ -154,38 +186,46 @@ def update_ell_cols(cols, E_old, E_new, dst_row: int, *, t_max: int = 64):
     touched (those past t_max kept stale slots; maintained_cols falls back
     to a rebuild), and a touched destination's live degree past the
     table's width (a capacity bust)."""
-    num_dst, ring = cols.shape
+    *lead, num_dst, ring = cols.shape
+    lead = tuple(lead)
     dev = cols.device
-    changed = torch.any(E_old != E_new, dim=0)
-    live_old = (E_old[0] >= 0) & (E_old[1] >= 0)
-    live_new = (E_new[0] >= 0) & (E_new[1] >= 0)
-    d_old = torch.where(changed & live_old, E_old[dst_row], num_dst).long()
-    d_new = torch.where(changed & live_new, E_new[dst_row], num_dst).long()
-    flag = torch.zeros(num_dst + 1, dtype=torch.bool, device=dev)
-    flag = flag.index_fill_(0, d_old, True).index_fill_(0, d_new, True)
-    flag = flag[:num_dst]
-    n_touched = flag.sum()
+    changed = torch.any(E_old != E_new, dim=-2)
+    live_old = (E_old[..., 0, :] >= 0) & (E_old[..., 1, :] >= 0)
+    live_new = (E_new[..., 0, :] >= 0) & (E_new[..., 1, :] >= 0)
+    d_new_row = E_new[..., dst_row, :]
+    d_old = torch.where(changed & live_old, E_old[..., dst_row, :],
+                        num_dst).long()
+    d_new = torch.where(changed & live_new, d_new_row, num_dst).long()
+    flag = torch.zeros(lead + (num_dst + 1,), dtype=torch.bool, device=dev)
+    flag = flag.scatter_(-1, d_old, True).scatter_(-1, d_new, True)
+    flag = flag[..., :num_dst]
+    n_touched = flag.sum(-1)
 
     # the touched destinations, compacted to the front of [t_max]
-    pos = torch.cumsum(flag.to(torch.int32), 0) - 1
-    lane = torch.where(flag & (pos < t_max), pos, t_max).long()
-    touched = torch.full((t_max + 1,), -1, dtype=torch.int32, device=dev)
-    touched[lane] = torch.arange(num_dst, dtype=torch.int32, device=dev)
-    touched = touched[:t_max]
+    pos = torch.cumsum(flag.to(torch.int32), -1) - 1
+    slot = torch.where(flag & (pos < t_max), pos, t_max).long()
+    touched = torch.full(lead + (t_max + 1,), -1, dtype=torch.int32,
+                         device=dev)
+    touched.scatter_(-1, slot, torch.arange(
+        num_dst, dtype=torch.int32, device=dev).expand(lead + (num_dst,)))
+    touched = touched[..., :t_max]
 
-    match = (live_new[None, :] & (E_new[dst_row][None, :] == touched[:, None])
-             & (touched[:, None] >= 0))                       # [t_max, E]
-    cum = torch.cumsum(match.to(torch.int32), dim=1, dtype=torch.int32)
-    deg = cum[:, -1]
-    deg_over = (deg > ring).any()
+    match = (live_new[..., None, :]
+             & (d_new_row[..., None, :] == touched[..., :, None])
+             & (touched[..., :, None] >= 0))                 # [t_max, E]
+    cum = torch.cumsum(match.to(torch.int32), dim=-1, dtype=torch.int32)
+    deg = cum[..., -1]
+    deg_over = (deg > ring).any(-1)
     kk = torch.arange(1, ring + 1, dtype=torch.int32, device=dev)
-    rows = torch.searchsorted(cum, kk.expand(t_max, ring).contiguous(),
-                              side="left").to(torch.int32)
-    rows = torch.where(kk[None, :] <= deg[:, None], rows, -1)
+    rows = torch.searchsorted(
+        cum, kk.expand(lead + (t_max, ring)).contiguous(),
+        side="left").to(torch.int32)
+    rows = torch.where(kk <= deg[..., None], rows, -1)
 
-    out = torch.cat([cols, cols.new_full((1, ring), -1)])
-    out[torch.where(touched >= 0, touched, num_dst).long()] = rows
-    return out[:num_dst], n_touched > t_max, deg_over
+    out = torch.cat([cols, cols.new_full(lead + (1, ring), -1)], dim=-2)
+    dst = torch.where(touched >= 0, touched, num_dst).long()
+    out.scatter_(-2, dst[..., None].expand(lead + (t_max, ring)), rows)
+    return out[..., :num_dst, :], n_touched > t_max, deg_over
 
 
 def maintained_cols(cols, E_old, E_new, dst_row: int, *, t_max: int = 64):
@@ -193,12 +233,12 @@ def maintained_cols(cols, E_old, E_new, dst_row: int, *, t_max: int = 64):
     touched more than t_max destinations. Both are computed and the flag
     selects on the device, so the span makes no host sync. Returns (cols,
     overflow): a destination's live degree past the table's width."""
-    num_dst, ring = cols.shape
+    num_dst, ring = cols.shape[-2:]
     cols2, touch_over, deg_over = update_ell_cols(
         cols, E_old, E_new, dst_row, t_max=t_max)
-    rebuilt, rb_over = build_pull_cols(E_new[1 - dst_row], E_new[dst_row],
-                                       num_dst, ring)
-    return (torch.where(touch_over, rebuilt, cols2),
+    rebuilt, rb_over = build_pull_cols(E_new[..., 1 - dst_row, :],
+                                       E_new[..., dst_row, :], num_dst, ring)
+    return (torch.where(touch_over[..., None, None], rebuilt, cols2),
             torch.where(touch_over, rb_over, deg_over))
 
 
@@ -279,42 +319,50 @@ def forward_stage(regressor, classifier, state, ring):
 
 
 def integrate_stage(state, pred_j, pred_g, span):
-    """Feature integration + z advance. Returns (xg, xj)."""
+    """Feature integration + z advance, of one lane or of each of B lanes
+    (a leading axis), each clamped at its own row 0's z. Returns (xg,
+    xj)."""
     xg, xj = state.xg.clone(), state.xj.clone()
-    xj[:, :2] += pred_j / schema.TARGET_SCALING["joint"]
-    xg[:, schema.GRAIN_AREA_COL] += pred_g[:, 0] / schema.TARGET_SCALING["grain"]
-    xg[:, schema.GRAIN_EXTRAV_COL] = pred_g[:, 1]
-    xj[:, 6:8] = pred_j
-    xg[:, schema.GRAIN_DAREA_COL] = pred_g[:, 0]
+    xj[..., :2] += pred_j / schema.TARGET_SCALING["joint"]
+    xg[..., schema.GRAIN_AREA_COL] += (pred_g[..., 0]
+                                       / schema.TARGET_SCALING["grain"])
+    xg[..., schema.GRAIN_EXTRAV_COL] = pred_g[..., 1]
+    xj[..., 6:8] = pred_j
+    xg[..., schema.GRAIN_DAREA_COL] = pred_g[..., 0]
     dz = span / (TRAIN_FRAMES + 1)
     zmax = TRAIN_FRAMES / (TRAIN_FRAMES + 1)
-    clamp = (xg[0, 2] + dz) > zmax
-    xg[:, 2] = torch.where(clamp, torch.full_like(xg[:, 2], zmax), xg[:, 2] + dz)
-    xj[:, 2] = torch.where(clamp, torch.full_like(xj[:, 2], zmax), xj[:, 2] + dz)
+    clamp = (xg[..., :1, 2] + dz) > zmax
+    xg[..., 2] = torch.where(clamp, torch.full_like(xg[..., 2], zmax),
+                             xg[..., 2] + dz)
+    xj[..., 2] = torch.where(clamp, torch.full_like(xj[..., 2], zmax),
+                             xj[..., 2] + dz)
     return xg, xj
 
 
 def elim_candidates(state, area, r_threshold, max_elim: int = tj.MAX_ELIM,
                     active_g=None):
-    """Live grains under the area threshold, ascending predicted area; with
-    the melt pool's grain window active_g [NG] bool, only active ones.
-    Returns (ge [max_elim] int32, -1 pad; n_candidates)."""
+    """Live grains under the area threshold, ascending predicted area, of
+    one lane or of each of B lanes; with the melt pool's grain window
+    active_g [NG] bool, only active ones. Returns (ge [(B,) max_elim]
+    int32, -1 pad; n_candidates [(B,)])."""
     cond = (state.mask_g > 0) & (area < r_threshold)
     if active_g is not None:
         cond = cond & active_g
     key = torch.where(cond, area, torch.full_like(area, float("inf")))
-    order = torch.argsort(key, stable=True)
-    n_cand = torch.isfinite(key).sum()
-    ge = torch.where(torch.isfinite(key[order]), order.to(torch.int32), -1)
-    return ge[:max_elim], n_cand
+    order = torch.argsort(key, dim=-1, stable=True)
+    n_cand = torch.isfinite(key).sum(-1)
+    ge = torch.where(torch.isfinite(torch.gather(key, -1, order)),
+                     order.to(torch.int32), -1)
+    return ge[..., :max_elim], n_cand
 
 
 def edit_stage(state, xg, xj, pred_j, pred_g, edge_logits, ge, c_threshold,
                max_switch: int = tj.MAX_SWITCH, active_g=None,
                active_j=None):
-    """The span's topology edit in one editor launch, gated by the melt
-    pool's windows where given. Returns (tstate, switching, extra)."""
-    jj_live = state.E_pp[0] >= 0
+    """The span's topology edit in one editor launch (one lane, or B lanes
+    at once), gated by the melt pool's windows where given. Returns
+    (tstate, switching, extra)."""
+    jj_live = state.E_pp[..., 0, :] >= 0
     logits = torch.where(jj_live, edge_logits, torch.full_like(edge_logits, NEG))
     tstate = tj.TopoState(
         E_pp=state.E_pp, E_pq=state.E_pq, xj=xj, y_joint=pred_j,
@@ -322,7 +370,7 @@ def edit_stage(state, xg, xj, pred_j, pred_g, edge_logits, ge, c_threshold,
         active_j=active_j,
     )
     return editor_fused.update_fused(
-        tstate, logits, ge, pred_g, c_threshold, xg.shape[0],
+        tstate, logits, ge, pred_g, c_threshold, xg.shape[-2],
         max_switch=max_switch, active_g=active_g)
 
 
@@ -382,52 +430,68 @@ def melt_stage(state, pred_j, pred_g, melt_term, melt_left):
 
 
 def compact_stage(E_pp_in, return_perm: bool = False):
-    """Stable partition of E_pp, live columns first (prefix sums and one
-    scatter), so the append cursor never outgrows the capacity. Returns
-    (E_pp, n_pp), and with return_perm also pos: pos[c] is the new column
-    of old column c (live columns keep their order, so a column table
-    stays valid through pos)."""
-    livec = E_pp_in[0] >= 0
-    n_live = livec.sum().to(torch.int32)
-    c_live = torch.cumsum(livec.to(torch.int32), 0)
-    c_dead = torch.cumsum((~livec).to(torch.int32), 0)
-    pos = torch.where(livec, c_live - 1, n_live + c_dead - 1).long()
-    out = torch.zeros_like(E_pp_in)
-    out[:, pos] = E_pp_in
+    """Stable partition of E_pp [(B,) 2, EP] (each lane on its own), live
+    columns first (prefix sums and one scatter), so the append cursor
+    never outgrows the capacity. Returns (E_pp, n_pp), and with
+    return_perm also pos: pos[c] is the new column of old column c (live
+    columns keep their order, so a column table stays valid through
+    pos)."""
+    livec = E_pp_in[..., 0, :] >= 0
+    n_live = livec.sum(-1).to(torch.int32)
+    c_live = torch.cumsum(livec.to(torch.int32), -1)
+    c_dead = torch.cumsum((~livec).to(torch.int32), -1)
+    pos = torch.where(livec, c_live - 1,
+                      n_live[..., None] + c_dead - 1).long()
+    out = torch.zeros_like(E_pp_in).scatter_(
+        -1, pos[..., None, :].expand(E_pp_in.shape), E_pp_in)
     if return_perm:
         return out, n_live, pos
     return out, n_live
 
 
+def _lane_rows(x, idx):
+    """Rows x[idx] of one lane (x [N, F]), or x[b][idx[b]] of each lane b
+    (x [B, N, F], idx [B, ...])."""
+    if x.dim() == 2:
+        return x[idx.long()]
+    B, N = x.shape[:2]
+    off = torch.arange(B, device=x.device).reshape(
+        (B,) + (1,) * (idx.dim() - 1)) * N
+    return x.reshape(B * N, -1)[idx.long() + off]
+
+
 def centers_stage(xg, xj, E_pq, ring, pull_cols=None):
     """Grain centers from the post-edit junction rings (read through the
-    post-edit pull_cols where the state keeps them)."""
-    NG = xg.shape[0]
-    zeros = torch.zeros(E_pq.shape[1], device=xg.device)
+    post-edit pull_cols where the state keeps them), of one lane or of
+    each of B lanes."""
+    NG = xg.shape[-2]
+    zeros = torch.zeros(E_pq[..., 0, :].shape, device=xg.device)
     if pull_cols is not None:
-        nbr, _len, rmask = ell_from_cols(pull_cols, E_pq[0], zeros)
+        nbr, _len, rmask = ell_from_cols(pull_cols, E_pq[..., 0, :], zeros)
     else:
-        nbr, _len, rmask, _ = build_ell(E_pq[0], E_pq[1], zeros, NG, ring)
-    ring_pos = xj[nbr.long(), :2]
-    prev_c = xg[:, :2]
-    unwrapped = prev_c[:, None, :] + _wrap(ring_pos - prev_c[:, None, :])
-    cnt = rmask.sum(dim=1)
-    cmean = torch.sum(unwrapped * rmask[..., None], dim=1) / torch.clamp_min(
-        cnt, 1.0)[:, None]
-    new_c = torch.where((cnt >= 2)[:, None], torch.remainder(cmean, 1.0),
+        nbr, _len, rmask, _ = build_ell(E_pq[..., 0, :], E_pq[..., 1, :],
+                                        zeros, NG, ring)
+    ring_pos = _lane_rows(xj[..., :2], nbr)
+    prev_c = xg[..., :2]
+    unwrapped = prev_c[..., None, :] + _wrap(ring_pos - prev_c[..., None, :])
+    cnt = rmask.sum(dim=-1)
+    cmean = torch.sum(unwrapped * rmask[..., None], dim=-2) / torch.clamp_min(
+        cnt, 1.0)[..., None]
+    new_c = torch.where((cnt >= 2)[..., None], torch.remainder(cmean, 1.0),
                         prev_c)
     xg = xg.clone()
-    xg[:, :2] = new_c
+    xg[..., :2] = new_c
     return xg
 
 
 def finalize_stage(E_pp_old, E_pq_old, E_pp_new, E_pq_new, pull_cols,
                    push_cols, connect_cols, xg, xj, *, ring: int):
-    """Post-edit finalize: the column tables kept current across the edit
-    (where the state keeps them, touch budget TOUCH_MAX), stable E_pp
-    compaction and grain centers. connect_cols is updated on the pre-compaction columns and
-    then mapped through the compaction. Returns (E_pp, n_pp, pull_cols,
-    push_cols, connect_cols, xg, overflow)."""
+    """Post-edit finalize, of one lane or of each of B lanes: the column
+    tables kept current across the edit (where the state keeps them, touch
+    budget TOUCH_MAX a lane), stable E_pp compaction and grain centers.
+    connect_cols is updated on the pre-compaction columns and then mapped
+    through the compaction. Returns (E_pp, n_pp, pull_cols, push_cols,
+    connect_cols, xg, overflow)."""
     overflow = torch.zeros((), dtype=torch.bool, device=xg.device)
     if pull_cols is not None:
         pull_cols, ov = maintained_cols(pull_cols, E_pq_old, E_pq_new, 1,
@@ -444,7 +508,7 @@ def finalize_stage(E_pp_old, E_pq_old, E_pp_new, E_pq_new, pull_cols,
         E_pp, n_pp, perm = compact_stage(E_pp_new, return_perm=True)
         live = connect_cols >= 0
         connect_cols = torch.where(
-            live, perm[torch.where(live, connect_cols, 0).long()],
+            live, _take(perm, torch.where(live, connect_cols, 0).long()),
             -1).to(torch.int32)
     else:
         E_pp, n_pp = compact_stage(E_pp_new)
@@ -484,8 +548,15 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
                       nuc_density_term: float = 0.0, nuc_rand=None,
                       nuc_angles=None, melt_term=None, melt_left=None):
     """The span after the forward: melt pool window, integrate, pick
-    candidates, edit, nucleate, finalize."""
+    candidates, edit, nucleate, finalize. A state of B lanes (fields with
+    a leading [B] axis, predictions [B, ...]) runs each stage over the
+    lane axis and the editor once for all lanes; it takes static spans
+    only, as JAX's batched scan does."""
     pred_j, pred_g = y_r["joint"], y_r["grain"]
+    lanes = state.mask_g.shape[:-1]
+    if lanes and (melt_term is not None or nuc_density_term > 0.0):
+        raise ValueError("a state of B lanes runs static spans only: no "
+                         "melt pool, no nucleation")
     active_g = active_j = None
     if melt_term is not None:
         pred_j, pred_g, active_g, active_j = melt_stage(
@@ -497,7 +568,7 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
         state, xg, xj, pred_j, pred_g, y_c["edge_event"], ge, c_threshold,
         max_switch, active_g=active_g, active_j=active_j)
     n_g, n_j, n_pq = state.n_g, state.n_j, state.n_pq
-    nuc_overflow = torch.zeros((), dtype=torch.bool, device=xg.device)
+    nuc_overflow = torch.zeros(lanes, dtype=torch.bool, device=xg.device)
     if nuc_density_term > 0.0:
         if n_g is None or n_j is None or n_pq is None:
             raise ValueError("nucleation needs the cursors of "
@@ -529,7 +600,7 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
         "message_edges": message_edges,
         "ring_overflow": overflow | ov_fin,
         # the editor's appends past the capacity are dropped: fatal
-        "pp_overflow": tstate.append_ptr > state.E_pp.shape[1],
+        "pp_overflow": tstate.append_ptr > state.E_pp.shape[-1],
         # candidates past the budget wait for the next span
         "elim_saturated": n_cand > max_elim,
         # a nucleation cursor within MAX_NUC sites of its array's end: fatal
@@ -541,15 +612,17 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
 def check_capacity(aux: Dict[str, torch.Tensor]):
     """Raise if any span of a run dropped edges (ring or append capacity)
     or came within a nucleation site of the padded rows' end (never set
-    without nucleation): its graph is corrupt. One device-to-host read per
-    flag for the whole run."""
+    without nucleation): its graph is corrupt. The flags are [n_steps] or,
+    for B lanes, [n_steps, B]; the error names the first span (and its
+    lane). One device-to-host read per flag for the whole run."""
     for flag in ("ring_overflow", "pp_overflow", "nuc_overflow"):
-        hits = aux[flag].reshape(-1).cpu().numpy()
+        hits = aux[flag].cpu().numpy()
         if hits.any():
+            at = np.unravel_index(int(np.argmax(hits)), hits.shape)
+            lane = f", lane {int(at[1])}" if len(at) > 1 else ""
             raise RuntimeError(
-                f"rollout capacity bust: {flag} at span "
-                f"{int(np.argmax(hits))}; raise `ring`/`pp_cap`/"
-                "`nucleation_slack`")
+                f"rollout capacity bust: {flag} at span {int(at[0])}{lane}; "
+                "raise `ring`/`pp_cap`/`nucleation_slack`")
 
 
 def make_rollout(regressor, classifier, *, n_steps: int, **step_kw):
@@ -572,9 +645,209 @@ def make_rollout(regressor, classifier, *, n_steps: int, **step_kw):
                 melt_left=None if melt_lefts is None else melt_lefts[i],
                 **step_kw)
             auxs.append(aux)
-        aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
-        check_capacity(aux)
-        return state, aux
+        return state, _stacked_aux(auxs)
+
+    return run
+
+
+def _stacked_aux(auxs):
+    """The spans' aux on a leading span axis, its capacity flags checked."""
+    aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
+    check_capacity(aux)
+    return aux
+
+
+# ---------------------------------------------------------------------------
+# batched rollout: B independent lanes on one card
+# ---------------------------------------------------------------------------
+
+def _pad(a, n: int, dim: int, fill):
+    """a padded with fill to size n along dim."""
+    if a.shape[dim] == n:
+        return a
+    shape = list(a.shape)
+    shape[dim] = n - a.shape[dim]
+    return torch.cat([a, a.new_full(shape, fill)], dim)
+
+
+def stack_states(states) -> DeviceRolloutState:
+    """Pad independent single-lane states to common capacities and stack
+    them on a leading lane axis, on the lanes' device: padded grain and
+    joint rows are dead (mask 0), padded edge columns -1, n_pp becomes
+    [B]. A lane's column ids stay valid under tail padding, so the column
+    tables stack with a -1 row fill; they are None if any lane lacks them.
+    Nucleation cursors are dropped (the batched span is static)."""
+    NG = max(s.xg.shape[0] for s in states)
+    NJ = max(s.xj.shape[0] for s in states)
+    EP = max(s.E_pp.shape[1] for s in states)
+    EQ = max(s.E_pq.shape[1] for s in states)
+
+    def stack(field, n, dim, fill):
+        return torch.stack([_pad(getattr(s, field), n, dim, fill)
+                            for s in states])
+
+    def stack_cols(field, n):
+        if any(getattr(s, field) is None for s in states):
+            return None
+        return stack(field, n, 0, -1)
+
+    return DeviceRolloutState(
+        xg=stack("xg", NG, 0, 0.0), xj=stack("xj", NJ, 0, 0.0),
+        E_pp=stack("E_pp", EP, 1, -1), E_pq=stack("E_pq", EQ, 1, -1),
+        mask_g=stack("mask_g", NG, 0, 0), mask_j=stack("mask_j", NJ, 0, 0),
+        n_pp=torch.stack([s.n_pp.reshape(()) for s in states]),
+        pull_cols=stack_cols("pull_cols", NG),
+        push_cols=stack_cols("push_cols", NJ),
+        connect_cols=stack_cols("connect_cols", NJ))
+
+
+def pack_states(states) -> DeviceRolloutState:
+    """B independent single-lane states as ONE block-diagonal graph, for
+    the single-lane make_rollout with max_elim = MAX_ELIM * B and
+    max_switch = MAX_SWITCH * B: node ids offset per lane, E_pq
+    concatenated, E_pp's live columns first (lane by lane) and the dead
+    slack at the tail. The column tables shift by each lane's column
+    offset; connect_cols maps through the live-first order (stable within
+    a lane, so the slots are kept). Lanes never interact, but the editor's
+    budgets and chains grow with B: the kernel takes MAX_MS switches and
+    MAX_GE grain events, so on the card this fits B <= 2 only. Lanes share
+    the z schedule (the z clamp reads row 0)."""
+    g_off, j_off, q_off = [], [], []
+    ng = nj = nq = 0
+    for s in states:
+        g_off.append(ng)
+        j_off.append(nj)
+        q_off.append(nq)
+        ng += s.xg.shape[0]
+        nj += s.xj.shape[0]
+        nq += s.E_pq.shape[1]
+
+    def shift(a, off):
+        return torch.where(a >= 0, a + off, -1).to(torch.int32)
+
+    pp_live, pp_dead, pq = [], [], []
+    for s, jo, go in zip(states, j_off, g_off):
+        live = s.E_pp[0] >= 0
+        pp_live.append(s.E_pp[:, live] + jo)
+        pp_dead.append(s.E_pp.new_full((2, int((~live).sum())), -1))
+        qlive = s.E_pq[0] >= 0
+        pq.append(torch.stack([torch.where(qlive, s.E_pq[0] + jo, -1),
+                               torch.where(qlive, s.E_pq[1] + go, -1)]))
+    n_pp = sum(c.shape[1] for c in pp_live)
+    pull_cols = push_cols = connect_cols = None
+    if all(s.pull_cols is not None and s.push_cols is not None
+           and s.connect_cols is not None for s in states):
+        pull_cols = torch.cat([shift(s.pull_cols, o)
+                               for s, o in zip(states, q_off)])
+        push_cols = torch.cat([shift(s.push_cols, o)
+                               for s, o in zip(states, q_off)])
+        parts, live_off = [], 0
+        for s in states:
+            live = s.E_pp[0] >= 0
+            new_pos = torch.cumsum(live.to(torch.int32), 0) - 1 + live_off
+            cc = s.connect_cols
+            parts.append(torch.where(cc >= 0, new_pos[cc.clamp_min(0).long()],
+                                     -1).to(torch.int32))
+            live_off += int(live.sum())
+        connect_cols = torch.cat(parts)
+    return DeviceRolloutState(
+        xg=torch.cat([s.xg for s in states]),
+        xj=torch.cat([s.xj for s in states]),
+        E_pp=torch.cat(pp_live + pp_dead, 1).to(torch.int32),
+        E_pq=torch.cat(pq, 1).to(torch.int32),
+        mask_g=torch.cat([s.mask_g for s in states]),
+        mask_j=torch.cat([s.mask_j for s in states]),
+        n_pp=torch.tensor(n_pp, dtype=torch.int32, device=states[0].xg.device),
+        pull_cols=pull_cols, push_cols=push_cols, connect_cols=connect_cols)
+
+
+def _pack_build_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
+    """The forward's sample of a [B, ...] state in the packed id space: the
+    lanes' COO lists with node ids offset per lane (b * NG, b * NJ),
+    concatenated, and one ELL build per table over all B * NJ or B * NG
+    rows (the sort; column tables, where the lanes keep them, give the
+    same slots). Returns (sample, ring_overflow [B] (one flag for all
+    lanes, broadcast, as JAX's), message edges [B])."""
+    B, NG = state.xg.shape[:2]
+    NJ = state.xj.shape[1]
+    dev = state.xg.device
+    g_off = (torch.arange(B, dtype=torch.int32, device=dev) * NG)[:, None]
+    j_off = (torch.arange(B, dtype=torch.int32, device=dev) * NJ)[:, None]
+    E_pq, E_pp = state.E_pq, state.E_pp
+    live_q = (E_pq[:, 0] >= 0) & (E_pq[:, 1] >= 0)
+    pq_src = torch.where(live_q, E_pq[:, 0] + j_off, -1).reshape(-1)
+    pq_dst = torch.where(live_q, E_pq[:, 1] + g_off, -1).reshape(-1)
+    live_p = (E_pp[:, 0] >= 0) & (E_pp[:, 1] >= 0)
+    pp_a = torch.where(live_p, E_pp[:, 0] + j_off, -1).reshape(-1)
+    pp_b = torch.where(live_p, E_pp[:, 1] + j_off, -1).reshape(-1)
+
+    xg = state.xg.reshape(B * NG, -1)
+    xj = state.xj.reshape(B * NJ, -1)
+    pos_g, pos_j = xg[:, :2], xj[:, :2]
+    pq_len = _coo_lengths(pos_j, pos_g, pq_src, pq_dst)
+    pp_len = _coo_lengths(pos_j, pos_j, pp_a, pp_b)
+    push_nbr, push_len, push_mask, _ = build_ell(
+        pq_dst, pq_src, pq_len, B * NJ, schema.JG_DEGREE)
+    connect_nbr, connect_len, connect_mask, _ = build_ell(
+        pp_a, pp_b, pp_len, B * NJ, schema.JJ_DEGREE)
+    pull_nbr, pull_len, pull_mask, overflow = build_ell(
+        pq_src, pq_dst, pq_len, B * NG, ring)
+    jj_live = live_p.reshape(-1).to(torch.float32)
+    sample = GraphSample(
+        grain_x=xg, joint_x=xj,
+        grain_mask=state.mask_g.reshape(-1).to(torch.float32),
+        joint_mask=state.mask_j.reshape(-1).to(torch.float32),
+        push_nbr=push_nbr, push_len=push_len, push_mask=push_mask,
+        connect_nbr=connect_nbr, connect_len=connect_len,
+        connect_mask=connect_mask,
+        pull_nbr=pull_nbr, pull_len=pull_len, pull_mask=pull_mask,
+        jj_src=torch.clamp_min(pp_a, 0), jj_dst=torch.clamp_min(pp_b, 0),
+        jj_len=pp_len * jj_live, jj_mask=jj_live,
+    )
+    edges = (push_mask.reshape(B, -1).sum(-1)
+             + pull_mask.reshape(B, -1).sum(-1)
+             + connect_mask.reshape(B, -1).sum(-1))
+    return sample, overflow.expand(B), edges
+
+
+def batched_step(regressor, classifier, state: DeviceRolloutState, *,
+                 r_threshold: float = 1e-4, c_threshold: float = 0.6,
+                 span: int = 6, ring: int = tj.RING_MAX):
+    """One static span of B independent lanes (a stack_states state): the
+    sample built once in the packed id space, ONE regressor and ONE
+    classifier forward over all lanes on the hand kernels, the
+    predictions reshaped to [B, ...], then the post-forward stages over
+    the lane axis with one editor launch for all lanes (one block a lane,
+    single-lane budgets). Returns (next_state, aux), every aux entry with
+    a leading [B] axis."""
+    B, NG = state.xg.shape[:2]
+    NJ = state.xj.shape[1]
+    sample, overflow, edges = _pack_build_sample(state, ring)
+    with torch.inference_mode():
+        y_r = regressor(sample, kernels=True)
+        y_c = classifier(sample, kernels=True)
+        y_r = {"joint": y_r["joint"].reshape(B, NJ, -1),
+               "grain": y_r["grain"].reshape(B, NG, -1),
+               "grain_area": y_r["grain_area"].reshape(B, NG)}
+        y_c = {"edge_event": y_c["edge_event"].reshape(B, -1)}
+    return post_forward_step(state, y_r, y_c, overflow, edges,
+                             r_threshold=r_threshold, c_threshold=c_threshold,
+                             span=span, ring=ring)
+
+
+def make_rollout_batched(regressor, classifier, *, n_steps: int, **step_kw):
+    """run(state) -> (state, aux) over n_steps static spans of B lanes
+    (batched_step; step_kw: r_threshold, c_threshold, span, ring), aux
+    [n_steps, B, ...] like a scan's output. The loop runs without host
+    sync; run() reads the capacity flags once after it and raises on a
+    bust, naming the span and the lane."""
+
+    def run(state: DeviceRolloutState):
+        auxs = []
+        for _ in range(n_steps):
+            state, aux = batched_step(regressor, classifier, state, **step_kw)
+            auxs.append(aux)
+        return state, _stacked_aux(auxs)
 
     return run
 

@@ -485,3 +485,60 @@ def test_editor_candidates_beyond_max_switch(emulated):
     assert torch.equal(out[1], ref[1])
     assert torch.equal(out[0].E_pp, ref[0].E_pp)
     assert int((ref[1][:, 0] >= 0).sum()) > 0
+
+
+def test_editor_source_over_lanes_matches_plain(emulated):
+    """One launch of the editor over 3 lanes of different sizes and
+    contents (forced switches and eliminations on the 120 um graph; a
+    nucleated state with slack under melt pool windows; many switches and
+    no elimination): each lane bit-equal to the plain editor and to a
+    launch of that lane alone."""
+    fn = emulated(editor_fused.SOURCE, "editor_update",
+                  editor_fused._ARGTYPES, ("EDITOR_THREADS=64",))
+    cases = _editor_cases()
+    forced = cases["forced"]
+    lanes = [forced[0], cases["windowed"][0], forced[2]]
+    ts, logits, ge, yg, ag = chip_smoke.stack_editor_lanes(lanes)
+    assert len({c[0].mask_j.shape[0] for c in lanes}) == 2
+    prob = torch.sigmoid(logits)
+    NG = ts.mask_g.shape[1]
+    ref = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG,
+                                        active_g=ag)
+    out = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
+                              tj.MAX_SWITCH, ag)
+    for b in range(len(lanes)):
+        one = editor_fused.launch(
+            fn, 0, ts.map(lambda v: v[b]), prob[b], ge[b], yg[b], 0.6, NG,
+            tj.MAX_SWITCH, ag[b])
+        for f in ("E_pp", "E_pq", "mask_g", "mask_j", "append_ptr", "xj",
+                  "y_joint"):
+            assert torch.equal(getattr(out[0], f)[b], getattr(ref[0], f)[b]), f
+            assert torch.equal(getattr(one[0], f), getattr(ref[0], f)[b]), f
+        for k in (1, 2):
+            assert torch.equal(out[k][b], ref[k][b])
+            assert torch.equal(one[k], ref[k][b])
+        assert int((ref[1][b, :, 0] >= 0).sum()) > 0
+    assert int((ref[0].mask_g != ts.mask_g).sum()) > 0
+
+
+def test_editor_refuses_budgets_past_its_limits(emulated):
+    """Per-lane budgets past MAX_MS switches or MAX_GE grain events (a
+    packed state of 8 lanes needs 192 and 64): the wrapper raises before
+    building anything, and the C entry refuses them."""
+    ts, logits, ge, yg = _editor_cases()["forced"][0]
+    prob = torch.sigmoid(logits)
+    NG = ts.mask_g.shape[0]
+    with pytest.raises(ValueError, match="at most 64 switches"):
+        editor_fused._update_cuda(ts, prob, ge, yg, 0.6, NG,
+                                  tj.MAX_SWITCH * 8, None)
+    ge64 = torch.full((tj.MAX_ELIM * 8,), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16 grain events"):
+        editor_fused._update_cuda(ts, prob, ge64, yg, 0.6, NG,
+                                  tj.MAX_SWITCH, None)
+    fn = emulated(editor_fused.SOURCE, "editor_update",
+                  editor_fused._ARGTYPES, ("EDITOR_THREADS=64",))
+    codes = []
+    for ms, g in ((editor_fused.MAX_MS + 1, ge), (tj.MAX_SWITCH, ge64)):
+        editor_fused.launch(lambda *a: codes.append(fn.raw(*a)), 0, ts, prob,
+                            g, yg, 0.6, NG, ms)
+    assert all(c != 0 for c in codes)

@@ -355,6 +355,114 @@ def test_generate_span_makes_no_host_sync(slack120):
     assert not bool(aux["nuc_overflow"])
 
 
+def test_editor_kernel_over_lanes_matches_plain(state120, slack120):
+    """One launch over 3 lanes of forced 120 um scenarios, one of them a
+    nucleated state with slack under melt pool windows (so the lanes
+    differ in size): the lanes against the plain editor, bit-equal, and
+    each lane against the kernel on that lane alone."""
+    dev = card()
+    st = state120
+    rng = np.random.default_rng(5)
+    ts0 = tj.TopoState(
+        E_pp=st.E_pp, E_pq=st.E_pq, xj=st.xj,
+        y_joint=torch.from_numpy(rng.uniform(
+            -0.9, 0.9, (st.xj.shape[0], 2)).astype(np.float32)).to(dev),
+        mask_g=st.mask_g, mask_j=st.mask_j, append_ptr=st.n_pp)
+    lanes = [chip_smoke.forced_editor_inputs(ts0, 0, 8, 2),
+             chip_smoke.windowed_editor_inputs(slack120[0], 3, 24, 8),
+             chip_smoke.forced_editor_inputs(ts0, 2, 30, 0)]
+    ts, logits, ge, yg, ag = chip_smoke.stack_editor_lanes(lanes)
+    NG = ts.mask_g.shape[1]
+    before = editor_fused.launches
+    chip_smoke.check_editor_case(ts, logits, ge, yg, 0.6, NG, active_g=ag)
+    assert editor_fused.launches == before + 1
+    prob = torch.sigmoid(logits)
+    out = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG,
+                                        active_g=ag)
+    for b in range(len(lanes)):
+        one = editor_fused.update_from_prob(
+            ts.map(lambda v: v[b]), prob[b], ge[b], yg[b], 0.6, NG,
+            active_g=ag[b])
+        for f in ("E_pp", "E_pq", "mask_g", "mask_j", "append_ptr", "xj",
+                  "y_joint"):
+            assert torch.equal(getattr(out[0], f)[b], getattr(one[0], f)), f
+        assert torch.equal(out[1][b], one[1]) and torch.equal(out[2][b],
+                                                              one[2])
+
+
+def test_editor_kernel_refuses_packed_budgets(state120):
+    """A packed state of 8 lanes needs 192 switches and 64 grain events a
+    launch, past the kernel's per-lane limits: the wrapper raises."""
+    dev = card()
+    st = state120
+    ts = tj.TopoState(E_pp=st.E_pp, E_pq=st.E_pq, xj=st.xj,
+                      y_joint=torch.zeros_like(st.xj[:, :2]),
+                      mask_g=st.mask_g, mask_j=st.mask_j, append_ptr=st.n_pp)
+    _, logits, ge, yg = chip_smoke.forced_editor_inputs(ts, 0, 8, 2)
+    with pytest.raises(ValueError, match="at most 64 switches"):
+        editor_fused.update_fused(ts, logits, ge, yg, 0.6, st.xg.shape[0],
+                                  max_switch=8 * tj.MAX_SWITCH)
+    ge64 = torch.full((8 * tj.MAX_ELIM,), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16 grain events"):
+        editor_fused.update_fused(ts, logits, ge64, yg, 0.6, st.xg.shape[0])
+
+
+@pytest.fixture(scope="module")
+def lanes40():
+    """Two generated 40 um starting graphs (seeds 3 and 5, G 4, R 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return [dd.generate_trajectory(40, seed, 4.0, 1.0) for seed in (3, 5)]
+
+
+def _stacked(trajs, dev, incremental=False):
+    return dr.stack_states([dd.init_scaled_state(
+        t.x, t.edges, t.mask, t.lxd, t.patch_size, incremental=incremental,
+        device=dev)[0] for t in trajs])
+
+
+def test_batched_span_on_the_card_matches_the_cpu(lanes40):
+    """One batched span of two 40 um lanes on the card (one forward of
+    each model and one editor launch for both lanes) against the CPU from
+    the same state: every lane's topology bit-equal unless a switch
+    probability lies within 1e-5 of the threshold, positions within
+    1e-5."""
+    dev = card()
+    reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", dev)
+    cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", dev)
+    reg_c, _, _ = checkpoint.load_model("artifacts/40um/regressor0", "cpu")
+    cls_c, _, _ = checkpoint.load_model("artifacts/40um/classifier1", "cpu")
+    st = _stacked(lanes40, dev)
+    edge_stage.reset_counts()
+    editor_fused.launches = 0
+    with torch.no_grad():
+        out = chip_smoke.batched_span_card_vs_cpu(reg, cls, reg_c, cls_c, st)
+    assert edge_stage.launches == {"node_proj": 12, "edge_attn": 12}
+    assert editor_fused.launches == 1
+    assert out["lanes"] == 2 and out["switches"] > 0
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_batched_span_makes_no_host_sync(lanes40, incremental):
+    """The batched span never waits for the device, on the sort and on
+    the lanes' column tables."""
+    dev = card()
+    reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", dev)
+    cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", dev)
+    st = _stacked(lanes40, dev, incremental)
+    assert (st.pull_cols is not None) == incremental
+    st, _ = dr.batched_step(reg, cls, st, c_threshold=0.99)    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            st, aux = dr.batched_step(reg, cls, st, c_threshold=0.99)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert aux["switching"].shape[0] == 2
+
+
 @pytest.fixture(scope="module")
 def train_batch8():
     """Eight synthetic 40 um training windows (120 grains, 240 joints),
