@@ -36,7 +36,15 @@ model and one editor launch a span for all lanes, counted and timed
 beside the single-lane span, each lane against its single-lane run, one
 span against the CPU, the packed path at 2 lanes against the stacked
 one, the editor over 8 lanes against its plain version, and the kernels
-at the packed shapes.
+at the packed shapes, (13) the host engine, the CLI's default rollout
+(before training in the run): the JAX package's 40 um recipe through
+the CLI without --device_resident, counted, with the host editor and
+with --jit_editor (the editor kernel against its plain version on every
+span's inputs), 20 spans of the generated 120 um graph with the 4-member
+regressor ensemble (ms a span by stage, pull rings, peak memory, a
+profile of 2 spans), one span of each editor (and of --jit_editor with
+nucleation) against the CPU, and edge_attn at pull rings of 24 and 32
+through the engine's forward.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -63,14 +71,15 @@ import numpy as np
 import torch
 
 from graingraphnn_torch.cli import train as train_cli_mod
-from graingraphnn_torch.graph import planar, synthetic
+from graingraphnn_torch.graph import planar, schema, synthetic
 from graingraphnn_torch.graph import state as gstate
 from graingraphnn_torch.kernels import _build, edge_stage, editor_fused
 from graingraphnn_torch.models import cells, grain_nn
 from graingraphnn_torch.ops import period_conv
 from graingraphnn_torch.rollout import device_driver as dd
 from graingraphnn_torch.rollout import device_rollout as dr
-from graingraphnn_torch.rollout import topology_jit as tj
+from graingraphnn_torch.rollout import engine as engine_mod
+from graingraphnn_torch.rollout import topology, topology_jit as tj
 from graingraphnn_torch.train import checkpoint, trainer
 
 N_SPANS = 20
@@ -99,6 +108,19 @@ BATCHED = {"lxd": 120, "seeds": tuple(range(5, 13)), "G": 1.904,
            "R": 0.558, "spans": 20, "repeats": 5, "packed_lanes": 2,
            "packed_spans": 5, "packed40": {"seeds": (5, 7), "G": 4.0,
                                            "R": 1.0}}
+# the host engine (the CLI's default rollout): the JAX package's 40 um
+# recipe through the CLI without --device_resident (the checkpoint's
+# threshold, 20 spans of the melt pool's sweep), the 120 um graph with
+# the 4-member regressor ensemble for 20 spans, one span card against CPU
+# at a threshold that switches (also nucleating), and edge_attn at the pull rings past 16
+# that the engine sizes from the live degree (slots forced on 3 grains)
+ENGINE40 = ["--generate", "--model_dir", "artifacts/40um", "--seed", "3",
+            "--G", "4", "--R", "1", "--meltpool", "cylinder", "--r0", "20",
+            "--z0", "4"]
+ENGINE120 = {"lxd": 120, "seed": 5, "G": 1.904, "R": 0.558, "spans": 20}
+ENSEMBLE_DIR = "artifacts/40um/ensemble"
+ENGINE_SPAN = {"c_threshold": 0.9, "r_threshold": 3e-3, "seed": 11}
+ENGINE_RINGS = {24: (18, 21, 24), 32: (18, 26, 30)}
 # training: 36 synthetic windows of the 40 um patch's size (the shipped
 # models were trained on 36 windows of one seed), 2 epochs per model, the
 # card-vs-CPU step and the kernel rows at a packed batch of 8
@@ -1717,6 +1739,368 @@ def phase_batched(reg, cls, reg_cpu, cls_cpu, dev, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# the host engine
+# ---------------------------------------------------------------------------
+
+
+class EngineTimer:
+    """Wraps the host engine's stages for the duration of a with block
+    (class attributes, put back after): the spans, the pull ring of each
+    span's sample, and ms a call of each stage: the sample built on the
+    host, its copy to the card, the forwards (device time from CUDA events,
+    and the host's time until they end), the predictions' copy back, the
+    edit (the host editor, or the device one with its copies), the planar
+    rebuild and the raster."""
+
+    STAGES = ("sample", "h2d", "forward_device", "forward", "d2h", "edit",
+              "rebuild", "raster")
+
+    def __init__(self):
+        self.ms = {k: [] for k in self.STAGES}
+        self.rings = []
+
+    def _timed(self, orig, key, sync=False):
+        def f(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            self.ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return f
+
+    def __enter__(self):
+        E = engine_mod.RolloutEngine
+        sample = self._timed(E._sample, "sample")
+
+        def sample_ring(*a, **k):
+            s = sample(*a, **k)
+            self.rings.append(int(s.pull_nbr.shape[1]))
+            return s
+
+        def predict(*a, **k):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+            out = E_predict(*a, **k)
+            e1.record()
+            torch.cuda.synchronize()
+            self.ms["forward"].append((time.perf_counter() - t0) * 1e3)
+            self.ms["forward_device"].append(e0.elapsed_time(e1))
+            return out
+
+        E_predict = E._predict
+        self._patches = [
+            mock.patch.object(E, "_sample", sample_ring),
+            mock.patch.object(E, "_predict", predict),
+            mock.patch.object(E, "_to_host", staticmethod(
+                self._timed(E._to_host, "d2h"))),
+            mock.patch.object(E, "_jit_update",
+                              self._timed(E._jit_update, "edit", sync=True)),
+            mock.patch.object(topology.TopologyEditor, "update", self._timed(
+                topology.TopologyEditor.update, "edit")),
+            mock.patch.object(gstate.GraphSample, "to", self._timed(
+                gstate.GraphSample.to, "h2d", sync=True)),
+            mock.patch.object(planar.PlanarGraph, "rebuild_regions",
+                              self._timed(planar.PlanarGraph.rebuild_regions,
+                                          "rebuild")),
+            mock.patch.object(planar.PlanarGraph, "rasterize", self._timed(
+                planar.PlanarGraph.rasterize, "raster")),
+        ]
+        for p in self._patches:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self._patches):
+            p.__exit__(*exc)
+
+    @property
+    def spans(self):
+        return len(self.ms["forward"])
+
+    def per_span(self, wall_s):
+        """ms a span of each stage (summed over the run, over the spans),
+        the rest of the wall time, and the wall time itself."""
+        n = max(self.spans, 1)
+        out = {k: sum(v) / n for k, v in self.ms.items()}
+        staged = sum(v for k, v in out.items() if k != "forward_device")
+        out["wall"] = wall_s * 1e3 / n
+        out["other_host"] = out["wall"] - staged
+        return out
+
+
+def engine_cli(args):
+    """The port's CLI without --device_resident (the host engine) on the
+    card: its JSON line."""
+    from graingraphnn_torch.cli import test as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(args)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    keys = {"final_layer_error", "mean_layer_error", "events_tp",
+            "events_truth", "events_pred", "KS", "inference_time_s"}
+    if set(line) != keys:
+        raise RuntimeError(f"engine cli: keys {sorted(line)}")
+    return line
+
+
+def engine_launches_ok(launches, n_models, spans, editor):
+    """The engine's counts: 6 node_proj and 6 edge_attn launches a model a
+    span, and `editor` editor launches a span."""
+    want = {"node_proj": 6 * n_models * spans,
+            "edge_attn": 6 * n_models * spans, "editor": editor * spans}
+    if spans < 1 or any(launches[k] != v for k, v in want.items()):
+        raise RuntimeError(f"engine: {spans} spans, launches {launches}, "
+                           f"want {want}")
+
+
+def jsonable(launches):
+    return {k: ({str(kk): vv for kk, vv in v.items()}
+                if isinstance(v, dict) else v) for k, v in launches.items()}
+
+
+def engine_span_card_vs_cpu(jit_editor, density, dev):
+    """One span of the host engine on the 40 um recipe's graph with the
+    shipped checkpoints and nucleation density `density`, on the card and
+    on the CPU from the same state: topology bit-equal unless a switch
+    probability lies within 1e-5 of the threshold, positions within
+    POS_ATOL."""
+    from graingraphnn_torch.data import extraction
+
+    edits, logits = {}, {}
+    for d in (dev, torch.device("cpu")):
+        reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", d)
+        cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", d)
+        traj = extraction.generate(40, 3, 4.0, 1.0)
+        hg0 = extraction.make_test_sample(traj, span=6)
+        eng = engine_mod.RolloutEngine(
+            reg, cls, c_threshold=ENGINE_SPAN["c_threshold"],
+            r_threshold=ENGINE_SPAN["r_threshold"], jit_editor=jit_editor,
+            seed=ENGINE_SPAN["seed"], device=d)
+        edit = eng._jit_update if jit_editor else eng.editor.update
+        forward = eng._forward
+
+        def keep_edit(*a, _edit=edit, _d=d.type, **k):
+            out = _edit(*a, **k)
+            edits[_d] = (out[1], out[2], out[3], copy.deepcopy(a[3]),
+                         out[0]["joint"].copy())
+            return out
+
+        def keep_logits(*a, _d=d.type, **k):
+            out = forward(*a, **k)
+            logits[_d] = np.asarray(out[0][1]["edge_event"], np.float64)
+            return out
+
+        eng._forward = keep_logits
+        if jit_editor:
+            eng._jit_update = keep_edit
+        else:
+            eng.editor.update = keep_edit
+        res = eng.run(hg0, traj, span=6, compare=False, growth_height=2.6,
+                      nucleation_density=density)
+    p = 1.0 / (1.0 + np.exp(-logits["cpu"]))
+    near = bool((np.abs(p - ENGINE_SPAN["c_threshold"]) < 1e-5).any())
+    (e1, sw1, ex1, m1, xj1), (e0, sw0, ex0, m0, xj0) = (edits["cuda"],
+                                                       edits["cpu"])
+    same = (all(np.array_equal(e1[k], e0[k]) for k in e0)
+            and all(np.array_equal(m1[k], m0[k]) for k in m0)
+            and np.array_equal(sw1, sw0) and np.array_equal(ex1, ex0))
+    if not same and not near:
+        raise RuntimeError(f"engine span (jit_editor={jit_editor}): topology "
+                           "differs from the CPU span")
+    pos = float(np.abs(xj1[:, :2] - xj0[:, :2]).max()) if same else None
+    if same and not pos <= POS_ATOL:
+        raise RuntimeError(f"engine span: positions differ by {pos}")
+    logit_err = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+    return dict(jit_editor=jit_editor, nucleation_density=density,
+                grains=res["num_grains_final"], topology_equal=same,
+                threshold_adjacent=near, position_max_abs_err=pos,
+                logit_max_abs_err=logit_err, switches=int(len(sw0)),
+                forced_elim=int(len(ex0)))
+
+
+def engine_inputs(traj, hg0):
+    """The engine's first-span forward inputs of a trajectory (x, edges,
+    edge lengths), patch-rescaled as RolloutEngine.run rescales them."""
+    x = {k: np.array(hg0.feature_dicts[k], np.float64)
+         for k in ("grain", "joint")}
+    edges = {k: np.array(hg0.edge_index_dicts[et], np.int64) for k, et in
+             zip(("push", "pull", "connect"), schema.EDGE_TYPES)}
+    edges["connect"] = edges["connect"][:, edges["connect"][0] > -1]
+    attr = {et: np.array(v, np.float64)
+            for et, v in hg0.edge_weight_dicts.items()}
+    f = traj.lxd / traj.patch_size
+    if f > 1:
+        attr = {et: v * f for et, v in attr.items()}
+        x["grain"][:, :2] *= f
+        x["joint"][:, :2] *= f
+        x["joint"][:, :2] -= np.floor(x["joint"][:, :2])
+        x["grain"][:, :2] -= x["grain"][:, :2] - x["grain"][:, :2] % 1
+    return x, edges, attr
+
+
+def forced_rings(x, edges, attr, slots):
+    """The inputs with pull edges added into the grains of the largest
+    rings (from junctions outside each ring), so that they hold `slots`
+    junctions each: a ring past 16, as eliminations merge rings."""
+    pull_t = schema.EDGE_TYPES[1]
+    pull, lens = edges["pull"], attr[pull_t]
+    deg = np.bincount(pull[1])
+    rng = np.random.default_rng(len(slots))
+    add, add_len = [], []
+    for g, n in zip(np.argsort(-deg, kind="stable"), slots):
+        outside = np.setdiff1d(np.arange(len(x["joint"])), pull[0, pull[1] == g])
+        js = rng.choice(outside, n - deg[g], replace=False)
+        add.append(np.stack([js, np.full(len(js), g)]))
+        add_len.append(rng.uniform(0.05, 0.3, (len(js), 1)))
+    edges = dict(edges, pull=np.concatenate([pull] + add, axis=1))
+    attr = dict(attr)
+    attr[pull_t] = np.concatenate([lens] + add_len)
+    return x, edges, attr
+
+
+def engine_ring_rows(eng, traj, hg0, reg):
+    """edge_attn at the pull rings past 16 through the engine's forward on
+    the 120 um graph with forced rings (ENGINE_RINGS): the launches of the
+    engine's forward at each ring, then the pull conv's kernels against
+    their plain versions at that sample, timed. Returns the kernels line's
+    edge_attn rows and the rings' launch counts."""
+    x, edges, attr = engine_inputs(traj, hg0)
+    ng, nj = len(x["grain"]), len(x["joint"])
+    caps = (gstate.round_up(ng, 8), gstate.round_up(nj, 16),
+            gstate.round_up(edges["connect"].shape[1], 32))
+    eng._mask = {"grain": np.ones((ng, 1), np.int64),
+                 "joint": np.ones((nj, 1), np.int64)}
+    eng._bc = "periodic"
+    rows, counts = [], {}
+    for K, slots in ENGINE_RINGS.items():
+        xs, es, at = forced_rings(x, edges, attr, slots)
+        x32 = {k: v.astype(np.float32) for k, v in xs.items()}
+        torch.cuda.synchronize()
+        reset_launches()
+        _, sample = eng._forward(x32, es, at, caps)   # the engine's path
+        torch.cuda.synchronize()
+        counts[K] = dict(edge_stage.ring_launches)
+        if sample.pull_nbr.shape[1] != K or counts[K].get(K, 0) < 1:
+            raise RuntimeError(f"engine ring {K}: sample ring "
+                               f"{sample.pull_nbr.shape[1]}, {counts[K]}")
+        inputs = decoder_conv_inputs(reg, sample)
+        got = conv_kernel_rows({"pull": inputs["pull"]}, reg.hp.layer_size,
+                               suffix=f"_engine_K{K}", workload="engine")
+        row = next(r for key, r in got.items() if key[0] == "edge_attn")
+        rows.append(dict(row, launches=counts[K][K], ring_slots=list(slots)))
+    return rows, counts
+
+
+def phase_engine(reg, cls, dev):
+    """The host engine, the CLI's default rollout, on the card: (1) the
+    JAX package's 40 um recipe through the CLI without --device_resident,
+    counted, with the host editor and with --jit_editor, and the editor
+    kernel against its plain version at the engine's shapes; (2) the 120
+    um graph with the 4-member regressor ensemble, 20 spans counted, with
+    the ms a span split by stage, the pull rings reached and peak memory;
+    a profile of 2 of its spans; (3) one span on the card against the CPU
+    with each editor; (4) edge_attn at pull rings of 24 and 32 through
+    the engine's forward. Returns the kernels line's rows."""
+    from graingraphnn_torch.data import extraction
+
+    engine_cli(ENGINE40)                             # warm-up
+    runs = {}
+    for name, extra in (("host", []), ("jit_editor", ["--jit_editor"])):
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with EngineTimer() as et:
+            t0 = time.perf_counter()
+            line = engine_cli(ENGINE40 + extra)
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = counted_launches()
+        engine_launches_ok(launches, 2, et.spans, int(bool(extra)))
+        runs[name] = dict(cli=line, inference_time_s=line["inference_time_s"],
+                          spans=et.spans, seconds=wall,
+                          ms_per_span=et.per_span(line["inference_time_s"]),
+                          rings=sorted(set(et.rings)),
+                          launches=jsonable(launches),
+                          peak_mem_bytes=torch.cuda.max_memory_allocated())
+        print(json.dumps(line), flush=True)
+        emit(phase="engine40", editor=name, cli_args=ENGINE40 + extra,
+             **runs[name])
+    with Recorder(capture=True) as cap:              # the editor's inputs
+        engine_cli(ENGINE40 + ["--jit_editor"])
+    NG = cap.editor[0][0].mask_g.shape[0]
+    err, span_ms, plain_ms = check_captured(cap.editor, NG)
+    bound_ms, bound_by = editor_bound(cap.editor[0])
+    editor_row = dict(
+        name="editor_engine40", route="cuda",
+        source="graingraphnn_torch/csrc/editor.cu",
+        replaces=REPLACES["editor"], max_abs_err=err,
+        ms=sum(span_ms) / len(span_ms), plain_ms=sum(plain_ms) / len(plain_ms),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        launches=runs["jit_editor"]["launches"]["editor"],
+        widths={"E_pp": int(cap.editor[0][0].E_pp.shape[1]),
+                "E_pq": int(cap.editor[0][0].E_pq.shape[1])},
+        check=f"pass: integers bit-equal, floats atol {EDITOR_ATOL}, "
+              f"{len(cap.editor)} engine spans (--jit_editor)")
+
+    # (2) 120 um, the 4-member regressor ensemble
+    cfg = ENGINE120
+    traj = extraction.generate(cfg["lxd"], cfg["seed"], cfg["G"], cfg["R"])
+    hg0 = extraction.make_test_sample(traj, span=6)
+    paths = sorted(p[:-len(".ckpt")] for p in os.listdir(ENSEMBLE_DIR)
+                   if p.endswith(".ckpt"))
+    regs = [checkpoint.load_model(os.path.join(ENSEMBLE_DIR, p), dev)[0]
+            for p in paths]
+    if len(regs) != 4:
+        raise RuntimeError(f"engine: ensemble of {len(regs)} regressors")
+
+    def engine():
+        return engine_mod.RolloutEngine(regs, cls, c_threshold=C_THRESHOLD,
+                                        seed=cfg["seed"], device=dev)
+
+    engine().run(hg0, traj, span=6, compare=False, growth_height=5.0)
+    torch.cuda.synchronize()
+    reset_launches()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with EngineTimer() as et:
+        res = engine().run(hg0, traj, span=6, compare=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counted_launches()
+    launches["by_ring"] = dict(edge_stage.ring_launches)
+    engine_launches_ok(launches, len(regs) + 1, et.spans, 0)
+    if et.spans != cfg["spans"] or not np.isfinite(res["misorientation"]).all():
+        raise RuntimeError(f"engine120: {et.spans} spans, misorientation "
+                           f"{res['misorientation'][-3:]}")
+    prof = profile_run(lambda _: engine().run(
+        hg0, traj, span=6, compare=False, growth_height=5.0), None)
+    spans = [engine_span_card_vs_cpu(jit, density, dev)
+             for jit, density in ((False, 0.0), (True, 0.0), (True, 1e-2))]
+    ring_rows, ring_counts = engine_ring_rows(engine(), traj, hg0, reg)
+    emit(phase="engine120", lxd=cfg["lxd"], seed=cfg["seed"], G=cfg["G"],
+         R=cfg["R"], ensemble=paths, spans=et.spans,
+         grains=traj.num_regions, junctions=len(hg0.feature_dicts["joint"]),
+         inference_s=res["inference_time"],
+         ms_per_span=et.per_span(res["inference_time"]),
+         ms_by_span={k: v for k, v in et.ms.items()},
+         rings=et.rings, largest_ring=max(et.rings),
+         launches=jsonable(launches),
+         launches_per_span={k: launches[k] / et.spans
+                            for k in ("node_proj", "edge_attn", "editor")},
+         events_pred=res["events_pred"],
+         live_grains=res["num_grains_live"], event_steps=res["event_steps"],
+         peak_mem_bytes=peak, resident_mem_bytes=resident,
+         profile_2_spans=prof, reference_spans=spans,
+         forced_ring_launches={
+             str(k): {str(kk): vv for kk, vv in v.items()}
+             for k, v in ring_counts.items()})
+    return ring_rows + [editor_row]
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -2043,6 +2427,7 @@ def main():
                                      cls_cpu, cuda)
         batched_rows = phase_batched(reg, cls, reg_cpu, cls_cpu, cuda,
                                      profile=args.profile)
+        engine_rows = phase_engine(reg, cls, cuda)
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_train_",
                                      dir=here) as workdir:
@@ -2058,7 +2443,7 @@ def main():
               "rollout spans",
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
     kernels.append(generate_row)
-    kernels += gen40_rows + r240_rows + batched_rows
+    kernels += gen40_rows + r240_rows + batched_rows + engine_rows
     kernels += list(train_rows.values())
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

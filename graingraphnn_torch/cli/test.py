@@ -1,5 +1,13 @@
-"""Rollout inference CLI of the port, generate mode on the device-resident
-rollout:
+"""Rollout inference CLI of the port, generate mode. By default the host
+rollout engine (rollout.engine, the JAX package's default):
+
+  python -m graingraphnn_torch.cli.test --generate \
+      --model_dir=artifacts/40um --seed=3 --G=4 --R=1 \
+      --meltpool=cylinder --r0=20 --z0=4 [--jit_editor]
+
+and with --device_resident the device-resident rollout
+(rollout.device_driver), spans advancing on the card in chunks of
+--eval_every:
 
   python -m graingraphnn_torch.cli.test --generate --device_resident \
       --model_dir=artifacts/40um --lxd=120 --seed=5 --G=1.904 --R=0.558 \
@@ -8,9 +16,9 @@ rollout:
 
 Runs on the card unless --platform=cpu. The starting graph of any
 (lxd, seed, G, R) comes from the seeded Voronoi generator
-(device_driver.generate_trajectory), and the planar graph is rebuilt and
-rasterised after every chunk inside the timed loop. Prints one JSON line
-with the JAX package's CLI keys.
+(data.extraction.generate), and the planar graph is rebuilt and
+rasterised inside the timed loop. Prints one JSON line with the JAX
+package's CLI keys.
 """
 
 from __future__ import annotations
@@ -21,7 +29,9 @@ import os
 
 import torch
 
+from ..data import extraction
 from ..rollout import device_driver as dd
+from ..rollout.engine import RolloutEngine
 from ..train import checkpoint
 
 
@@ -60,17 +70,24 @@ def main(argv=None):
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--device_resident", action="store_true",
                    help="spans advance on the device, QoIs pulled every "
-                        "--eval_every spans (the port's only rollout)")
+                        "--eval_every spans")
     p.add_argument("--eval_every", type=int, default=1)
     p.add_argument("--fused_editor", choices=["auto", "on", "off"],
                    default="auto",
-                   help="the single-launch editor (the port's only one): "
-                        "auto and on take it, off is refused")
+                   help="--device_resident: the single-launch editor (the "
+                        "port's only one): auto and on take it, off is "
+                        "refused")
+    p.add_argument("--jit_editor", action="store_true",
+                   help="host engine: edit on the device (the editor "
+                        "kernel and the nucleation pass)")
+    p.add_argument("--clamp_gr", type=str, default="",
+                   help="host engine: 'Gmin,Gmax,Rmin,Rmax' clamps the "
+                        "thermal features to the training hull")
+    p.add_argument("--temporal", action="store_true",
+                   help="host engine: a random (G, R) schedule by height")
+    p.add_argument("--interp_frames", type=int, default=0,
+                   help="host engine: rasters blended between spans")
     # options of the JAX CLI that the port refuses
-    p.add_argument("--jit_editor", action="store_true")
-    p.add_argument("--clamp_gr", type=str, default="")
-    p.add_argument("--temporal", action="store_true")
-    p.add_argument("--interp_frames", type=int, default=0)
     p.add_argument("--plot3D", dest="plot3d", action="store_true")
     p.add_argument("--partition", type=int, default=0)
     p.add_argument("--pallas", action="store_true")
@@ -80,24 +97,28 @@ def main(argv=None):
         p.error("phase-field data (no --generate) is not ported: it needs "
                 "the phase-field extraction (data.extraction's load_pf_file "
                 "and extract)")
-    if not args.device_resident:
-        p.error("the host engine (rollout.engine) is not ported; pass "
-                "--device_resident")
-    if args.fused_editor == "off":
-        p.error("--fused_editor off: the HLO editor (rollout.topology_jit."
-                "update_jit) is not ported")
-    for flag, given in (("--jit_editor", args.jit_editor),
-                        ("--clamp_gr", args.clamp_gr)):
+    for flag, given, missing in (
+            ("--plot3D", args.plot3d, "viz.volume"),
+            ("--partition", args.partition, "parallel.partitioned_rollout"),
+            ("--pallas", args.pallas, "the bf16 edge stage")):
         if given:
-            p.error(f"{flag} is an option of the host engine "
-                    "(rollout.engine), which is not ported")
-    for flag, given in (("--temporal", args.temporal),
-                        ("--interp_frames", args.interp_frames),
-                        ("--plot3D", args.plot3d),
-                        ("--partition", args.partition),
-                        ("--pallas", args.pallas)):
-        if given:
-            p.error(f"{flag} is not ported")
+            p.error(f"{flag} is not ported: it needs {missing}")
+    if args.device_resident:
+        if args.fused_editor == "off":
+            p.error("--fused_editor off: the HLO editor (rollout."
+                    "topology_jit.update_jit) is not ported")
+        for flag, given in (("--jit_editor", args.jit_editor),
+                            ("--clamp_gr", args.clamp_gr),
+                            ("--temporal", args.temporal),
+                            ("--interp_frames", args.interp_frames)):
+            if given:
+                p.error(f"{flag} is an option of the host engine: run "
+                        "without --device_resident")
+    clamp = None
+    if args.clamp_gr:
+        clamp = tuple(float(v) for v in args.clamp_gr.split(","))
+        if len(clamp) != 4:
+            p.error("--clamp_gr expects 'Gmin,Gmax,Rmin,Rmax'")
 
     device = torch.device("cuda" if args.platform == "gpu" else "cpu")
     if device.type == "cuda":
@@ -106,8 +127,7 @@ def main(argv=None):
                                "--platform=cpu to run the plain versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    traj = dd.generate_trajectory(args.lxd, args.seed, args.G, args.R,
-                                  span=args.span or 6)
+    span = args.span or 6
     reg, _, _ = checkpoint.load_model(
         os.path.join(args.model_dir, f"regressor{args.regressor_id}"), device)
     cls, _, extra = checkpoint.load_model(
@@ -118,11 +138,26 @@ def main(argv=None):
     if args.meltpool == "cylinder":
         meltpool = {"r0": args.r0, "z0": args.z0,
                     "melt_pool_angle": args.melt_pool_angle}
-    res = dd.run_device_resident(
-        traj, reg, cls, span=args.span or 6, c_threshold=c_threshold,
-        eval_every=args.eval_every, growth_height=args.growth_height,
-        verbose=args.verbose, nucleation_density=args.nucleation_density,
-        seed=args.seed, meltpool=meltpool, device=device)
+    if args.device_resident:
+        traj = dd.generate_trajectory(args.lxd, args.seed, args.G, args.R,
+                                      span=span)
+        res = dd.run_device_resident(
+            traj, reg, cls, span=span, c_threshold=c_threshold,
+            eval_every=args.eval_every, growth_height=args.growth_height,
+            verbose=args.verbose, nucleation_density=args.nucleation_density,
+            seed=args.seed, meltpool=meltpool, device=device)
+    else:
+        traj = extraction.generate(args.lxd, args.seed, args.G, args.R)
+        hg0 = extraction.make_test_sample(traj, span=span)
+        engine = RolloutEngine(reg, cls, c_threshold=c_threshold,
+                               seed=args.seed, verbose=args.verbose,
+                               jit_editor=args.jit_editor, device=device)
+        res = engine.run(
+            hg0, traj, span=span, compare=False,
+            growth_height=args.growth_height,
+            nucleation_density=args.nucleation_density,
+            temporal=args.temporal, interp_frames=args.interp_frames,
+            clamp_gr=clamp, meltpool=meltpool)
     print(json.dumps({
         "final_layer_error": res["final_layer_error"],
         "mean_layer_error": res["mean_layer_error"],

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernels graingraphnn_tpu/kernels/edge_stage.py::_kernel
 // (K < 8: push and connect, K = 3) and ::_kernel_flat (K >= 8: pull,
-// K = RING_MAX = 16), both launched by apply_period_conv_pallas. Per
+// K = RING_MAX = 16 on the device rollout; the host engine sizes the ring
+// from the live degree in 8-wide buckets, here up to 64), both launched
+// by apply_period_conv_pallas. Per
 // destination row i and neighbor slot k (source j = nbr[i, k]):
 //
 //   x_j'   = [wrap(x_j[:3] - x_i[:3]), x_j[3:]]
@@ -43,9 +45,10 @@
 //   shared memory by cp.async while the rows are gathered. First a thread
 //   per slot of the tile writes a slot table to shared memory: the source
 //   row of a live slot (-1 where masked) and d = (shift - x_i[:3], len).
-//   Then a warp per destination row: a ballot over the row's table gives
-//   the live slots (in ascending order, anywhere in the row); the K and V
-//   row slices of up to 8 live slots are all loaded before any is used,
+//   Then a warp per destination row: a ballot over each 32 slots of the
+//   row's table gives the live slots (in ascending order, anywhere in the
+//   row); the K and V row slices of up to 8 live slots are all loaded
+//   before any is used,
 //   lane l owning gate columns l, l + 32, ...; the logit is q . K[j]
 //   reduced by shuffles plus d . (Wk[:3] q, We q), whose four sums are
 //   taken once per row; the softmax runs online over those chunks in
@@ -65,7 +68,7 @@ namespace {
 constexpr int MAX_F = 128;      // node feature width the kernels take
 constexpr int MAX_C = 128;      // gate width edge_attn takes
 constexpr int MAX_G = 8;
-constexpr int MAX_K = 16;       // neighbor slots per row
+constexpr int MAX_K = 64;       // neighbor slots per row: two ballots of 32
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
 
@@ -273,9 +276,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // EA_R destination rows and gate blockIdx.y. CPL = ceil(C / 32) columns
-// per lane; CH live slots gathered together. K = 3 at C <= 96 fits 64
-// registers, so 1024 threads share an SM.
-template <int CPL, int CH>
+// per lane; CH live slots gathered together; NSEG ballots of 32 slots
+// cover K <= 32 * NSEG. K = 3 at C <= 96 fits 64 registers, so 1024
+// threads share an SM.
+template <int CPL, int CH, int NSEG>
 __global__ void __launch_bounds__(EA_THREADS, CH == 3 && CPL <= 3 ? 1024 / EA_THREADS : 1)
     edge_attn(Attn A) {
   extern __shared__ __align__(16) float ea_smem_f[];
@@ -372,66 +376,69 @@ __global__ void __launch_bounds__(EA_THREADS, CH == 3 && CPL <= 3 ? 1024 / EA_TH
     }
 #pragma unroll
     for (int d = 0; d < 4; ++d) qw[d] = warp_sum(qw[d]);
-    const unsigned live = __ballot_sync(FULL, lane < K && sj[lane] >= 0);
 
-    // online softmax over chunks of CH live slots, in ascending slot order
+    // online softmax over chunks of CH live slots, in ascending slot order:
+    // slots s0 .. s0 + 31 of each ballot, the state carried across ballots
     float mx = NEG, den = 0.f, sl = 0.f;
-    for (unsigned rem = live; rem;) {
-      int ks[CH];
-      bool on[CH];
+    for (int s0 = 0; s0 < 32 * NSEG; s0 += 32) {
+      const unsigned live = __ballot_sync(FULL, s0 + lane < K && sj[s0 + lane] >= 0);
+      for (unsigned rem = live; rem;) {
+        int ks[CH];
+        bool on[CH];
 #pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        on[c] = rem != 0u;
-        ks[c] = on[c] ? __ffs((int)rem) - 1 : 0;
-        rem &= rem - 1u;
-      }
-      float kv[CH][CPL], vv[CH][CPL];
+        for (int c = 0; c < CH; ++c) {
+          on[c] = rem != 0u;
+          ks[c] = on[c] ? s0 + __ffs((int)rem) - 1 : 0;
+          rem &= rem - 1u;
+        }
+        float kv[CH][CPL], vv[CH][CPL];
 #pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const size_t at = (size_t)sj[ks[c]] * GC + g * C;
+        for (int c = 0; c < CH; ++c) {
+          const size_t at = (size_t)sj[ks[c]] * GC + g * C;
 #pragma unroll
-        for (int u = 0; u < CPL; ++u) {
-          const int cc = lane + 32 * u;
-          kv[c][u] = vv[c][u] = 0.f;
-          if (on[c] && cc < C) {
-            kv[c][u] = A.kn[at + cc];
-            vv[c][u] = A.vn[at + cc];
+          for (int u = 0; u < CPL; ++u) {
+            const int cc = lane + 32 * u;
+            kv[c][u] = vv[c][u] = 0.f;
+            if (on[c] && cc < C) {
+              kv[c][u] = A.kn[at + cc];
+              vv[c][u] = A.vn[at + cc];
+            }
           }
         }
-      }
-      float lg[CH], lc[CH], cm = NEG;
+        float lg[CH], lc[CH], cm = NEG;
 #pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        lg[c] = NEG;
-        lc[c] = 0.f;
-        if (!on[c]) continue;               // the same for the whole warp
-        const float4 d = sd[ks[c]];
-        float part = 0.f;
+        for (int c = 0; c < CH; ++c) {
+          lg[c] = NEG;
+          lc[c] = 0.f;
+          if (!on[c]) continue;               // the same for the whole warp
+          const float4 d = sd[ks[c]];
+          float part = 0.f;
 #pragma unroll
-        for (int u = 0; u < CPL; ++u) {
-          part += qv[u] * kv[c][u];
-          vv[c][u] = fmaxf(vv[c][u] + d.x * wv0[u] + d.y * wv1[u] + d.z * wv2[u], 0.f);
+          for (int u = 0; u < CPL; ++u) {
+            part += qv[u] * kv[c][u];
+            vv[c][u] = fmaxf(vv[c][u] + d.x * wv0[u] + d.y * wv1[u] + d.z * wv2[u], 0.f);
+          }
+          lg[c] = (warp_sum(part) + d.x * qw[0] + d.y * qw[1] + d.z * qw[2] + d.w * qw[3])
+              * inv_sqrt_c;
+          lc[c] = d.w;
+          cm = fmaxf(cm, lg[c]);
         }
-        lg[c] = (warp_sum(part) + d.x * qw[0] + d.y * qw[1] + d.z * qw[2] + d.w * qw[3])
-            * inv_sqrt_c;
-        lc[c] = d.w;
-        cm = fmaxf(cm, lg[c]);
+        const float mnew = fmaxf(mx, cm), scale = expf(mx - mnew);
+        den *= scale;
+        sl *= scale;
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) a[u] *= scale;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          if (!on[c]) continue;
+          const float e = expf(lg[c] - mnew);
+          den += e;
+          sl += e * lc[c];
+#pragma unroll
+          for (int u = 0; u < CPL; ++u) a[u] += e * vv[c][u];
+        }
+        mx = mnew;
       }
-      const float mnew = fmaxf(mx, cm), scale = expf(mx - mnew);
-      den *= scale;
-      sl *= scale;
-#pragma unroll
-      for (int u = 0; u < CPL; ++u) a[u] *= scale;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        if (!on[c]) continue;
-        const float e = expf(lg[c] - mnew);
-        den += e;
-        sl += e * lc[c];
-#pragma unroll
-        for (int u = 0; u < CPL; ++u) a[u] += e * vv[c][u];
-      }
-      mx = mnew;
     }
 
     // the row's sum alpha relu(pre_v) (zero past C, and on a row with no
@@ -551,29 +558,39 @@ int launch_node_proj(const float* x_src, int Ns, int Fs, const float* x_dst,
   return 0;
 }
 
-template <int CPL, int CH>
+template <int CPL, int CH, int NSEG>
 int launch_attn(const Attn& A, cudaStream_t s) {
-  static bool smem_set = false;           // once, for the widest C of this CPL
-  if (!smem_set) {
+  // the attribute covers the widest C of this CPL at the largest K any call
+  // has asked for (16 at least), and is raised when a call asks for more
+  static int k_set = 0;
+  if (A.K > k_set) {
+    const int k = A.K > 16 ? A.K : 16;
     const cudaError_t err = cudaFuncSetAttribute(
-        edge_attn<CPL, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        ea_smem(32 * CPL, MAX_K));
+        edge_attn<CPL, CH, NSEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ea_smem(32 * CPL, k));
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
+    k_set = k;
   }
-  edge_attn<CPL, CH><<<dim3((A.Nd + EA_R - 1) / EA_R, A.G), EA_THREADS,
-                        ea_smem(A.C, A.K), s>>>(A);
+  edge_attn<CPL, CH, NSEG><<<dim3((A.Nd + EA_R - 1) / EA_R, A.G), EA_THREADS,
+                              ea_smem(A.C, A.K), s>>>(A);
   return 0;
+}
+
+// K = 3: one chunk of 3; K <= 32: chunks of 8 under one ballot; else two
+template <int CPL>
+int launch_cpl(const Attn& A, cudaStream_t s) {
+  if (A.K <= 3) return launch_attn<CPL, 3, 1>(A, s);
+  if (A.K <= 32) return launch_attn<CPL, 8, 1>(A, s);
+  return launch_attn<CPL, 8, 2>(A, s);
 }
 
 int launch_edge_attn(const Attn& A, cudaStream_t s) {
   if (A.Nd <= 0) return 0;
-  const bool wide = A.K > 3;              // else one chunk of 3, else of 8
   switch ((A.C + 31) / 32) {
-    case 1: return wide ? launch_attn<1, 8>(A, s) : launch_attn<1, 3>(A, s);
-    case 2: return wide ? launch_attn<2, 8>(A, s) : launch_attn<2, 3>(A, s);
-    case 3: return wide ? launch_attn<3, 8>(A, s) : launch_attn<3, 3>(A, s);
-    case 4: return wide ? launch_attn<4, 8>(A, s) : launch_attn<4, 3>(A, s);
+    case 1: return launch_cpl<1>(A, s);
+    case 2: return launch_cpl<2>(A, s);
+    case 3: return launch_cpl<3>(A, s);
+    case 4: return launch_cpl<4>(A, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
+
 from ..graph.voronoi import Microstructure
 from . import heterograph
 
@@ -61,6 +63,20 @@ class TrajectoryExtractor(Microstructure):
         self.save_frame = [True] * frames
         self.area_traj: List[dict] = []
         self.extraV_traj: List = []
+
+
+def generate(lxd: float, seed: int, G: float, R: float,
+             bc: str = "periodic") -> TrajectoryExtractor:
+    """The generate-mode trajectory of (lxd, seed, G, R): the seeded
+    Voronoi microstructure with its frame-0 areas from the raster and its
+    frame-0 state (make_test_sample makes the t=0 sample of it)."""
+    traj = TrajectoryExtractor(lxd=lxd, seed=seed, frames=121, bc=bc,
+                               physical_params={"G": G, "R": R})
+    traj.area_counts = dict(zip(*np.unique(traj.alpha_field,
+                                           return_counts=True)))
+    traj.area_traj.append(dict(traj.area_counts))
+    traj.states.append(heterograph.tensorize(traj, 0))
+    return traj
 
 
 SPAN_CHOICES = (6, 8, 10, 12, 15, 20, 24, 30, 40, 60, 120)

@@ -1,7 +1,9 @@
-"""Periodic-domain geometry on the unit square (period 1), on tensors."""
+"""Periodic-domain geometry on the unit square (period 1): on tensors, and
+the numpy helpers of the host topology editor (rollout.topology)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -34,3 +36,38 @@ def periodic_unit(p: torch.Tensor, pc: torch.Tensor,
     rel = min_image(p - pc)
     norm = torch.sqrt(torch.sum(rel * rel, dim=-1, keepdim=True))
     return rel / torch.clamp_min(norm, eps)
+
+
+def periodic_dist_np(p, pc) -> float:
+    """periodic_dist of two host points, in float64."""
+    rel = np.asarray(p, dtype=np.float64) - np.asarray(pc, dtype=np.float64)
+    rel += -(rel > 0.5).astype(rel.dtype) + (rel < -0.5).astype(rel.dtype)
+    return float(np.sqrt(np.sum(rel * rel)))
+
+
+def point_in_triangle(t, v1, v2, v3) -> bool:
+    """Whether host point t lies in the triangle (v1, v2, v3), each vertex
+    moved to its periodic image nearest t; points on an edge are inside."""
+    t = np.asarray(t, dtype=np.float64)
+
+    def move(v):
+        v = np.asarray(v, dtype=np.float64)
+        rel = v - t
+        return v - (rel > 0.5) + (rel < -0.5)
+
+    def sign(a, b, c):
+        return (a[0] - c[0]) * (b[1] - c[1]) - (b[0] - c[0]) * (a[1] - c[1])
+
+    v1m, v2m, v3m = move(v1), move(v2), move(v3)
+    d1 = sign(t, v1m, v2m)
+    d2 = sign(t, v2m, v3m)
+    d3 = sign(t, v3m, v1m)
+    has_neg = (d1 < 0) or (d2 < 0) or (d3 < 0)
+    has_pos = (d1 > 0) or (d2 > 0) or (d3 > 0)
+    return not (has_neg and has_pos)
+
+
+def in_bound(x, y, max_y: float = 1.0) -> bool:
+    """Half-open unit-cell membership (0, 1] x (0, max_y], with 1e-12 of
+    slack, used when deduplicating periodic Voronoi vertices."""
+    return -1e-12 < x <= 1 + 1e-12 and -1e-12 < y <= max_y + 1e-12

@@ -19,14 +19,15 @@ import torch
 
 from . import _build
 
-# kernel launches since the caller last called reset_counts(), by kernel
-# and by (kernel, F_src, F_dst)
+# kernel launches since the caller last called reset_counts(), by kernel,
+# by (kernel, F_src, F_dst) and, for edge_attn, by its ring width K
 launches = {"node_proj": 0, "edge_attn": 0}
 shape_launches: dict = {}
+ring_launches: dict = {}
 
 SOURCE = "edge_stage"
 NVCC_FLAGS: tuple = ()
-MAX_F, MAX_G, MAX_C, MAX_K = 128, 8, 128, 16    # limits of csrc/edge_stage.cu
+MAX_F, MAX_G, MAX_C, MAX_K = 128, 8, 128, 64    # limits of csrc/edge_stage.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (
     [_P, _I, _I] * 2                   # x_src, x_dst
@@ -43,12 +44,15 @@ def reset_counts():
     for k in launches:
         launches[k] = 0
     shape_launches.clear()
+    ring_launches.clear()
 
 
-def _count(kernel, Fs, Fd):
+def _count(kernel, Fs, Fd, K=None):
     launches[kernel] += 1
     key = (kernel, Fs, Fd)
     shape_launches[key] = shape_launches.get(key, 0) + 1
+    if K is not None:
+        ring_launches[K] = ring_launches.get(K, 0) + 1
 
 
 def _check(x_src, tensors):
@@ -119,7 +123,7 @@ def apply_period_conv_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, *,
     if Ns + Nd > 0:
         _count("node_proj", Fs, Fd)
     if Nd > 0:
-        _count("edge_attn", Fs, Fd)
+        _count("edge_attn", Fs, Fd, K)
     return out
 
 
@@ -157,7 +161,7 @@ def edge_attn_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, proj, *,
     out = launch_edge_attn(fn, _stream(x_src), conv, x_src, x_dst, nbr,
                            edge_len, nbr_mask, proj, G, C)
     if Nd > 0:
-        _count("edge_attn", Fs, Fd)
+        _count("edge_attn", Fs, Fd, K)
     return out
 
 

@@ -107,15 +107,9 @@ def generate_trajectory(lxd: float, seed: int, G: float, R: float,
     """The generate-mode starting graph of (lxd, seed, G, R): the seeded
     periodic Voronoi microstructure, its frame-0 areas from the raster,
     tensorised and made the t=0 sample with window `span`."""
-    from ..data import extraction, heterograph
+    from ..data import extraction
 
-    traj = extraction.TrajectoryExtractor(
-        lxd=lxd, seed=seed, frames=121, bc="periodic",
-        physical_params={"G": G, "R": R})
-    traj.area_counts = dict(zip(*np.unique(traj.alpha_field,
-                                           return_counts=True)))
-    traj.area_traj.append(dict(traj.area_counts))
-    traj.states.append(heterograph.tensorize(traj, 0))
+    traj = extraction.generate(lxd, seed, G, R)
     return trajectory_from_extractor(
         traj, extraction.make_test_sample(traj, span=span))
 

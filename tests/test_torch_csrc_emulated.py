@@ -377,6 +377,62 @@ def test_edge_attn_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs, Fd,
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("K", [17, 24, 32, 64])
+def test_edge_attn_source_wide_rings(emulated, K):
+    """Pull rings past 16 slots, as the host engine sizes them from the
+    live degree (8-wide buckets, and 17, which it never asks for), at the
+    rollout's widths: scattered live slots, rows whose live slots all lie
+    past slot 31 or only in the last slot, fully live and fully masked
+    rows. The fused conv and the edge kernel alone against their plain
+    versions."""
+    G, C, Ns, Nd, Fs, Fd = 4, 96, 90, 37, 104, 107
+    conv, rng = _random_conv(K + 1000, Fs, Fd, G, C)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = _scattered_mask(rng, Nd, K)
+    mask[3] = 0.0
+    mask[3, K // 2:] = 1.0          # live slots past slot 31 at K = 64
+    mask[4] = 0.0
+    mask[4, K - 1] = 1.0            # one live slot, the last
+    mask = t(mask)
+    proj = period_conv.node_projections_plain(conv, xs, xd)
+    attn = emulated(edge_stage.SOURCE, "edge_attn_forward",
+                    edge_stage._ATTN_ARGTYPES)
+    out = edge_stage.launch_edge_attn(attn, 0, conv, xs, xd, nbr, ln, mask,
+                                      proj, G, C)
+    ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask, proj,
+                                      num_gates=G, out_channels=C)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    fused = emulated(edge_stage.SOURCE, "edge_stage_forward",
+                     edge_stage._ARGTYPES)
+    out = edge_stage.launch(fused, 0, conv, xs, xd, nbr, ln, mask, G, C)
+    ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln, mask,
+                                              num_gates=G, out_channels=C)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_edge_attn_source_refuses_rings_past_64(emulated):
+    """K = 65 is past the kernel's widest ring: the wrapper's check and the
+    C entry both refuse it (no fallback to the plain version)."""
+    G, C, K, N, F = 1, 8, 65, 5, 8
+    with pytest.raises(ValueError, match="K<=64"):
+        edge_stage._limits(F, F, G, C, K)
+    fn = emulated(edge_stage.SOURCE, "edge_attn_forward",
+                  edge_stage._ATTN_ARGTYPES)
+    conv, rng = _random_conv(0, F, F, G, C)
+    x = torch.from_numpy(rng.uniform(0, 1, (N, F)).astype(np.float32))
+    nbr = torch.zeros((N, K), dtype=torch.int32)
+    f = torch.ones((N, K))
+    proj = period_conv.node_projections_plain(conv, x, x)
+    codes = []
+    edge_stage.launch_edge_attn(lambda *a: codes.append(fn.raw(*a)), 0, conv,
+                                x, x, nbr, f, f, proj, G, C)
+    assert codes[0] != 0
+
+
 def test_edge_attn_source_refuses_wide_gates(emulated):
     """C = 129 is past the kernel's widest gate: the wrapper's check and
     the C entry both refuse it."""

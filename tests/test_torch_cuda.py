@@ -131,9 +131,9 @@ def test_edge_stage_kernel_refuses_what_it_cannot_take():
     dev = card()
     conv = random_conv(0, 11, 8, 4, 8, dev)
     xs, xd = torch.rand(9, 11, device=dev), torch.rand(7, 8, device=dev)
-    nbr = torch.zeros(7, 17, dtype=torch.int32, device=dev)
-    f = torch.ones(7, 17, device=dev)
-    with pytest.raises(ValueError, match="K<=16"):
+    nbr = torch.zeros(7, 65, dtype=torch.int32, device=dev)
+    f = torch.ones(7, 65, device=dev)
+    with pytest.raises(ValueError, match="K<=64"):
         edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, f, f,
                                           num_gates=4, out_channels=8)
     with pytest.raises(ValueError, match="contiguous"):
@@ -237,6 +237,105 @@ def test_span_makes_no_host_sync(state120):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("K", [17, 24, 32, 64, 16, 40])
+def test_edge_attn_kernel_takes_wide_rings(K):
+    """Pull rings past 16 slots, as the host engine sizes them, at full
+    width: the fused conv and the edge kernel alone against their plain
+    versions, with rows whose live slots all lie past slot 31 and rows of
+    one live slot, the last. The order (64 before 16 and 40) checks that a
+    smaller ring after a larger one launches under the raised shared
+    memory attribute."""
+    dev = card()
+    G, C, Ns, Nd, Fs, Fd = 4, 96, 2086, 1043, 104, 107
+    rng = np.random.default_rng(K)
+    conv = random_conv(K, Fs, Fd, G, C, dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = (rng.uniform(size=(Nd, K)) < 0.6).astype(np.float32)
+    mask[::5] = 0.0
+    mask[1::5] = 1.0
+    mask[2::5, : K // 2] = 0.0
+    mask[3::5] = 0.0
+    mask[3::5, K - 1] = 1.0
+    mask = t(mask)
+    kw = dict(num_gates=G, out_channels=C)
+    before = dict(edge_stage.launches)
+    out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln, mask, **kw)
+    ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln, mask,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert edge_stage.launches == {k: v + 1 for k, v in before.items()}
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    proj = period_conv.node_projections_plain(conv, xs, xd)
+    out = edge_stage.edge_attn_cuda(conv, xs, xd, nbr, ln, mask, proj, **kw)
+    ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask, proj, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("jit_editor,density", [(False, 0.0), (True, 0.0),
+                                                (True, 1e-2), (False, 1e-2)])
+def test_engine_span_on_the_card_matches_the_cpu(jit_editor, density):
+    """One span of the host engine (the CLI's default rollout) on the
+    generated 40 um graph with the shipped checkpoints, on the card and on
+    the CPU from the same state, without and with nucleation: 12 + 12 edge
+    stage launches (and one editor launch with jit_editor), topology
+    bit-equal unless a switch probability lies within 1e-5 of the
+    threshold, positions within 1e-5."""
+    from graingraphnn_torch.data import extraction
+    from graingraphnn_torch.rollout.engine import RolloutEngine
+
+    dev = card()
+    edits, logits = {}, {}
+    for d in (dev, torch.device("cpu")):
+        reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", d)
+        cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", d)
+        traj = extraction.generate(40, 3, 4.0, 1.0)
+        hg0 = extraction.make_test_sample(traj, span=6)
+        eng = RolloutEngine(reg, cls, c_threshold=0.9, r_threshold=3e-3,
+                            jit_editor=jit_editor, seed=11, device=d)
+        edit = eng._jit_update if jit_editor else eng.editor.update
+        forward = eng._forward
+
+        def keep_edit(*a, _edit=edit, _d=d.type, **k):
+            out = _edit(*a, **k)
+            edits[_d] = (out[1], out[2], out[3], a[3], out[0]["joint"].copy())
+            return out
+
+        def keep_logits(*a, _d=d.type, **k):
+            out = forward(*a, **k)
+            logits[_d] = out[0][1]["edge_event"]
+            return out
+
+        eng._forward = keep_logits
+        if jit_editor:
+            eng._jit_update = keep_edit
+        else:
+            eng.editor.update = keep_edit
+        edge_stage.reset_counts()
+        editor_fused.launches = 0
+        with torch.no_grad():
+            res = eng.run(hg0, traj, span=6, compare=False, growth_height=2.6,
+                          nucleation_density=density)
+        assert (res["num_grains_final"] > traj.num_regions) == (density > 0)
+        if d.type == "cuda":
+            assert edge_stage.launches == {"node_proj": 12, "edge_attn": 12}
+            assert editor_fused.launches == int(jit_editor)
+    p = 1.0 / (1.0 + np.exp(-np.asarray(logits["cpu"], np.float64)))
+    near = bool((np.abs(p - 0.9) < 1e-5).any())
+    (e1, sw1, ex1, m1, xj1), (e0, sw0, ex0, m0, xj0) = (edits["cuda"],
+                                                       edits["cpu"])
+    same = (all(np.array_equal(e1[k], e0[k]) for k in e0)
+            and all(np.array_equal(m1[k], m0[k]) for k in m0)
+            and np.array_equal(sw1, sw0) and np.array_equal(ex1, ex0))
+    assert same or near
+    if same:
+        np.testing.assert_allclose(xj1[:, :2], xj0[:, :2], rtol=0, atol=1e-5)
 
 
 @pytest.fixture(scope="module")

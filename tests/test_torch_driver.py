@@ -145,15 +145,18 @@ def test_cli_generate_prints_the_json_line(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--generate"], ["--temporal"], ["--interp_frames", "2"],
+    [], ["--generate", "--plot3D"], ["--temporal"], ["--interp_frames", "2"],
     ["--plot3D"], ["--partition", "4"], ["--pallas"],
-    ["--fused_editor", "off"], ["--jit_editor"], ["--clamp_gr", "1,2,1,2"]])
+    ["--fused_editor", "off"], ["--jit_editor"], ["--clamp_gr", "1,2,1,2"],
+    ["--generate", "--partition", "4"], ["--generate", "--pallas"],
+    ["--generate", "--clamp_gr", "1,2"]])
 def test_cli_refuses_what_is_not_ported(extra):
-    """PF data (no --generate), the host engine (no --device_resident, or
-    its options) and the options of other paths end in an argument
-    error."""
-    base = [] if extra in ([], ["--generate"]) else ["--generate",
-                                                     "--device_resident"]
+    """PF data (no --generate); on the host engine (extras that start with
+    --generate) plot3D, partition, pallas and a malformed clamp; on the
+    device-resident rollout the host engine's options and the options of
+    other paths: each ends in an argument error."""
+    base = [] if not extra or extra[0] == "--generate" else [
+        "--generate", "--device_resident"]
     with pytest.raises(SystemExit):
         cli.main(base + extra + ARGS)
 
