@@ -44,7 +44,14 @@ span's inputs), 20 spans of the generated 120 um graph with the 4-member
 regressor ensemble (ms a span by stage, pull rings, peak memory, a
 profile of 2 spans), one span of each editor (and of --jit_editor with
 nucleation) against the CPU, and edge_attn at pull rings of 24 and 32
-through the engine's forward.
+through the engine's forward, (14) the phase-field path (after
+training in the run): a synthetic PF simulation built on the host (the
+host engine's 20-span truth at the real fixture's recipe, 40 um, seed
+10020, with other weights), its train-mode extraction through the array
+entry with cli.merge and cli.train on the windows, and cli.test without
+--generate, compare on, on the host engine, with --jit_editor and with
+--device_resident, counted, with one span of each against the CPU and
+the kernels at the PF graph's shapes.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -126,6 +133,14 @@ ENGINE_RINGS = {24: (18, 21, 24), 32: (18, 26, 30)}
 # card-vs-CPU step and the kernel rows at a packed batch of 8
 TRAIN = {"samples": 36, "ng": 120, "epochs": 2, "eval_B": 8}
 TRAIN_LOSS_RTOL = 1e-5
+# the phase-field path: a synthetic PF simulation at the real fixture's
+# recipe (40 um, seed 10020, G 1.904, R 0.558, span 6, 20 spans, 121
+# frames) whose truth the host engine rolls with the 40um_jitter weights,
+# so that the shipped 40um weights are scored against other dynamics;
+# cli.train on its windows for 2 epochs, the compare runs in chunks of 5
+PF = {"lxd": 40, "seed": 10020, "G": 1.904, "R": 0.558, "span": 6,
+      "spans": 20, "frames": 121, "truth": "artifacts/40um_jitter",
+      "epochs": 2, "eval_every": 5}
 TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
 PEAK_FP32 = 67e12             # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32X3 = 495e12 / 3      # H100 SXM TF32 tensor cores, 3 products per fp32 one
@@ -1861,20 +1876,25 @@ def jsonable(launches):
                 if isinstance(v, dict) else v) for k, v in launches.items()}
 
 
-def engine_span_card_vs_cpu(jit_editor, density, dev):
-    """One span of the host engine on the 40 um recipe's graph with the
-    shipped checkpoints and nucleation density `density`, on the card and
-    on the CPU from the same state: topology bit-equal unless a switch
-    probability lies within 1e-5 of the threshold, positions within
-    POS_ATOL."""
+def engine_span_card_vs_cpu(jit_editor, density, dev, start=None,
+                            compare=False):
+    """One span of the host engine with the shipped checkpoints and
+    nucleation density `density`, on the card and on the CPU from the same
+    state: the 40 um recipe's graph, or start()'s (traj, hg0) with
+    compare on. Topology bit-equal unless a switch probability lies within
+    1e-5 of the threshold, positions within POS_ATOL, and with compare the
+    layer errors equal under the same rule."""
     from graingraphnn_torch.data import extraction
 
-    edits, logits = {}, {}
+    edits, logits, layer = {}, {}, {}
     for d in (dev, torch.device("cpu")):
         reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", d)
         cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", d)
-        traj = extraction.generate(40, 3, 4.0, 1.0)
-        hg0 = extraction.make_test_sample(traj, span=6)
+        if start is None:
+            traj = extraction.generate(40, 3, 4.0, 1.0)
+            hg0 = extraction.make_test_sample(traj, span=6)
+        else:
+            traj, hg0 = start()
         eng = engine_mod.RolloutEngine(
             reg, cls, c_threshold=ENGINE_SPAN["c_threshold"],
             r_threshold=ENGINE_SPAN["r_threshold"], jit_editor=jit_editor,
@@ -1898,8 +1918,9 @@ def engine_span_card_vs_cpu(jit_editor, density, dev):
             eng._jit_update = keep_edit
         else:
             eng.editor.update = keep_edit
-        res = eng.run(hg0, traj, span=6, compare=False, growth_height=2.6,
+        res = eng.run(hg0, traj, span=6, compare=compare, growth_height=2.6,
                       nucleation_density=density)
+        layer[d.type] = res["layer_err_list"]
     p = 1.0 / (1.0 + np.exp(-logits["cpu"]))
     near = bool((np.abs(p - ENGINE_SPAN["c_threshold"]) < 1e-5).any())
     (e1, sw1, ex1, m1, xj1), (e0, sw0, ex0, m0, xj0) = (edits["cuda"],
@@ -1913,12 +1934,16 @@ def engine_span_card_vs_cpu(jit_editor, density, dev):
     pos = float(np.abs(xj1[:, :2] - xj0[:, :2]).max()) if same else None
     if same and not pos <= POS_ATOL:
         raise RuntimeError(f"engine span: positions differ by {pos}")
+    if layer["cuda"] != layer["cpu"] and not near:
+        raise RuntimeError(f"engine span: layer errors {layer}")
     logit_err = float(np.abs(logits["cuda"] - logits["cpu"]).max())
     return dict(jit_editor=jit_editor, nucleation_density=density,
                 grains=res["num_grains_final"], topology_equal=same,
                 threshold_adjacent=near, position_max_abs_err=pos,
                 logit_max_abs_err=logit_err, switches=int(len(sw0)),
-                forced_elim=int(len(ex0)))
+                forced_elim=int(len(ex0)), compare=compare,
+                layer_err_list=layer["cuda"] if compare else None,
+                layer_err_equal=layer["cuda"] == layer["cpu"])
 
 
 def engine_inputs(traj, hg0):
@@ -2098,6 +2123,359 @@ def phase_engine(reg, cls, dev):
              str(k): {str(kk): vv for kk, vv in v.items()}
              for k, v in ring_counts.items()})
     return ring_rows + [editor_row]
+
+
+# ---------------------------------------------------------------------------
+# the phase-field path: a synthetic PF simulation, extraction, cli.test
+# ---------------------------------------------------------------------------
+
+
+def pf_file_name(frames=PF["frames"]):
+    """The synthetic PF file's name: the seed, G, Rmax and the last frame's
+    index, in the layout load_pf_file parses."""
+    return (f"synthetic_seed{PF['seed']}_G{PF['G']}_Rmax{PF['R']}"
+            f"_frames{frames - 1}.h5")
+
+
+def pf_truth(bc="periodic"):
+    """The truth of the synthetic PF simulation: the host engine on the
+    CPU in generate mode at PF's recipe (40 um, seed 10020, G 1.904,
+    R 0.558, span 6, 20 spans) with the 40um_jitter weights and their
+    threshold, each span's raster kept. Returns (rasters [x, y] for frame
+    0 and each span, excess volumes [num_regions, spans + 1] in pixels^3,
+    zero at frame 0, and the extractor it ran from)."""
+    from graingraphnn_torch.data import extraction
+
+    reg, _, _ = checkpoint.load_model(PF["truth"] + "/regressor0", "cpu")
+    cls, _, extra = checkpoint.load_model(PF["truth"] + "/classifier1", "cpu")
+    traj = extraction.generate(PF["lxd"], PF["seed"], PF["G"], PF["R"], bc=bc)
+    hg0 = extraction.make_test_sample(traj, span=PF["span"])
+    eng = engine_mod.RolloutEngine(reg, cls, c_threshold=extra["threshold"],
+                                   seed=PF["seed"], device="cpu")
+    s = traj.patch_size / traj.mesh_size + 1
+    extraV = [np.zeros(traj.num_regions)]
+    update = eng.editor.update
+
+    def keep_extraV(x, edges, pred, mask, **kw):
+        out = update(x, edges, pred, mask, **kw)
+        xg = out[0]["grain"][: traj.num_regions]
+        extraV.append(mask["grain"][: traj.num_regions, 0]
+                      * xg[:, schema.GRAIN_EXTRAV_COL]
+                      / schema.TARGET_SCALING["grain"] * s ** 3)
+        return out
+
+    eng.editor.update = keep_extraV
+    # one thread: the 40 um forwards gain nothing from more, and parallel
+    # test workers share the host's cores (the result is the same)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with torch.no_grad():
+            res = eng.run(hg0, traj, span=PF["span"], compare=False,
+                          collect_fields=True)
+    finally:
+        torch.set_num_threads(threads)
+    rasters = res["alpha_field_list"]
+    if len(rasters) != PF["spans"] + 1 or len(extraV) != PF["spans"] + 1:
+        raise RuntimeError(f"pf truth: {len(rasters)} rasters")
+    return rasters, np.stack(extraV, axis=1), traj
+
+
+def fill_unpainted(a):
+    """The raster with each unpainted pixel (id 0) given the largest id of
+    its four neighbours, repeated until none is left."""
+    a = a.copy()
+    while (a == 0).any():
+        near = np.max([np.roll(a, d, axis=k) for d in (1, -1)
+                       for k in (0, 1)], axis=0)
+        a = np.where(a == 0, near, a)
+    return a
+
+
+def junction_candidates(a, periodic, rng):
+    """The PF junction candidates of one raster a[x, y]: every 2x2 window
+    (over the wrap-padded raster where periodic) that holds at least 3
+    distinct ids, as rows [x index, y index, max_nb, 5 labels padded with
+    -1], the indices into the ghosted coordinate arrays."""
+    b = np.pad(a, ((0, 1), (0, 1)), mode="wrap") if periodic else a
+    w = np.stack([b[:-1, :-1], b[1:, :-1], b[:-1, 1:], b[1:, 1:]], axis=-1)
+    w = np.sort(w, axis=-1)
+    new = np.concatenate([np.ones(w.shape[:2] + (1,), bool),
+                          w[..., 1:] != w[..., :-1]], axis=-1)
+    ii, jj = np.nonzero(new.sum(-1) >= 3)
+    labels = np.where(new[ii, jj], w[ii, jj], -1)
+    labels = -np.sort(-labels, axis=-1)            # distinct ids first
+    rows = np.full((len(ii), 8), -1, np.int64)
+    rows[:, 0], rows[:, 1] = ii + 1, jj + 1
+    rows[:, 2] = rng.integers(3, 100, len(ii))
+    rows[:, 3:7] = labels
+    return rows
+
+
+def synthetic_pf_arrays(frames=PF["frames"], bc="periodic", truth=None):
+    """A synthetic PF simulation in load_pf_file's layout, built from the
+    host engine's truth rollout (pf_truth): (arrays by PF key, G, R,
+    frames). Frame t holds the raster of span (t * 120 // (frames - 1))
+    // 6 with unpainted pixels filled; cross_sec carries a one-pixel ghost
+    border (wrapped, or repeated under no-flux), and x/y/z are um with a
+    ghost point at each end (x[-2] = lxd). node_region holds each frame's
+    junction candidates (junction_candidates, max_nb drawn from
+    default_rng(seed)), padded to one node count with -1 labels.
+    total_area is the truth's columnar pixel volume of each grain up to
+    the frame's height (frame-0 area times ini_height / mesh + 1 layers,
+    then the pixel areas integrated over the frames' heights) plus its
+    excess volume; extra_area the excess volume the truth's regressor
+    predicts (pixels^3, 0 at frame 0)."""
+    rasters, extraV, traj = truth or pf_truth(bc)
+    periodic = bc == "periodic"
+    ratio = 120 // (frames - 1)
+    which = [min(t * ratio // PF["span"], len(rasters) - 1)
+             for t in range(frames)]
+    spans = sorted(set(which))
+    filled = {k: fill_unpainted(rasters[k]) for k in spans}
+    rng = np.random.default_rng(PF["seed"])
+    cands = {k: junction_candidates(filled[k], periodic, rng) for k in spans}
+    nodes = max(len(c) for c in cands.values())
+    node_region = np.full((8, nodes, frames), -1, np.int64)
+    node_region[:3] = 0
+    for t, k in enumerate(which):
+        node_region[:, : len(cands[k]), t] = cands[k].T
+    pad = "wrap" if periodic else "edge"
+    ghosted = {k: np.pad(a, 1, mode=pad) for k, a in filled.items()}
+    cross = np.stack([ghosted[k] for k in which], axis=-1)
+    alpha = [filled[k] for k in which]
+
+    ng = traj.num_regions
+    area = np.stack([np.bincount(a.ravel(), minlength=ng + 1)[1: ng + 1]
+                     for a in alpha], axis=1).astype(np.float64)
+    dz = ratio * engine_mod.TRAIN_DELTA_Z / traj.mesh_size
+    column = np.empty_like(area)
+    column[:, 0] = area[:, 0] * (traj.ini_height / traj.mesh_size + 1)
+    for t in range(1, frames):
+        column[:, t] = column[:, t - 1] + dz * (area[:, t - 1] + area[:, t]) / 2
+    extra = extraV[:, which]
+    n0, n1 = cross.shape[:2]
+    mesh = traj.mesh_size
+    arrays = {
+        "x_coordinates": (np.arange(n0) - 1) * mesh,
+        "y_coordinates": (np.arange(n1) - 1) * mesh,
+        "z_coordinates": (np.arange(frames + 2) - 1) * ratio
+        * engine_mod.TRAIN_DELTA_Z + traj.ini_height,
+        "cross_sec": cross.astype(np.int32).ravel(order="F"),
+        "extra_area": extra.ravel(order="F"),
+        "total_area": (column + extra).ravel(order="F"),
+        "node_region": node_region.ravel(order="F"),
+    }
+    return arrays, PF["G"], PF["R"], frames
+
+
+def write_pf_file(directory, pf):
+    """pf = synthetic_pf_arrays(...) written with h5py as
+    directory/pf_file_name(frames); returns its path."""
+    import h5py
+
+    arrays, _, _, frames = pf
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(str(directory), pf_file_name(frames))
+    with h5py.File(path, "w") as f:
+        for k, v in arrays.items():
+            f.create_dataset(k, data=v)
+    return path
+
+
+@contextlib.contextmanager
+def pf_source(pf, workdir):
+    """The CLI's PF read served from memory: a placeholder file under the
+    synthetic name in workdir (so the CLI's glob finds it), and
+    TrajectoryExtractor.load_pf_file handing pf = (arrays, G, R, frames)
+    to load_pf_arrays, as load_pf_file does with the arrays it reads.
+    Yields the directory."""
+    from graingraphnn_torch.data import extraction
+
+    def load(self, rawdat_dir, cache_dir="./data_cache"):
+        self.load_pf_arrays(*pf)
+
+    d = os.path.join(workdir, "rawdat")
+    os.makedirs(d, exist_ok=True)
+    open(os.path.join(d, pf_file_name()), "wb").close()
+    with mock.patch.object(extraction.TrajectoryExtractor, "load_pf_file",
+                           load):
+        yield d
+
+
+def pf_start(pf):
+    """The test-mode extraction of pf through the array entry and its t=0
+    sample (window 6): (traj, hg0)."""
+    from graingraphnn_torch.data import extraction
+
+    traj = extraction.TrajectoryExtractor(lxd=PF["lxd"], seed=PF["seed"],
+                                          frames=PF["frames"])
+    traj.match_graph = False
+    traj.load_pf_arrays(*pf)
+    traj.extract_frames()
+    return traj, extraction.make_test_sample(traj, span=PF["span"])
+
+
+def pf_device_span_card_vs_cpu(ttraj, dev):
+    """One span of the device-resident rollout with compare on, on the
+    card and on the CPU from ttraj's first frame (the shipped checkpoints,
+    ENGINE_SPAN's thresholds): the state after the span bit-equal on its
+    integer fields and the layer errors equal, unless a switch probability
+    lies within 1e-5 of the threshold; positions within POS_ATOL."""
+    finals, probs, res = {}, {}, {}
+    make, update = dr.make_rollout, editor_fused.update_fused
+    for d in (dev, torch.device("cpu")):
+        reg, _, _ = checkpoint.load_model("artifacts/40um/regressor0", d)
+        cls, _, _ = checkpoint.load_model("artifacts/40um/classifier1", d)
+
+        def factory(*a, _d=d.type, **k):
+            run = make(*a, **k)
+
+            def kept(st, *args, **kw):
+                out = run(st, *args, **kw)
+                finals[_d] = out[0]
+                return out
+            return kept
+
+        def keep_probs(*a, _d=d.type, **k):
+            probs.setdefault(_d, []).append(torch.sigmoid(a[1]).cpu())
+            return update(*a, **k)
+
+        with mock.patch.object(dr, "make_rollout", factory), \
+                mock.patch.object(editor_fused, "update_fused", keep_probs):
+            res[d.type] = dd.run_device_resident(
+                ttraj, reg, cls, span=PF["span"],
+                c_threshold=ENGINE_SPAN["c_threshold"],
+                r_threshold=ENGINE_SPAN["r_threshold"], compare=True,
+                growth_height=2.6, device=d)
+    near = any(bool(((p - ENGINE_SPAN["c_threshold"]).abs() < 1e-5).any())
+               for p in probs["cpu"])
+    s1, s0 = finals["cuda"], finals["cpu"]
+    ints = ["E_pp", "E_pq", "mask_g", "mask_j", "n_pp"]
+    same = all(torch.equal(getattr(s1, f).cpu(), getattr(s0, f)) for f in ints)
+    layer = {k: r["layer_err_list"] for k, r in res.items()}
+    if (not same or layer["cuda"] != layer["cpu"]) and not near:
+        raise RuntimeError(f"pf device span: topology equal {same}, layer "
+                           f"errors {layer}")
+    pos = (s1.xj[:, :2].cpu() - s0.xj[:, :2]).abs().max().item()
+    if same and not pos <= POS_ATOL:
+        raise RuntimeError(f"pf device span: positions differ by {pos}")
+    return dict(mode="device_resident", topology_equal=same,
+                threshold_adjacent=near, position_max_abs_err=pos,
+                fields=ints, layer_err_list=layer["cuda"],
+                layer_err_equal=layer["cuda"] == layer["cpu"],
+                events_pred=res["cuda"]["events_pred"])
+
+
+def phase_pf(reg, cls, dev, smi, workdir):
+    """The phase-field path on the card: (1) the synthetic PF simulation
+    built on the host (pf_truth on the CPU, synthetic_pf_arrays); (2) the
+    train-mode extraction through the array entry (frames, quarantined
+    frames, E1 switches, E2 eliminations, the calibrated span, the
+    windows), written as cli.extract writes it, merged by cli.merge and
+    trained on by cli.train (regressor0, B = 4, 2 epochs; ms a step from
+    CUDA events, peak memory); (3) the test-mode extraction and the CLI
+    without --generate, compare on, on the host engine, with --jit_editor
+    and with --device_resident --eval_every 5, each counted (the CLI's
+    JSON line, launches a span, peak memory); (4) one span of each mode
+    with compare on the card against the CPU. Returns the kernels line's
+    rows at the PF graph's shapes, launched by the device-resident run."""
+    from graingraphnn_torch.cli import extract as extract_cli
+    from graingraphnn_torch.cli import merge as merge_cli
+    from graingraphnn_torch.data import extraction
+
+    t0 = time.perf_counter()
+    pf = synthetic_pf_arrays()
+    build_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    traj = extraction.TrajectoryExtractor(lxd=PF["lxd"], seed=PF["seed"],
+                                          frames=PF["frames"])
+    traj.load_pf_arrays(*pf)
+    traj.extract_frames()
+    span = extraction.calibrate_span(traj)
+    samples = extraction.make_training_samples(traj, span=span)
+    train_extract_s = time.perf_counter() - t0
+    extracted = dict(
+        frames=len(traj.states), quarantined=traj.save_frame.count(False),
+        quarantined_frames=[t for t, ok in enumerate(traj.save_frame)
+                            if not ok],
+        e1_switches=len(set.union(*traj.edge_events)) // 2,
+        e2_eliminations=len(set.union(*traj.grain_events)),
+        calibrated_span=span, windows=len(samples), seconds=train_extract_s)
+    if not samples or extracted["quarantined"] == len(traj.states):
+        raise RuntimeError(f"pf extraction: {extracted}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        extract_cli.dump_states(samples, os.path.join(
+            workdir, f"seed{PF['seed']}_span{span}_train.pkl"))
+        merged = os.path.join(workdir, "pf_train.pkl")
+        merge_cli.main(["--glob", os.path.join(workdir, "seed*_train.pkl"),
+                        "--out", merged])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepTimer() as timer:
+        log = train_cli(["--dataset", merged, "--epochs", str(PF["epochs"]),
+                         "--model_dir", os.path.join(workdir, "pf_model"),
+                         "--config", "artifacts/40um/regressor0.json"])
+    ms = timer.ms()
+    trained = dict(seconds=time.perf_counter() - t0, steps=len(ms),
+                   batch=checkpoint.load_hp(
+                       "artifacts/40um/regressor0").batch_size,
+                   ms_per_step=sum(ms) / len(ms),
+                   ms_per_step_after_first=sum(ms[1:]) / max(len(ms) - 1, 1),
+                   step_ms=ms,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   log_tail=log.strip().splitlines()[-2:])
+
+    t0 = time.perf_counter()
+    ttraj, hg0 = pf_start(pf)
+    test_extract_s = time.perf_counter() - t0
+    runs = {}
+    with torch.no_grad(), pf_source(pf, workdir) as rawdat:
+        base = ["--model_dir", "artifacts/40um", "--seed", str(PF["seed"]),
+                "--rawdat_dir", rawdat]
+        engine_cli(base)                              # warm-up
+        for name, extra, editor in (
+                ("host", [], 0), ("jit_editor", ["--jit_editor"], 1),
+                ("device_resident", ["--device_resident", "--eval_every",
+                                     str(PF["eval_every"])], 1)):
+            torch.cuda.synchronize()
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            line = engine_cli(base + extra)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = counted_launches()
+            engine_launches_ok(launches, 2, PF["spans"], editor)
+            if line["final_layer_error"] is None or line["KS"] is None:
+                raise RuntimeError(f"pf {name}: no comparison: {line}")
+            runs[name] = dict(
+                cli=line, seconds=wall, launches=jsonable(launches),
+                launches_per_span={k: launches[k] / PF["spans"] for k in
+                                   ("node_proj", "edge_attn", "editor")},
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+            print(json.dumps(line), flush=True)
+        device_launches = launches
+        spans = [engine_span_card_vs_cpu(jit, 0.0, dev,
+                                         start=lambda: pf_start(pf),
+                                         compare=True)
+                 for jit in (False, True)]
+        start = dd.trajectory_from_extractor(ttraj, hg0)
+        spans.append(pf_device_span_card_vs_cpu(start, dev))
+        state, _, _ = dd.init_scaled_state(start.x, start.edges, start.mask,
+                                           start.lxd, start.patch_size,
+                                           device=dev)
+        rows = shape_rows(reg, cls, state, "_pf", "pf", device_launches)
+    emit(phase="pf", nvidia_smi=smi, lxd=PF["lxd"], seed=PF["seed"],
+         G=PF["G"], R=PF["R"], truth_weights=PF["truth"],
+         data_frames=PF["frames"], build_host_s=build_s,
+         train_extraction=extracted, train=trained,
+         test_extraction_s=test_extract_s, grains=ttraj.num_regions,
+         junctions=len(hg0.feature_dicts["joint"]), cli_runs=runs,
+         reference_spans=spans)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2432,6 +2810,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_train_",
                                      dir=here) as workdir:
         train_rows = phase_train(state, smi, workdir, profile=args.profile)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_pf_",
+                                     dir=here) as workdir:
+        pf_rows = phase_pf(reg, cls, cuda, smi, workdir)
 
     kernels = [dict(row, launches=launches["by_shape"].get(key, 0))
                for key, row in conv_rows.items()]
@@ -2444,7 +2825,7 @@ def main():
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
     kernels.append(generate_row)
     kernels += gen40_rows + r240_rows + batched_rows + engine_rows
-    kernels += list(train_rows.values())
+    kernels += list(train_rows.values()) + pf_rows
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -1,11 +1,20 @@
-"""Rollout inference CLI of the port, generate mode. By default the host
-rollout engine (rollout.engine, the JAX package's default):
+"""Rollout inference CLI of the port. Without --generate it rolls the
+first frame of a phase-field (PF) simulation (the .h5 of --seed in
+--rawdat_dir, read through data.extraction) and compares with the PF
+truth (layer error, event hits, size-distribution KS):
+
+  python -m graingraphnn_torch.cli.test --rawdat_dir=rawdat_PF/40_40 \
+      --seed=10020 --model_dir=artifacts/40um [--jit_editor] [--plot3D]
+
+With --generate it rolls the seeded Voronoi starting graph of any
+(lxd, seed, G, R) (data.extraction.generate), with no truth:
 
   python -m graingraphnn_torch.cli.test --generate \
       --model_dir=artifacts/40um --seed=3 --G=4 --R=1 \
       --meltpool=cylinder --r0=20 --z0=4 [--jit_editor]
 
-and with --device_resident the device-resident rollout
+By default the host rollout engine (rollout.engine, the JAX package's
+default) runs; with --device_resident the device-resident rollout
 (rollout.device_driver), spans advancing on the card in chunks of
 --eval_every:
 
@@ -14,11 +23,10 @@ and with --device_resident the device-resident rollout
       --nucleation_density=2e-4 --meltpool=cylinder --r0=20 --z0=4 \
       --c_threshold=0.99 --eval_every=5
 
-Runs on the card unless --platform=cpu. The starting graph of any
-(lxd, seed, G, R) comes from the seeded Voronoi generator
-(data.extraction.generate), and the planar graph is rebuilt and
+Runs on the card unless --platform=cpu. The planar graph is rebuilt and
 rasterised inside the timed loop. Prints one JSON line with the JAX
-package's CLI keys.
+package's CLI keys; --plot3D (host engine) also writes the predicted
+volume as seed<seed>graph.vtk in the working directory.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ def main(argv=None):
     p = argparse.ArgumentParser("Rollout inference (PyTorch/CUDA port)")
     p.add_argument("--platform", default="gpu", choices=["gpu", "cpu"])
     p.add_argument("--model_dir", type=str, default="./model/")
-    p.add_argument("--rawdat_dir", type=str, default="",
+    p.add_argument("--rawdat_dir", type=str, default="./rawdat_PF/40_40",
                    help="phase-field data; generate mode ignores it")
     p.add_argument("--cache_dir", type=str, default="./data_cache",
                    help="phase-field cache; generate mode ignores it")
@@ -64,8 +72,8 @@ def main(argv=None):
     p.add_argument("--c_threshold", type=float, default=0.0,
                    help="override the checkpoint's edge-event threshold")
     p.add_argument("--no-compare", dest="compare", action="store_false",
-                   help="generate mode never compares (no phase-field "
-                        "truth)")
+                   help="do not compare with the PF truth (generate mode "
+                        "never compares: it has none)")
     p.set_defaults(compare=True)
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--device_resident", action="store_true",
@@ -87,22 +95,24 @@ def main(argv=None):
                    help="host engine: a random (G, R) schedule by height")
     p.add_argument("--interp_frames", type=int, default=0,
                    help="host engine: rasters blended between spans")
+    p.add_argument("--plot3D", dest="plot3d", action="store_true",
+                   help="host engine: write the predicted volume as VTK")
     # options of the JAX CLI that the port refuses
-    p.add_argument("--plot3D", dest="plot3d", action="store_true")
     p.add_argument("--partition", type=int, default=0)
     p.add_argument("--pallas", action="store_true")
     args = p.parse_args(argv)
 
-    if not args.generate:
-        p.error("phase-field data (no --generate) is not ported: it needs "
-                "the phase-field extraction (data.extraction's load_pf_file "
-                "and extract)")
     for flag, given, missing in (
-            ("--plot3D", args.plot3d, "viz.volume"),
             ("--partition", args.partition, "parallel.partitioned_rollout"),
             ("--pallas", args.pallas, "the bf16 edge stage")):
         if given:
             p.error(f"{flag} is not ported: it needs {missing}")
+    if args.meltpool == "cylinder" and not args.generate:
+        p.error("--meltpool=cylinder is a generate-mode option")
+    if not args.generate and not extraction.find_pf_file(args.rawdat_dir,
+                                                         args.seed):
+        p.error(f"no phase-field file *seed{args.seed}_*.h5[.gz] in "
+                f"{args.rawdat_dir} (or pass --generate)")
     if args.device_resident:
         if args.fused_editor == "off":
             p.error("--fused_editor off: the HLO editor (rollout."
@@ -110,7 +120,8 @@ def main(argv=None):
         for flag, given in (("--jit_editor", args.jit_editor),
                             ("--clamp_gr", args.clamp_gr),
                             ("--temporal", args.temporal),
-                            ("--interp_frames", args.interp_frames)):
+                            ("--interp_frames", args.interp_frames),
+                            ("--plot3D", args.plot3d)):
             if given:
                 p.error(f"{flag} is an option of the host engine: run "
                         "without --device_resident")
@@ -138,26 +149,43 @@ def main(argv=None):
     if args.meltpool == "cylinder":
         meltpool = {"r0": args.r0, "z0": args.z0,
                     "melt_pool_angle": args.melt_pool_angle}
+    if args.generate:
+        traj = extraction.generate(args.lxd, args.seed, args.G, args.R)
+        args.compare = False
+    else:
+        traj = extraction.TrajectoryExtractor(lxd=args.lxd, seed=args.seed,
+                                              frames=121)
+        traj.match_graph = False
+        traj.extract(args.rawdat_dir, cache_dir=args.cache_dir)
+    hg0 = extraction.make_test_sample(traj, span=span)
     if args.device_resident:
-        traj = dd.generate_trajectory(args.lxd, args.seed, args.G, args.R,
-                                      span=span)
         res = dd.run_device_resident(
-            traj, reg, cls, span=span, c_threshold=c_threshold,
-            eval_every=args.eval_every, growth_height=args.growth_height,
+            dd.trajectory_from_extractor(traj, hg0), reg, cls, span=span,
+            c_threshold=c_threshold, eval_every=args.eval_every,
+            compare=args.compare, growth_height=args.growth_height,
             verbose=args.verbose, nucleation_density=args.nucleation_density,
             seed=args.seed, meltpool=meltpool, device=device)
     else:
-        traj = extraction.generate(args.lxd, args.seed, args.G, args.R)
-        hg0 = extraction.make_test_sample(traj, span=span)
         engine = RolloutEngine(reg, cls, c_threshold=c_threshold,
                                seed=args.seed, verbose=args.verbose,
                                jit_editor=args.jit_editor, device=device)
         res = engine.run(
-            hg0, traj, span=span, compare=False,
+            hg0, traj, span=span, compare=args.compare,
             growth_height=args.growth_height,
             nucleation_density=args.nucleation_density,
             temporal=args.temporal, interp_frames=args.interp_frames,
-            clamp_gr=clamp, meltpool=meltpool)
+            collect_fields=args.plot3d, clamp_gr=clamp, meltpool=meltpool)
+    if args.plot3d and res["alpha_field_list"]:
+        from ..viz.volume import GrainVisual
+
+        gv = GrainVisual(lxd=args.lxd, seed=args.seed,
+                         height=traj.final_height)
+        out = gv.graph_recon(
+            traj.theta_z, res["alpha_field_list"],
+            span=span // (args.interp_frames + 1), frames=121,
+            mesh_size=0.08, ini_height=traj.ini_height,
+            final_height=traj.final_height, out=f"seed{args.seed}graph.vtk")
+        print("wrote", out)
     print(json.dumps({
         "final_layer_error": res["final_layer_error"],
         "mean_layer_error": res["mean_layer_error"],

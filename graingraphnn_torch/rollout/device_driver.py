@@ -1,21 +1,23 @@
 """Driver of the device-resident rollout: the starting graph, the
-patch-rescaled starting state and the generate-mode run with its
-quantities of interest.
+patch-rescaled starting state and the run with its quantities of
+interest.
 
 `generate_trajectory` makes the starting graph of any (lxd, seed, G, R)
 with the seeded Voronoi generator (data.extraction); `load_trajectory`
-reads the committed 120 um one. For domains larger than the 40 um
-training patch, local geometry is scaled to the training distribution,
-with per-joint offsets kept for reconstruction in global coordinates.
+reads the committed 120 um one; `trajectory_from_extractor` takes any
+extractor's first frame, a phase-field (PF) one's with its truth. For
+domains larger than the 40 um training patch, local geometry is scaled
+to the training distribution, with per-joint offsets kept for
+reconstruction in global coordinates.
 `run_device_resident` advances the spans on the device in chunks of
 `eval_every` (rollout.device_rollout) and pulls the state to the host
 between chunks for the QoIs (rollout.qoi) and the planar reconstruction
 (graph.planar: the grain polygons rebuilt from the junction incidence
 and, with reconstruct=True, rasterised), both inside the timed loop.
 
-Scope: generate mode (no phase-field truth), periodic boundary, with
-nucleation and the moving melt pool. The comparison with a phase-field
-truth (layer error, KS) and the partitioned rollout are not ported.
+Scope: the periodic boundary, with nucleation and the moving melt pool,
+and with compare=True the PF truth's layer error, event hits and
+size-distribution KS. The partitioned rollout is not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from ..graph import schema
 from ..graph.planar import PlanarGraph
 from . import device_rollout as dr
 from . import topology_jit as tj
-from .qoi import event_hit_rate, misorientation_curve, volume_graph
+from .qoi import (event_hit_rate, misorientation_curve, size_distribution_ks,
+                  volume_graph, volume_truth)
 
 TRAIN_DELTA_Z = 0.4   # layer height of one training frame
 NUCLEATION_SLACK = 256
@@ -56,7 +59,8 @@ def load_fixture(path: str = FIXTURE_120):
 
 @dataclasses.dataclass
 class Trajectory:
-    """A generate-mode starting graph with the metadata the driver reads."""
+    """A starting graph with the metadata the driver reads and, from a PF
+    extractor, the truth compare=True reads."""
     x: Dict[str, np.ndarray]
     edges: Dict[str, np.ndarray]
     mask: Dict[str, np.ndarray]
@@ -74,11 +78,19 @@ class Trajectory:
     bc: str
     lyd: float
     imagesize: Tuple[int, int]   # the frame-0 raster's (x, y) size
+    # the PF truth: grain ids [x, y, PF frame], eliminated grain ids of each
+    # PF frame, volumes [num_regions, PF frame], training frames a PF frame
+    alpha_pde_frames: Optional[np.ndarray] = None
+    grain_events: Optional[list] = None
+    totalV_frames: Optional[np.ndarray] = None
+    extraV_frames: Optional[np.ndarray] = None
+    frame_ratio: int = 1
 
 
 def trajectory_from_extractor(traj, hg0) -> Trajectory:
-    """The Trajectory of a generate-mode extractor (data.extraction) and
-    its t=0 sample (make_test_sample), with the fixture's dtypes."""
+    """The Trajectory of an extractor (data.extraction, generate or PF
+    mode) and its t=0 sample (make_test_sample), with the fixture's
+    dtypes; a PF extractor's truth comes along."""
     pull, connect = schema.EDGE_TYPES[1], schema.EDGE_TYPES[2]
     x_joint = np.asarray(hg0.feature_dicts["joint"], np.float64)
     area0 = traj.area_traj[0]
@@ -99,7 +111,12 @@ def trajectory_from_extractor(traj, hg0) -> Trajectory:
         final_height=float(traj.final_height),
         G=float(traj.physical_params["G"]),
         R=float(traj.physical_params["R"]), seed=int(traj.seed),
-        bc=traj.BC, lyd=float(traj.lyd), imagesize=tuple(traj.imagesize))
+        bc=traj.BC, lyd=float(traj.lyd), imagesize=tuple(traj.imagesize),
+        alpha_pde_frames=getattr(traj, "alpha_pde_frames", None),
+        grain_events=list(traj.grain_events) or None,
+        totalV_frames=getattr(traj, "totalV_frames", None),
+        extraV_frames=getattr(traj, "extraV_frames", None),
+        frame_ratio=int(getattr(traj, "train_test_frame_ratio", 1)))
 
 
 def generate_trajectory(lxd: float, seed: int, G: float, R: float,
@@ -197,24 +214,26 @@ def run_device_resident(
     meltpool: Optional[Dict] = None,
     device="cuda",
 ) -> Dict:
-    """Generate-mode rollout of traj's starting graph with the models on
-    `device`: spans run on the device in chunks of eval_every (a last
-    partial chunk runs whole), and areas and excess volumes are pulled
-    after each chunk. nucleation_density > 0 nucleates (per-joint uniform
+    """Rollout of traj's starting graph with the models on `device`:
+    spans run on the device in chunks of eval_every (a last partial chunk
+    runs whole), and areas and excess volumes are pulled after each
+    chunk. nucleation_density > 0 nucleates (per-joint uniform
     draws from numpy.random.default_rng(seed), taken per chunk at the joint
     rows' capacity); meltpool = {r0, z0, melt_pool_angle} sweeps the moving
     melt pool across the domain, which sets the number of spans. Each
     observation (frame 0, then after every chunk) rebuilds the planar
     graph from E_pq/E_pp and, with reconstruct=True, rasterises it at
-    reconst_mesh_size. Returns the result dict (event counts,
-    elimination-budget deferrals, live grains, misorientation per
-    observed layer; no layer error or KS: there is no truth to compare
-    with)."""
-    if compare:
-        raise NotImplementedError(
-            "compare=True: the phase-field truth QoIs (layer error, KS) "
-            "need the phase-field extraction (data.extraction's load_pf_file "
-            "and extract), which is not ported")
+    reconst_mesh_size. compare=True holds each observation's raster
+    against the PF truth's frame (layer error; frame 0 the baseline), the
+    predicted eliminations against the truth's, and the last volumes'
+    size distribution against the truth's (KS); it needs traj's PF truth.
+    Returns the result dict (event counts and hits, layer errors,
+    elimination-budget deferrals, live grains, misorientation per observed
+    layer, and with compare the KS)."""
+    if compare and traj.alpha_pde_frames is None:
+        raise ValueError("compare=True needs a trajectory with a phase-field "
+                         "truth (trajectory_from_extractor of a PF "
+                         "extractor)")
     if partition:
         raise NotImplementedError(
             "partition: the partitioned rollout "
@@ -241,9 +260,12 @@ def run_device_resident(
         frames_total = int(np.floor((1 - melt_term["win"]) / melt_gap)) \
             * span + 1
     frames = list(range(span, frames_total, span))
+    frame_ratio = traj.frame_ratio
+    events_truth_sets = traj.grain_events or [set()] * frames_total
 
     area_traj = [dict(traj.area0)]
     extraV_traj = []
+    layer_err_list = []
     grain_event_list: list = []
     grain_acc_list = [(traj.ini_height, 0, 0, 0)]
     pg = PlanarGraph(bc=traj.bc, imagesize=traj.imagesize)
@@ -253,8 +275,9 @@ def run_device_resident(
                  if reconstruct else (0, 0))
 
     def observe(state: dr.DeviceRolloutState, frame: int):
-        """Areas and excess volumes of the live grains, and the planar
-        graph rebuilt (and rasterised) from the junction incidence, on the
+        """Areas and excess volumes of the live grains, the planar graph
+        rebuilt (and rasterised) from the junction incidence, and with
+        compare the raster's layer error against the truth's frame, on the
         host."""
         xg = state.xg.cpu().numpy().astype(np.float64)
         xj = state.xj.cpu().numpy().astype(np.float64)
@@ -285,6 +308,14 @@ def run_device_resident(
         pg.rebuild_regions()
         if reconstruct:
             pg.rasterize(imagesize)
+        if compare:
+            t_idx = min(frame // frame_ratio,
+                        traj.alpha_pde_frames.shape[2] - 1)
+            pg.layer_error(traj.alpha_pde_frames[:, :, t_idx].T)
+            layer_err_list.append((traj.ini_height + frame * TRAIN_DELTA_Z,
+                                   pg.error_layer))
+            if verbose:
+                print(f"frame {frame}: layer error {pg.error_layer:.4f}")
 
     nuc_density_term = (nucleation_density * traj.lxd * traj.lxd
                         * TRAIN_DELTA_Z if nuc else 0.0)
@@ -326,8 +357,11 @@ def run_device_resident(
         done += steps_here
         frame = frames[done - 1]
         observe(st, frame)
-        # generate mode: no phase-field events to hit
-        tp, n_truth, n_pred = event_hit_rate(set(grain_event_list), set())
+        truth = set()
+        for s_ in events_truth_sets[: frame // frame_ratio + 1]:
+            truth |= set(s_)
+        truth = {int(i) - 1 for i in truth}
+        tp, n_truth, n_pred = event_hit_rate(set(grain_event_list), truth)
         height = traj.ini_height + frame * TRAIN_DELTA_Z
         grain_acc_list.append((height, n_truth, n_pred, tp))
         if verbose:
@@ -337,9 +371,10 @@ def run_device_resident(
     result = {
         "inference_time": elapsed,
         "grain_acc_list": grain_acc_list,
-        "layer_err_list": [],
-        "final_layer_error": None,
-        "mean_layer_error": None,
+        "layer_err_list": layer_err_list,
+        "final_layer_error": layer_err_list[-1][1] if layer_err_list else None,
+        "mean_layer_error": (float(np.mean([e for _, e in layer_err_list]))
+                             if layer_err_list else None),
         "events_tp": grain_acc_list[-1][3],
         "events_truth": grain_acc_list[-1][1],
         "events_pred": grain_acc_list[-1][2],
@@ -360,4 +395,12 @@ def run_device_resident(
         new_rows = st.xg.cpu().numpy()[len(theta_z) - 1: n_vol, 5]
         theta_pad[len(theta_z):] = np.arccos(np.clip(new_rows, -1.0, 1.0))
     result["misorientation"] = misorientation_curve(theta_pad, vol_pred)
+    if compare and traj.totalV_frames is not None:
+        vol_truth = volume_truth(
+            traj.totalV_frames, traj.extraV_frames, span, frames_total,
+            traj.ini_height, final_height, traj.mesh_size,
+            traj.imagesize[0], frame_ratio)
+        ks, p, err_mu = size_distribution_ks(vol_pred[-1], vol_truth[-1],
+                                             traj.mesh_size)
+        result.update({"KS": ks, "KS_p": p, "size_err": err_mu})
     return result

@@ -339,6 +339,37 @@ def test_engine_span_on_the_card_matches_the_cpu(jit_editor, density):
 
 
 @pytest.fixture(scope="module")
+def pf121():
+    """chip_smoke's synthetic phase-field simulation (121 frames) in
+    memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return chip_smoke.synthetic_pf_arrays()
+
+
+@pytest.mark.parametrize("mode", ["host", "jit_editor", "device_resident"])
+def test_pf_span_with_compare_on_the_card_matches_the_cpu(pf121, mode):
+    """One span with compare on from the synthetic PF simulation's first
+    frame (test-mode extraction), on the card and on the CPU: the host
+    engine with either editor, and the device-resident rollout. Topology
+    bit-equal and the layer errors equal unless a switch probability lies
+    within 1e-5 of the threshold, positions within 1e-5."""
+    dev = card()
+    with torch.no_grad():
+        if mode == "device_resident":
+            traj, hg0 = chip_smoke.pf_start(pf121)
+            out = chip_smoke.pf_device_span_card_vs_cpu(
+                dd.trajectory_from_extractor(traj, hg0), dev)
+        else:
+            out = chip_smoke.engine_span_card_vs_cpu(
+                mode == "jit_editor", 0.0, dev,
+                start=lambda: chip_smoke.pf_start(pf121), compare=True)
+    assert len(out["layer_err_list"]) == 2
+    assert (out["topology_equal"] and out["layer_err_equal"]) or \
+        out["threshold_adjacent"]
+
+
+@pytest.fixture(scope="module")
 def gen40():
     """The generated 40 um starting graph (seed 3, G 4, R 1)."""
     if not torch.cuda.is_available():

@@ -145,14 +145,16 @@ def test_cli_generate_prints_the_json_line(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--generate", "--plot3D"], ["--temporal"], ["--interp_frames", "2"],
+    [], ["--generate", "--plot3D", "--device_resident"], ["--temporal"],
+    ["--interp_frames", "2"],
     ["--plot3D"], ["--partition", "4"], ["--pallas"],
     ["--fused_editor", "off"], ["--jit_editor"], ["--clamp_gr", "1,2,1,2"],
     ["--generate", "--partition", "4"], ["--generate", "--pallas"],
     ["--generate", "--clamp_gr", "1,2"]])
 def test_cli_refuses_what_is_not_ported(extra):
-    """PF data (no --generate); on the host engine (extras that start with
-    --generate) plot3D, partition, pallas and a malformed clamp; on the
+    """PF data (no --generate) with no PF file in --rawdat_dir; plot3D on
+    the device-resident rollout; on the host engine (extras that start
+    with --generate) partition, pallas and a malformed clamp; on the
     device-resident rollout the host engine's options and the options of
     other paths: each ends in an argument error."""
     base = [] if not extra or extra[0] == "--generate" else [
