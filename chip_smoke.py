@@ -51,7 +51,17 @@ host engine's 20-span truth at the real fixture's recipe, 40 um, seed
 entry with cli.merge and cli.train on the windows, and cli.test without
 --generate, compare on, on the host engine, with --jit_editor and with
 --device_resident, counted, with one span of each against the CPU and
-the kernels at the PF graph's shapes.
+the kernels at the PF graph's shapes, (15) the partitioned rollout (last
+in the run): D ranks of parallel.mesh.launch on the one card over gloo
+(NCCL takes a card per rank), each launching the kernels on its own
+stripe: 20 spans of the 120 um fixture at D = 4, each span held to the
+one-device span from the same state; 5 spans of the 240 um graph at
+D = 8 on the column tables, trajectory-equal to the one-device run; 5
+spans at D = 1 over NCCL; cli.test --partition 4 --device_resident on
+the PF recipe; ms a span, editor retries, bytes exchanged a conv and
+launches per rank, and the kernels at the stripes' shapes and at the
+mini edit's. The editor phase (5) also holds the kernel's cleanup mask
+to its plain version.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -62,6 +72,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -83,6 +94,9 @@ from graingraphnn_torch.graph import state as gstate
 from graingraphnn_torch.kernels import _build, edge_stage, editor_fused
 from graingraphnn_torch.models import cells, grain_nn
 from graingraphnn_torch.ops import period_conv
+from graingraphnn_torch.parallel import halo
+from graingraphnn_torch.parallel import mesh as mesh_mod
+from graingraphnn_torch.parallel import partitioned_rollout as pro
 from graingraphnn_torch.rollout import device_driver as dd
 from graingraphnn_torch.rollout import device_rollout as dr
 from graingraphnn_torch.rollout import engine as engine_mod
@@ -142,6 +156,15 @@ PF = {"lxd": 40, "seed": 10020, "G": 1.904, "R": 0.558, "span": 6,
       "spans": 20, "frames": 121, "truth": "artifacts/40um_jitter",
       "epochs": 2, "eval_every": 5}
 TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+# the partitioned rollout: D ranks on the one card over gloo (NCCL takes a
+# card per rank), each running the kernels on its own stripe. 20 spans of
+# the 120 um fixture at D = 4, each held to the one-device span from the
+# same state; 5 spans of the 240 um graph (rollout240's) at D = 8 on the
+# column tables, trajectory-equal to the one-device run; 5 spans at D = 1
+# over NCCL; cli.test --partition 4 --device_resident on the PF recipe
+PART = {"D": 4, "spans": 20, "D240": 8, "spans240": 5, "wq240": 8192,
+        "nccl_spans": 5, "cli_D": 4}
+PART_POS_ATOL = 2e-5
 PEAK_FP32 = 67e12             # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32X3 = 495e12 / 3      # H100 SXM TF32 tensor cores, 3 products per fp32 one
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -414,6 +437,42 @@ def forced_editor_inputs(tstate, seed, n_switch, n_elim):
             torch.tensor(y_grain, dtype=torch.float32, device=dev))
 
 
+def two_sided_inputs(tstate, seed=0, n_grains=3):
+    """Editor inputs (state, logits, ge, y_grain, cg) on a copy of tstate
+    in which n_grains grains are two-sided before the edit: each keeps two
+    ring junctions joined by a jj edge, the rest of its E_pq columns
+    killed, so the edit's final two-sided cleanup deletes it. The cleanup
+    mask cg [NG] (bool) spares the first of them, so the masked edit
+    differs from the unmasked one. Eight forced switches as well."""
+    rng = np.random.default_rng(seed)
+    E = tstate.E_pp.cpu().numpy()
+    Q = tstate.E_pq.cpu().numpy().copy()
+    NG = tstate.mask_g.shape[0]
+    live = np.nonzero(tstate.mask_g.cpu().numpy() > 0)[0]
+    chosen, used = [], set()
+    for g in rng.permutation(live):
+        cols = np.nonzero(Q[1] == g)[0]
+        ring = set(Q[0][cols].tolist())
+        if len(cols) < 4 or ring & used:
+            continue
+        pair = [c for c in np.nonzero(E[0] >= 0)[0]
+                if E[0, c] in ring and E[1, c] in ring]
+        if not pair:
+            continue
+        keep = (E[0, pair[0]], E[1, pair[0]])
+        Q[:, cols[~np.isin(Q[0][cols], keep)]] = -1
+        chosen.append(int(g))
+        used |= ring
+        if len(chosen) == n_grains:
+            break
+    dev = tstate.E_pp.device
+    ts = dataclasses.replace(tstate, E_pq=torch.from_numpy(Q).to(dev))
+    _, logits, ge, yg = forced_editor_inputs(ts, seed, 8, 0)
+    cg = torch.ones(NG, dtype=torch.bool, device=dev)
+    cg[chosen[0]] = False
+    return ts, logits, ge, yg, cg
+
+
 def clustered_switch_inputs(tstate, grains=range(0, 60, 7)):
     """Switches on every u<v jj edge touching the rings of a few grains, so
     later events share joints with earlier ones and the lookahead decides
@@ -524,18 +583,19 @@ def forced_out_chain(tstate, max_grains=40):
     return []
 
 
-def check_editor_case(ts, logits, ge, yg, thr, NG, active_g=None):
+def check_editor_case(ts, logits, ge, yg, thr, NG, active_g=None, cg=None):
     """The editor kernel against its plain version on CPU copies of the same
-    inputs, probabilities and melt pool windows (ts.active_j, active_g):
-    integer outputs bit-equal, floats within EDITOR_ATOL. Returns (plain
-    outputs, float max abs err)."""
+    inputs, probabilities, melt pool windows (ts.active_j, active_g) and
+    cleanup mask cg: integer outputs bit-equal, floats within EDITOR_ATOL.
+    Returns (plain outputs, float max abs err)."""
     prob = torch.sigmoid(logits)          # one tensor for both versions
-    s_k, sw_k, ex_k = editor_fused.update_from_prob(ts, prob, ge, yg, thr, NG,
-                                                    active_g=active_g)
+    s_k, sw_k, ex_k = editor_fused.update_from_prob(
+        ts, prob, ge, yg, thr, NG, active_g=active_g, cleanup_g_mask=cg)
     torch.cuda.synchronize()
     s_p, sw_p, ex_p = editor_fused.update_from_prob(
         _to(ts, "cpu"), prob.cpu(), ge.cpu(), yg.cpu(), thr, NG,
-        active_g=None if active_g is None else active_g.cpu())
+        active_g=None if active_g is None else active_g.cpu(),
+        cleanup_g_mask=None if cg is None else cg.cpu())
     for f in ("E_pp", "E_pq", "mask_g", "mask_j", "append_ptr"):
         if not torch.equal(getattr(s_k, f).cpu(), getattr(s_p, f)):
             raise RuntimeError(f"editor: {f} differs from the plain version")
@@ -605,6 +665,7 @@ def phase_editor(reg, cls, state):
              extra=int((ex_p >= 0).sum()))
     if not int((ex_p >= 0).sum()):
         raise RuntimeError("editor: the forced elimination did not happen")
+    err = max(err, editor_cleanup_mask_cases(first[0], NG))
     args = (*first, C_THRESHOLD, None)
     ms = editor_ms(args, NG)
     ts, logits, ge, yg = first
@@ -622,10 +683,49 @@ def phase_editor(reg, cls, state):
                       f"{len(cases)} cases")
 
 
-def editor_bound(args):
-    """The editor's state read once and written once, and the windows read
-    where given; the work is a dependent chain, so this bound is far below
-    its time."""
+def editor_cleanup_mask_cases(tstate, NG):
+    """The cleanup mask cg on the card: three grains made two-sided before
+    the edit (two_sided_inputs), the mask sparing one; the kernel against
+    its plain version with the mask, the spared grain alive and the
+    others deleted, and a null mask giving the bits of a mask of all ones.
+    Returns the float max abs err."""
+    err = 0.0
+    for seed in (0, 1):
+        ts, logits, ge, yg, cg = two_sided_inputs(tstate, seed)
+        (s_p, sw_p, ex_p), e = check_editor_case(ts, logits, ge, yg, 0.6, NG,
+                                                 cg=cg)
+        err = max(err, e)
+        prob = torch.sigmoid(logits)
+        null = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG)
+        ones = editor_fused.update_from_prob(
+            ts, prob, ge, yg, 0.6, NG, cleanup_g_mask=torch.ones_like(cg))
+        same = all(torch.equal(a, b) for a, b in zip(
+            (null[0].E_pp, null[0].E_pq, null[0].mask_g, null[0].xj,
+             null[1], null[2]),
+            (ones[0].E_pp, ones[0].E_pq, ones[0].mask_g, ones[0].xj,
+             ones[1], ones[2])))
+        spared = int(torch.nonzero(~cg)[0])
+        deleted_null = int((ts.mask_g != null[0].mask_g).sum())
+        deleted_mask = int((ts.mask_g.cpu() != s_p.mask_g).sum())
+        if (not same or int(s_p.mask_g[spared]) != 1
+                or int(null[0].mask_g[spared]) != 0
+                or deleted_mask != deleted_null - 1):
+            raise RuntimeError(
+                f"editor cleanup mask: null == ones {same}, spared grain "
+                f"{spared} kept {int(s_p.mask_g[spared])}, deleted "
+                f"{deleted_mask} with the mask, {deleted_null} without")
+        emit(phase="editor", case=f"cleanup_mask_{seed}", ints_equal=True,
+             max_abs_err=e, switches=int((sw_p[:, 0] >= 0).sum()),
+             grains_deleted=deleted_mask,
+             grains_deleted_null_mask=deleted_null,
+             null_equals_ones=same, extra=int((ex_p >= 0).sum()))
+    return err
+
+
+def editor_bound(args, cg=None):
+    """The editor's state read once and written once, and the windows and
+    the cleanup mask read where given; the work is a dependent chain, so
+    this bound is far below its time."""
     ts, logits, ge, yg, _thr, ag = args
     nbytes = 4 * (2 * ts.E_pp.numel() + 2 * ts.E_pq.numel()
                   + 2 * ts.xj.numel() + 2 * ts.y_joint.numel()
@@ -633,6 +733,8 @@ def editor_bound(args):
                   + logits.numel() + yg.shape[0] + ge.numel())
     if ag is not None:
         nbytes += 4 * (ts.mask_j.numel() + ts.mask_g.numel())
+    if cg is not None:
+        nbytes += 4 * cg.numel()
     return bound(nbytes)
 
 
@@ -2475,7 +2577,395 @@ def phase_pf(reg, cls, dev, smi, workdir):
          test_extraction_s=test_extract_s, grains=ttraj.num_regions,
          junctions=len(hg0.feature_dicts["joint"]), cli_runs=runs,
          reference_spans=spans)
-    return rows
+    return rows, pf, runs["device_resident"]["cli"]
+
+
+# ---------------------------------------------------------------------------
+# the partitioned rollout: D ranks of parallel.mesh.launch on the card
+# ---------------------------------------------------------------------------
+
+
+def same_topology(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in INTS + ("pull_cols", "push_cols", "connect_cols")
+               if getattr(a, f) is not None or getattr(b, f) is not None)
+
+
+def state_digest(st):
+    """sha256 of a rollout state's integer arrays, column tables and
+    positions, bytes as they are."""
+    h = hashlib.sha256()
+    for f in INTS + ("pull_cols", "push_cols", "connect_cols", "xg", "xj"):
+        v = getattr(st, f)
+        if v is not None:
+            h.update(f.encode())
+            h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pos_diff(a, b):
+    return max((getattr(a, f) - getattr(b, f)).abs().max().item()
+               for f in ("xg", "xj"))
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def partition_rank(mesh, arrays, n_spans, check, incremental=False,
+                   wq=1024):
+    """One rank of the partition phase: the partitioned rollout of the
+    host arrays (x, edges, mask, lxd, patch_size) with the shipped
+    checkpoints, n_spans spans counted after a warm-up span: launches,
+    bytes exchanged, ms a span and each span's state digest on this rank.
+    Rank 0 then holds the run
+    to the one-device rollout: check "span" steps the one-device span from
+    each span's input state, "trajectory" runs the one-device rollout from
+    the start; and keeps the first counted span's mini edit inputs
+    (CPU copies) for the kernels line. The host's ms a span in the striped
+    forward (its stripes' build apart) and in the sharded edits are read
+    on each rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    reg = checkpoint.load_model("artifacts/40um/regressor0", dev)[0].eval()
+    cls = checkpoint.load_model("artifacts/40um/classifier1", dev)[0].eval()
+    st0, offset_j, factor = dd.init_scaled_state(
+        *arrays, incremental=incremental, device=dev)
+
+    def roll():
+        return pro.PartitionedRollout(
+            reg, cls, mesh, c_threshold=C_THRESHOLD, wq=wq, wp=wq,
+            stripe_offsets=pro.stripe_offsets(arrays[0]["grain"], offset_j,
+                                              factor))
+
+    mini = []
+    orig = editor_fused.update_fused
+
+    def capture(ts, logits, ge, yg, thr, NG, **k):
+        if not mini:
+            mini.append((ts.map(lambda v: v.detach().cpu()), logits.cpu(),
+                         ge.cpu(), yg.cpu(), float(thr),
+                         k["cleanup_g_mask"].cpu()))
+        return orig(ts, logits, ge, yg, thr, NG, **k)
+
+    stage_ms = {"forward": 0.0, "stripes": 0.0, "edit": 0.0}
+
+    def timed(stage, fn):
+        def f(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync(dev)
+            stage_ms[stage] += (time.perf_counter() - t0) * 1e3
+            return out
+        return f
+
+    with torch.no_grad():
+        roll().step(st0)                             # warm-up
+        sync(dev)
+        mesh.barrier()
+        r = roll()
+        r._forward = timed("forward", r._forward)
+        halo.build_striped = timed("stripes", halo.build_striped)
+        make_editor = r._editor
+        r._editor = lambda *a: timed("edit", make_editor(*a))
+        st, states, auxs, ms = st0, [st0], [], []
+        reset_launches()
+        mesh.bytes_exchanged = mesh.exchanges = 0
+        for i in range(n_spans):
+            editor_fused.update_fused = capture if i == 0 else orig
+            try:
+                t0 = time.perf_counter()
+                st, aux = r.step(st)
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                editor_fused.update_fused = orig
+            states.append(st)
+            auxs.append(aux)
+        launches = counted_launches()
+        out = dict(rank=mesh.rank, backend=mesh.backend,
+                   transport=mesh.transport, ms_per_span=ms,
+                   stage_ms_per_span={k: v / n_spans
+                                      for k, v in stage_ms.items()},
+                   launches=jsonable(launches),
+                   by_shape=dict(launches["by_shape"]),
+                   bytes_exchanged=mesh.bytes_exchanged,
+                   exchanges=mesh.exchanges,
+                   digests=[state_digest(s) for s in states[1:]],
+                   editor_retries=[int(a["editor_retries"]) for a in auxs],
+                   switches=sum(int((a["switching"][:, 0] >= 0).sum())
+                                for a in auxs),
+                   grain_events=sum(int((a["grain_events"] >= 0).sum())
+                                    for a in auxs),
+                   finite=all(bool(torch.isfinite(st.xj).all()
+                                   & torch.isfinite(st.xg).all())
+                              for st in states))
+        if mesh.rank != 0:
+            return out
+        out["mini_edit"] = mini[0]
+        if check == "span":
+            same, pos, bit = [], [], []
+            for s_in, s_out in zip(states, states[1:]):
+                ref, _ = dr.device_step(reg, cls, s_in,
+                                        c_threshold=C_THRESHOLD)
+                same.append(same_topology(s_out, ref))
+                pos.append(pos_diff(s_out, ref))
+                bit.append(pos[-1] == 0.0)
+        else:
+            ref, aux_ref = dr.make_rollout(reg, cls, n_steps=n_spans,
+                                           c_threshold=C_THRESHOLD)(st0)
+            ev = all(np.array_equal(a["switching"],
+                                    aux_ref["switching"][k].cpu().numpy())
+                     and np.array_equal(a["grain_events"],
+                                        aux_ref["grain_events"][k].cpu()
+                                        .numpy())
+                     for k, a in enumerate(auxs))
+            same = [same_topology(st, ref) and ev]
+            pos = [pos_diff(st, ref)]
+            bit = [pos[0] == 0.0]
+        out.update(topology_equal=same, position_max_abs_diff=pos,
+                   positions_bit_equal=bit)
+        return out
+
+
+def pf_partition_rank(mesh, argv, npz):
+    """One rank of cli.test --partition on the PF recipe: the CLI's rank
+    body (its argument checks, PF extraction and run_device_resident with
+    partition=D) with the PF read served from the arrays in npz (the card
+    machine has no h5py), counted. Returns (result or None, launches,
+    editor retries, the last span's state digest)."""
+    from graingraphnn_torch.cli import test as test_cli
+    from graingraphnn_torch.data import extraction
+
+    with np.load(npz) as z:
+        pf = ({k[2:]: z[k] for k in z.files if k.startswith("a_")},
+              float(z["G"]), float(z["R"]), int(z["frames"]))
+
+    def load(self, rawdat_dir, cache_dir="./data_cache"):
+        self.load_pf_arrays(*pf)
+
+    step, seen = pro.PartitionedRollout.step, {"retries": 0}
+
+    def counted_step(self, st):
+        st2, aux = step(self, st)
+        seen["retries"] += aux["editor_retries"]
+        seen["digest"] = state_digest(st2)
+        return st2, aux
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    with torch.no_grad(), mock.patch.object(
+            extraction.TrajectoryExtractor, "load_pf_file", load), \
+            mock.patch.object(pro.PartitionedRollout, "step",
+                              counted_step), \
+            contextlib.redirect_stdout(io.StringIO()):
+        res = test_cli._partition_rank(mesh, argv)
+    return (res, jsonable(counted_launches()), seen["retries"],
+            seen.get("digest"))
+
+
+def check_partition_run(name, res, n_spans, D, backend):
+    """D ranks on `backend`; every rank launched 12 node_proj and 12
+    edge_attn a span and the editor once a span and once per retry, and
+    left every span in the same state as rank 0 (equal digests), which
+    rank 0 held to the one-device rollout."""
+    if len(res) != D:
+        raise RuntimeError(f"partition {name}: {len(res)} ranks, not {D}")
+    for r in res:
+        l, retries = r["launches"], sum(r["editor_retries"])
+        if r["backend"] != backend:
+            raise RuntimeError(f"partition {name}: rank {r['rank']} on "
+                               f"{r['backend']}, not {backend}")
+        if (l["node_proj"] != 12 * n_spans or l["edge_attn"] != 12 * n_spans
+                or l["editor"] != n_spans + retries or not r["finite"]):
+            raise RuntimeError(f"partition {name}: rank {r['rank']} "
+                               f"launches {l}, retries {retries}")
+        if r["digests"] != res[0]["digests"]:
+            raise RuntimeError(f"partition {name}: rank {r['rank']}'s "
+                               "states differ from rank 0's")
+    top = res[0]
+    if not all(top["topology_equal"]):
+        raise RuntimeError(f"partition {name}: topology differs from the "
+                           f"one-device rollout: {top['topology_equal']}")
+    if not max(top["position_max_abs_diff"]) <= PART_POS_ATOL:
+        raise RuntimeError(f"partition {name}: positions differ by "
+                           f"{max(top['position_max_abs_diff'])}")
+
+
+def partition_summary(res, n_spans):
+    top = res[0]
+    conv_apps = 12 * n_spans
+    return dict(
+        ranks=len(res), backend=top["backend"], transport=top["transport"],
+        spans=n_spans, ms_per_span=top["ms_per_span"],
+        ms_per_span_mean=sum(top["ms_per_span"]) / n_spans,
+        stage_ms_per_span=top["stage_ms_per_span"],
+        editor_retries=top["editor_retries"], switches=top["switches"],
+        grain_events=top["grain_events"],
+        bytes_exchanged_per_conv=top["bytes_exchanged"] / conv_apps,
+        bytes_exchanged_per_exchange=top["bytes_exchanged"]
+        / max(top["exchanges"], 1),
+        launches_per_rank={r["rank"]: {k: r["launches"][k] for k in
+                                       ("node_proj", "edge_attn", "editor")}
+                           for r in res},
+        topology_equal=top["topology_equal"],
+        position_max_abs_diff=max(top["position_max_abs_diff"]),
+        positions_bit_equal=top["positions_bit_equal"])
+
+
+def stripe_conv_inputs(reg, cls, arrays, D, dev):
+    """The decoder's conv inputs of stripe 0 of the D-stripe layout the
+    partitioned rollout of the host arrays builds at span 0 (physical-x
+    stripes, capacities pinned with its headroom): [left | local | right]
+    source tables (Ns = 3 cap), local destination tables (Nd = cap), the
+    ELL indices into the extended tables; h from the one-device encoder."""
+    state, offset_j, factor = dd.init_scaled_state(*arrays, device=dev)
+    r = pro.PartitionedRollout(
+        reg, cls, mesh_mod.Mesh(D=D, rank=0, backend="gloo", device=dev),
+        stripe_offsets=pro.stripe_offsets(arrays[0]["grain"], offset_j,
+                                          factor))
+    graph = r.host_graph(state)
+    stripe_x = r._stripe_x(graph[0]["grain"], graph[0]["joint"])
+    caps = r._stripe_caps(*graph, stripe_x)
+    striped, meta = halo.build_striped(*graph, D, stripe_x=stripe_x, **caps)
+
+    sample, _ = dr.make_sample(state)
+    full = decoder_conv_inputs(reg, sample)
+
+    def stripes(x, kind):
+        cap = meta.grain_cap if kind == "grain" else meta.joint_cap
+        out = torch.zeros((D * cap, x.shape[1]), device=dev)
+        out[torch.from_numpy(meta.rows(kind)).to(dev)] = x
+        return out.reshape(D, cap, -1)
+
+    sg = stripes(full["push"][1], "grain")
+    sj = stripes(full["connect"][1], "joint")
+
+    def ext(t):
+        return torch.cat([t[D - 1], t[0], t[1]]).contiguous()
+
+    s0 = striped.map(lambda a: a[0].to(dev))
+    cv = reg.decoder[0].conv
+    return {
+        "push": (cv["push"], ext(sg), sj[0].contiguous(), s0.push_nbr,
+                 s0.push_len, s0.push_mask),
+        "connect": (cv["connect"], ext(sj), sj[0].contiguous(),
+                    s0.connect_nbr, s0.connect_len, s0.connect_mask),
+        "pull": (cv["pull"], ext(sj), sg[0].contiguous(), s0.pull_nbr,
+                 s0.pull_len, s0.pull_mask),
+    }
+
+
+def mini_editor_row(mini, launches):
+    """The editor kernel at the mini edit's shape (the working set's W
+    columns, the node arrays whole, the cleanup mask set) on a partitioned
+    span's own inputs: against its plain version, timed, and its bound."""
+    ts, logits, ge, yg, thr, cg = mini
+    dev = torch.device("cuda")
+    ts, logits, ge, yg, cg = (_to(ts, dev), logits.to(dev), ge.to(dev),
+                              yg.to(dev), cg.to(dev))
+    NG = ts.mask_g.shape[0]
+    _, err = check_editor_case(ts, logits, ge, yg, thr, NG, cg=cg)
+    prob = torch.sigmoid(logits)
+    ms = cuda_ms(lambda: editor_fused.update_from_prob(
+        ts, prob, ge, yg, thr, NG, cleanup_g_mask=cg), n=20)
+    t0 = time.perf_counter()
+    editor_fused.update_fused(_to(ts, "cpu"), logits.cpu(), ge.cpu(),
+                              yg.cpu(), thr, NG, cleanup_g_mask=cg.cpu())
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by = editor_bound((ts, logits, ge, yg, thr, None), cg)
+    emit(phase="partition", case="mini_edit", columns_pp=ts.E_pp.shape[1],
+         columns_pq=ts.E_pq.shape[1], grains=NG, cleanup_grains=int(cg.sum()),
+         ms=ms, plain_ms=plain_ms, max_abs_err=err)
+    return dict(name="editor_mini_edit", route="cuda",
+                source="graingraphnn_torch/csrc/editor.cu",
+                replaces=REPLACES["editor"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, launches=launches,
+                check=f"pass: integers bit-equal, floats atol {EDITOR_ATOL}, "
+                      "the first partitioned span's mini edit, cleanup mask "
+                      "set")
+
+
+def phase_partition(reg, cls, dev, smi, workdir, traj240, pf, pf_line):
+    """The partitioned rollout on the card (PART): 120 um at D = 4 over
+    gloo, each span against the one-device span; 240 um at D = 8 on the
+    column tables against the one-device run; D = 1 over NCCL; the PF
+    recipe through cli.test --partition; the kernels at the stripe shapes
+    and at the mini edit's. Returns the kernels line's rows."""
+    fixture = dd.load_fixture()
+    runs = {}
+    # the backend rule picks gloo for ranks that share the card, NCCL for
+    # the one rank that has it alone
+    for name, D, arrays, n, check, kw, backend in (
+            ("120um", PART["D"], fixture, PART["spans"], "span", {}, "gloo"),
+            ("240um", PART["D240"], (traj240.x, traj240.edges, traj240.mask,
+                                     traj240.lxd, traj240.patch_size),
+             PART["spans240"], "trajectory",
+             {"incremental": True, "wq": PART["wq240"]}, "gloo"),
+            ("120um_nccl", 1, fixture, PART["nccl_spans"], "span", {},
+             "nccl")):
+        t0 = time.perf_counter()
+        res = mesh_mod.launch(partition_rank, D, arrays, n, check,
+                              kw.get("incremental", False),
+                              kw.get("wq", 1024), device="cuda", timeout=600)
+        check_partition_run(name, res, n, D, backend)
+        runs[name] = res
+        emit(phase="partition", case=name, nvidia_smi=smi,
+             seconds=time.perf_counter() - t0, **partition_summary(res, n))
+
+    npz = os.path.join(workdir, "pf.npz")
+    arrays, G, R, frames = pf
+    np.savez(npz, G=G, R=R, frames=frames,
+             **{f"a_{k}": v for k, v in arrays.items()})
+    with pf_source(pf, workdir) as rawdat:
+        argv = ["--model_dir", "artifacts/40um", "--seed", str(PF["seed"]),
+                "--rawdat_dir", rawdat, "--device_resident", "--eval_every",
+                str(PF["eval_every"]), "--partition", str(PART["cli_D"])]
+        t0 = time.perf_counter()
+        out = mesh_mod.launch(pf_partition_rank, PART["cli_D"], argv, npz,
+                              device="cuda", timeout=600)
+        wall = time.perf_counter() - t0
+    res = out[0][0]
+    line = {"final_layer_error": res["final_layer_error"],
+            "mean_layer_error": res["mean_layer_error"],
+            "events_tp": res["events_tp"], "events_truth": res["events_truth"],
+            "events_pred": res["events_pred"], "KS": res.get("KS"),
+            "inference_time_s": round(res["inference_time"], 2)}
+    print(json.dumps(line), flush=True)
+    if line["final_layer_error"] is None or line["KS"] is None:
+        raise RuntimeError(f"partition cli: no comparison: {line}")
+    for rank, (_r, launches, retries, digest) in enumerate(out):
+        if (launches["node_proj"] != 12 * PF["spans"]
+                or launches["edge_attn"] != 12 * PF["spans"]
+                or launches["editor"] != PF["spans"] + retries):
+            raise RuntimeError(f"partition cli: rank {rank} launches "
+                               f"{launches}, retries {retries}")
+        if digest is None or digest != out[0][3]:
+            raise RuntimeError(f"partition cli: rank {rank}'s final state "
+                               "differs from rank 0's")
+    same_events = all(line[k] == pf_line[k]
+                      for k in ("events_tp", "events_truth", "events_pred"))
+    emit(phase="partition", case="cli_pf", nvidia_smi=smi,
+         ranks=PART["cli_D"], seconds=wall, cli=line,
+         one_device_cli=pf_line, same_events_as_one_device=same_events,
+         editor_retries=out[0][2],
+         launches_per_rank=[o[1] for o in out])
+    if not same_events:
+        raise RuntimeError(f"partition cli: events {line} differ from the "
+                           f"one-device CLI's {pf_line}")
+
+    top = runs["120um"][0]
+    rows = conv_kernel_rows(stripe_conv_inputs(reg, cls, fixture,
+                                               PART["D"], dev),
+                            reg.hp.layer_size, suffix="_stripe",
+                            workload="partition")
+    kernels = [dict(row, launches=top["by_shape"].get(key, 0))
+               for key, row in rows.items()]
+    kernels.append(mini_editor_row(top["mini_edit"],
+                                   top["launches"]["editor"]))
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -2812,7 +3302,10 @@ def main():
         train_rows = phase_train(state, smi, workdir, profile=args.profile)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_pf_",
                                      dir=here) as workdir:
-        pf_rows = phase_pf(reg, cls, cuda, smi, workdir)
+        pf_rows, pf, pf_line = phase_pf(reg, cls, cuda, smi, workdir)
+        with torch.no_grad():
+            partition_rows = phase_partition(reg, cls, cuda, smi, workdir,
+                                             trajs[R240["lxd"]], pf, pf_line)
 
     kernels = [dict(row, launches=launches["by_shape"].get(key, 0))
                for key, row in conv_rows.items()]
@@ -2825,7 +3318,7 @@ def main():
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
     kernels.append(generate_row)
     kernels += gen40_rows + r240_rows + batched_rows + engine_rows
-    kernels += list(train_rows.values()) + pf_rows
+    kernels += list(train_rows.values()) + pf_rows + partition_rows
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -23,6 +23,16 @@ default) runs; with --device_resident the device-resident rollout
       --nucleation_density=2e-4 --meltpool=cylinder --r0=20 --z0=4 \
       --c_threshold=0.99 --eval_every=5
 
+With --partition D it runs the partitioned rollout on D ranks spawned
+from this command (parallel.mesh.launch; implies the device-resident
+path, static and nucleation-free): halo-striped forwards, the
+column-sharded editor and the shared finalize. The ranks talk over NCCL
+when each has a card of its own, over gloo on the CPU and when they share
+one card:
+
+  python -m graingraphnn_torch.cli.test --generate --partition 4 \
+      --model_dir=artifacts/40um --seed=3 --G=4 --R=1 --eval_every=5
+
 Runs on the card unless --platform=cpu. The planar graph is rebuilt and
 rasterised inside the timed loop. Prints one JSON line with the JAX
 package's CLI keys; --plot3D (host engine) also writes the predicted
@@ -34,16 +44,18 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import torch
 
 from ..data import extraction
+from ..parallel import mesh as mesh_mod
 from ..rollout import device_driver as dd
 from ..rollout.engine import RolloutEngine
 from ..train import checkpoint
 
 
-def main(argv=None):
+def _parser():
     p = argparse.ArgumentParser("Rollout inference (PyTorch/CUDA port)")
     p.add_argument("--platform", default="gpu", choices=["gpu", "cpu"])
     p.add_argument("--model_dir", type=str, default="./model/")
@@ -97,26 +109,38 @@ def main(argv=None):
                    help="host engine: rasters blended between spans")
     p.add_argument("--plot3D", dest="plot3d", action="store_true",
                    help="host engine: write the predicted volume as VTK")
-    # options of the JAX CLI that the port refuses
-    p.add_argument("--partition", type=int, default=0)
+    p.add_argument("--partition", type=int, default=0,
+                   help="run the partitioned rollout on this many ranks "
+                        "(implies --device_resident)")
+    # an option of the JAX CLI that the port refuses
     p.add_argument("--pallas", action="store_true")
-    args = p.parse_args(argv)
+    return p
 
-    for flag, given, missing in (
-            ("--partition", args.partition, "parallel.partitioned_rollout"),
-            ("--pallas", args.pallas, "the bf16 edge stage")):
-        if given:
-            p.error(f"{flag} is not ported: it needs {missing}")
+
+def _args(argv):
+    """(args, clamp) of the command line, checked."""
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.pallas:
+        p.error("--pallas is not ported: it needs the bf16 edge stage")
+    if args.partition < 0:
+        p.error("--partition takes a number of ranks")
+    if args.partition and (args.nucleation_density > 0
+                           or args.meltpool == "cylinder"):
+        p.error("--partition covers the nucleation-free static-meltpool "
+                "rollout; nucleation and the moving melt pool run on the "
+                "single-device rollout")
     if args.meltpool == "cylinder" and not args.generate:
         p.error("--meltpool=cylinder is a generate-mode option")
     if not args.generate and not extraction.find_pf_file(args.rawdat_dir,
                                                          args.seed):
         p.error(f"no phase-field file *seed{args.seed}_*.h5[.gz] in "
                 f"{args.rawdat_dir} (or pass --generate)")
-    if args.device_resident:
+    if args.device_resident or args.partition:
         if args.fused_editor == "off":
-            p.error("--fused_editor off: the HLO editor (rollout."
-                    "topology_jit.update_jit) is not ported")
+            p.error("--fused_editor off: the port's device rollout has one "
+                    "editor, the editor kernel (topology_jit.update_jit "
+                    "runs it too)")
         for flag, given in (("--jit_editor", args.jit_editor),
                             ("--clamp_gr", args.clamp_gr),
                             ("--temporal", args.temporal),
@@ -124,18 +148,64 @@ def main(argv=None):
                             ("--plot3D", args.plot3d)):
             if given:
                 p.error(f"{flag} is an option of the host engine: run "
-                        "without --device_resident")
+                        "without --device_resident or --partition")
     clamp = None
     if args.clamp_gr:
         clamp = tuple(float(v) for v in args.clamp_gr.split(","))
         if len(clamp) != 4:
             p.error("--clamp_gr expects 'Gmin,Gmax,Rmin,Rmax'")
+    return args, clamp
 
+
+def _partition_rank(mesh, argv):
+    """One rank of `--partition D`: the rollout on this rank's device.
+    Returns the result dict on rank 0, None on the others."""
+    args, clamp = _args(argv)
+    return _run(args, clamp, mesh.device)[0]
+
+
+def main(argv=None):
+    args, clamp = _args(argv)
     device = torch.device("cuda" if args.platform == "gpu" else "cpu")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--platform=gpu: no CUDA device; pass "
+                           "--platform=cpu to run the plain versions")
+    if args.partition:
+        D = args.partition
+        argv = sys.argv[1:] if argv is None else list(argv)
+        threads = max(1, (os.cpu_count() or D) // D)
+        res = mesh_mod.launch(
+            _partition_rank, D, argv, device=device.type,
+            threads=threads if device.type == "cpu" else 0)[0]
+    else:
+        res, traj = _run(args, clamp, device)
+    if args.plot3d and res["alpha_field_list"]:
+        from ..viz.volume import GrainVisual
+
+        gv = GrainVisual(lxd=args.lxd, seed=args.seed,
+                         height=traj.final_height)
+        out = gv.graph_recon(
+            traj.theta_z, res["alpha_field_list"],
+            span=(args.span or 6) // (args.interp_frames + 1), frames=121,
+            mesh_size=0.08, ini_height=traj.ini_height,
+            final_height=traj.final_height,
+            out=f"seed{args.seed}graph.vtk")
+        print("wrote", out)
+    print(json.dumps({
+        "final_layer_error": res["final_layer_error"],
+        "mean_layer_error": res["mean_layer_error"],
+        "events_tp": res["events_tp"],
+        "events_truth": res["events_truth"],
+        "events_pred": res["events_pred"],
+        "KS": res.get("KS"),
+        "inference_time_s": round(res["inference_time"], 2),
+    }))
+
+
+def _run(args, clamp, device):
+    """The rollout the arguments ask for, on `device`. Returns (result,
+    traj); a partitioned run's ranks past 0 return (None, None)."""
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--platform=gpu: no CUDA device; pass "
-                               "--platform=cpu to run the plain versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     span = args.span or 6
@@ -158,13 +228,16 @@ def main(argv=None):
         traj.match_graph = False
         traj.extract(args.rawdat_dir, cache_dir=args.cache_dir)
     hg0 = extraction.make_test_sample(traj, span=span)
-    if args.device_resident:
+    if args.device_resident or args.partition:
         res = dd.run_device_resident(
             dd.trajectory_from_extractor(traj, hg0), reg, cls, span=span,
             c_threshold=c_threshold, eval_every=args.eval_every,
             compare=args.compare, growth_height=args.growth_height,
             verbose=args.verbose, nucleation_density=args.nucleation_density,
-            seed=args.seed, meltpool=meltpool, device=device)
+            seed=args.seed, partition=args.partition, meltpool=meltpool,
+            device=device)
+        if res is None:
+            return None, None
     else:
         engine = RolloutEngine(reg, cls, c_threshold=c_threshold,
                                seed=args.seed, verbose=args.verbose,
@@ -175,26 +248,7 @@ def main(argv=None):
             nucleation_density=args.nucleation_density,
             temporal=args.temporal, interp_frames=args.interp_frames,
             collect_fields=args.plot3d, clamp_gr=clamp, meltpool=meltpool)
-    if args.plot3d and res["alpha_field_list"]:
-        from ..viz.volume import GrainVisual
-
-        gv = GrainVisual(lxd=args.lxd, seed=args.seed,
-                         height=traj.final_height)
-        out = gv.graph_recon(
-            traj.theta_z, res["alpha_field_list"],
-            span=span // (args.interp_frames + 1), frames=121,
-            mesh_size=0.08, ini_height=traj.ini_height,
-            final_height=traj.final_height, out=f"seed{args.seed}graph.vtk")
-        print("wrote", out)
-    print(json.dumps({
-        "final_layer_error": res["final_layer_error"],
-        "mean_layer_error": res["mean_layer_error"],
-        "events_tp": res["events_tp"],
-        "events_truth": res["events_truth"],
-        "events_pred": res["events_pred"],
-        "KS": res.get("KS"),
-        "inference_time_s": round(res["inference_time"], 2),
-    }))
+    return res, traj
 
 
 if __name__ == "__main__":

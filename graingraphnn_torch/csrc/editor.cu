@@ -11,7 +11,9 @@
 // finish with a two-sided cleanup. The moving melt pool's active windows
 // aj [NJ] and ag [NG] gate the switches (both endpoints active) and the
 // ring collapses (the grain and every junction of its ring active); the
-// static melt pool passes all ones.
+// static melt pool passes all ones. The cleanup mask cg [NG] (null: all
+// ones) limits the two-sided cleanups to the grains it sets; the
+// working-set editor passes its footprint.
 //
 // Bound on this card: latency and instruction issue. The edit is a chain
 // of dependent steps, each a few scalar decisions fed by a scan over E_pp
@@ -76,6 +78,7 @@ struct Ed {                        // editor state
   int* mg; int NG;                 // grain mask
   int* mj;                         // joint mask
   const int* aj; const int* ag;    // active windows of joints and grains
+  const int* cg;                   // two-sided cleanup's grain mask (null: all)
   int* cnt;                        // [num_grains] ring counts
   float* cp; int* cc;              // [EP] candidate switches (prob, column)
   int* jo; int* jc;                // E_pq columns by junction (index_junctions)
@@ -688,7 +691,8 @@ __device__ __noinline__ bool ring_collapse(Ed& S, int g, const float* yg0) {
 }
 
 // Delete every grain left with one or two live ring edges (at most
-// `budget`, ascending id) into s_drop[budget] (-1 where none). The ring
+// `budget`, ascending id) whose cleanup mask is set into s_drop[budget]
+// (-1 where none). The ring
 // counts are rebuilt from E_pq with atomics on S.cnt.
 __device__ __noinline__ void two_sided_cleanup(Ed& S, int num_grains, int budget) {
   int* const cnt = S.cnt;
@@ -700,7 +704,8 @@ __device__ __noinline__ void two_sided_cleanup(Ed& S, int num_grains, int budget
     if (v >= 0 && v < num_grains) atomicAdd(&cnt[v], 1);
   }
   __syncthreads();
-  first_k([&](int g) { return cnt[g] > 0 && cnt[g] <= 2; },
+  const int* const cg = S.cg;
+  first_k([&](int g) { return cnt[g] > 0 && cnt[g] <= 2 && (!cg || cg[g]); },
           num_grains, budget, -1);
   if ((int)threadIdx.x < budget) s_tg[threadIdx.x] = s_fk[threadIdx.x];
   __syncthreads();
@@ -832,6 +837,7 @@ __global__ void __launch_bounds__(NT) editor_kernel(
     s_S.mj += b * G.NJ;
     s_S.aj += b * G.NJ;
     s_S.ag += b * G.NG;
+    if (G.cg) s_S.cg += b * G.NG;
     s_S.cnt += b * scr;
     s_S.cp += b * scr;
     s_S.cc += b * scr;
@@ -858,15 +864,16 @@ const char* ggnn_error_string(int err) {
 // Each lane's arrays are contiguous and follow the previous lane's: pp
 // [B, 2, EP], pq [B, 2, EQ], xj [B, NJ, xs], yj [B, NJ, 2], mg [B, NG],
 // mj [B, NJ], ptr [B], prob [B, EP], yg0 [B, NG], ge [B, GE], the active
-// windows aj [B, NJ] and ag [B, NG]; writes sw [B, MS, 2] and extra
+// windows aj [B, NJ] and ag [B, NG], the cleanup mask cg [B, NG] (null:
+// every grain); writes sw [B, MS, 2] and extra
 // [B, max_extra]. scratch is [B, num_grains + 2 * EP + NJ + 1 + EQ]
 // int32. MS and GE are per-lane budgets.
 int editor_update(int B, int* pp, int EP, int* pq, int EQ, float* xj,
                   int NJ, int xs, float* yj, int* mg, int* mj, int NG,
                   const float* prob, const float* yg0, const int* ge, int GE,
-                  const int* aj, const int* ag, float threshold,
-                  int num_grains, int MS, int* ptr, int* sw, int* extra,
-                  int* scratch, int max_extra, void* stream) {
+                  const int* aj, const int* ag, const int* cg,
+                  float threshold, int num_grains, int MS, int* ptr, int* sw,
+                  int* extra, int* scratch, int max_extra, void* stream) {
   const int ts_budget = GE > MAX_TWOSIDED ? GE : MAX_TWOSIDED;
   if (B < 1 || MS < 0 || MS > MAX_MS || GE < 0 || GE > MAX_GE ||
       ts_budget > KMAX || xs < 8 || EP < 1 || EQ < 1 || num_grains > NG)
@@ -874,7 +881,8 @@ int editor_update(int B, int* pp, int EP, int* pq, int EQ, float* xj,
   const int scr = num_grains + 2 * EP + NJ + 1 + EQ;
   int* const jo = scratch + num_grains + 2 * EP;
   Ed S{pp, pp + EP, EP, pq, pq + EQ, EQ, NJ, xj, xs, yj,
-       mg, NG, mj, aj, ag, scratch, reinterpret_cast<float*>(scratch + num_grains),
+       mg, NG, mj, aj, ag, cg, scratch,
+       reinterpret_cast<float*>(scratch + num_grains),
        scratch + num_grains + EP, jo, jo + NJ + 1, 0};
   cudaGetLastError();   // clear any stale error
   editor_kernel<<<B, NT, 0, static_cast<cudaStream_t>(stream)>>>(

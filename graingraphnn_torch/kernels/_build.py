@@ -5,12 +5,16 @@ shared library with a plain C interface, `_build/lib<name>-<hash>.so`, and
 loaded with ctypes. The hash covers the sources and the flags, so an edited
 kernel is rebuilt at its first use and an unchanged one is loaded as is.
 Every C entry returns cudaGetLastError() after its launches; the bound
-function raises on anything but cudaSuccess.
+function raises on anything but cudaSuccess. Processes that build at the
+same time (the ranks of a partitioned run) take turns on a file lock in
+`_build/`, so each library is compiled once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -50,10 +54,26 @@ def _target(source: str, flags: Sequence[str]) -> str:
     return os.path.join(BUILD_DIR, f"lib{source}-{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _locked():
+    """Hold the build directory's lock (one builder at a time)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(specs: Iterable[Tuple[str, Sequence[str]]]) -> Dict[str, Dict]:
     """Compile every (source, extra flags) whose library is missing, one
     nvcc process per source, all started together. Returns build_log."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _locked():
+        return _build(specs)
+
+
+def _build(specs):
     compiler = None
     procs = []
     for source, flags in specs:

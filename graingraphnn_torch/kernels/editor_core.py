@@ -16,6 +16,10 @@ float32 values; the O(E) scans are tensor ops.
 The moving melt pool's active windows `aj` [NJ] and `ag` [NG] (int32,
 None = all ones) gate the switches (both endpoints active) and the ring
 collapses (the grain and every junction of its ring active); nothing else.
+The cleanup mask `cg` [NG] (int32, None = all ones) limits the two-sided
+cleanup to the grains it sets: the working-set editor
+(rollout/editor_workset.py) passes its footprint, whose grains are the
+only ones whose ring counts the mini graph holds whole.
 Nucleation runs after the editor (rollout/topology_jit.nucleate_jit).
 """
 
@@ -313,24 +317,31 @@ def _ring_collapse(st: EditorState, g: int, y_g0, aj, ag):
     return True, events, forces
 
 
-def _two_sided_cleanup(st: EditorState, num_grains: int, budget: int):
+def _two_sided_cleanup(st: EditorState, num_grains: int, budget: int,
+                       cg=None):
     """Delete every grain left with one or two live ring edges (at most
-    `budget`, ascending id). Returns the deleted ids [budget], -1 fills."""
+    `budget`, ascending id) whose cleanup mask cg [NG] is set (None: all
+    set). Returns the deleted ids [budget], -1 fills."""
     live = st.pq1 >= 0
     cnt = torch.bincount(st.pq1[live].long(), minlength=num_grains)
     cnt = cnt[:num_grains]
-    targets = _first_k((cnt > 0) & (cnt <= 2), budget, -1)
+    bad = (cnt > 0) & (cnt <= 2)
+    if cg is not None:
+        bad = bad & (cg[:num_grains] != 0)
+    targets = _first_k(bad, budget, -1)
     return [t if t >= 0 and delete_grain(st, t) else -1 for t in targets]
 
 
 def editor_core(st: EditorState, y_g0, prob, grain_events: List[int],
                 threshold, num_grains: int, max_switch: int, aj=None,
-                ag=None):
+                ag=None, cg=None):
     """The whole edit of one span, in place on `st`. prob [EP] float32 is
     the switch probability of each jj column; threshold a float32 scalar;
     aj [NJ] / ag [NG] int32 the melt pool's active windows (None: all
-    active). Returns (sw0, sw1 [max_switch] switched edge endpoints, extra
-    [max_extra] forced and cleaned-up grain ids), -1 fills."""
+    active); cg [NG] int32 the two-sided cleanup's grain mask (None: all
+    grains; the working-set editor passes its footprint). Returns (sw0,
+    sw1 [max_switch] switched edge endpoints, extra [max_extra] forced and
+    cleaned-up grain ids), -1 fills."""
     if aj is None:
         aj = torch.ones_like(st.mj)
     if ag is None:
@@ -364,7 +375,7 @@ def editor_core(st: EditorState, y_g0, prob, grain_events: List[int],
                     delete_grain(st, fv)
             collapsed = {v for v in L2ev if v >= 0}
             L1 = [v for v in L1 if v not in collapsed]
-            _two_sided_cleanup(st, num_grains, ts_budget)
+            _two_sided_cleanup(st, num_grains, ts_budget, cg)
 
     # pending switches whose column is still live, in order
     L1c = [v for v in L1 if _gi(st.pp0, v) >= 0]
@@ -372,6 +383,6 @@ def editor_core(st: EditorState, y_g0, prob, grain_events: List[int],
     put_extra(switch_events(st, events, len(L1c), -1, aj))
     sw0 = [_gi(st.pp0, v) for v in L1c] + [-1] * (MS - len(L1c))
     sw1 = [_gi(st.pp1, v) for v in L1c] + [-1] * (MS - len(L1c))
-    put_extra(_two_sided_cleanup(st, num_grains, ts_budget))
+    put_extra(_two_sided_cleanup(st, num_grains, ts_budget, cg))
     extra = (extra + [-1] * max_extra)[:max_extra]
     return sw0, sw1, extra

@@ -2,9 +2,10 @@
 span as ONE launch of the CUDA kernel in csrc/editor.cu (one thread block
 per lane, state in device memory) for CUDA tensors, and the plain
 sequential editor (kernels/editor_core.py) for CPU tensors. Both read the
-same switch probabilities, computed here once, and the same active windows
+same switch probabilities, computed here once, the same active windows
 of the moving melt pool (state.active_j, active_g; all ones when not
-given).
+given) and the same two-sided cleanup mask (cleanup_g_mask; every grain
+when not given).
 
 A state of one lane has fields [2, EP], [NJ, F], [NG], ... and an append
 cursor []; a state of B independent lanes has the same fields with a
@@ -36,7 +37,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # xj, NJ, xj row stride
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]     # yj, mg, mj, NG
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]     # prob, y_grain, ge, GE
-    + [ctypes.c_void_p] * 2                      # aj, ag
+    + [ctypes.c_void_p] * 3                      # aj, ag, cg
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int]   # threshold, num_grains, MS
     + [ctypes.c_void_p] * 4 + [ctypes.c_int]     # ptr, sw, extra, scratch, max_extra
     + [ctypes.c_void_p]                          # stream
@@ -56,25 +57,29 @@ def update_fused(
     num_grains: int,
     max_switch: int = tj.MAX_SWITCH,
     active_g: torch.Tensor | None = None,   # [(B,) NG] melt pool window
+    cleanup_g_mask: torch.Tensor | None = None,   # [(B,) NG] bool
 ):
     """One span's topology edit of one lane or of B lanes. Returns (state,
     switching [(B,) max_switch, 2], extra [(B,) max_extra]) with -1 fills;
     the input state is not modified. state.active_j [(B,) NJ] and active_g
-    [(B,) NG] are the melt pool's active windows (None: all active)."""
+    [(B,) NG] are the melt pool's active windows (None: all active);
+    cleanup_g_mask [(B,) NG] limits the two-sided cleanups to the grains
+    it sets (None: every grain)."""
     prob = torch.sigmoid(edge_logits.float()).contiguous()
     return update_from_prob(state, prob, grain_events, y_grain, threshold,
-                            num_grains, max_switch, active_g)
+                            num_grains, max_switch, active_g, cleanup_g_mask)
 
 
 def update_from_prob(state, prob, grain_events, y_grain, threshold,
-                     num_grains, max_switch=tj.MAX_SWITCH, active_g=None):
+                     num_grains, max_switch=tj.MAX_SWITCH, active_g=None,
+                     cleanup_g_mask=None):
     """update_fused given the switch probabilities [(B,) EP] themselves:
     the plain version for CPU tensors, the kernel for CUDA tensors."""
     if prob.device.type == "cpu":
         return _update_plain(state, prob, grain_events, y_grain, threshold,
-                             num_grains, max_switch, active_g)
+                             num_grains, max_switch, active_g, cleanup_g_mask)
     return _update_cuda(state, prob, grain_events, y_grain, threshold,
-                        num_grains, max_switch, active_g)
+                        num_grains, max_switch, active_g, cleanup_g_mask)
 
 
 def windows(state: tj.TopoState, active_g=None):
@@ -85,6 +90,15 @@ def windows(state: tj.TopoState, active_g=None):
             return torch.ones_like(like, dtype=torch.int32)
         return w.to(device=like.device, dtype=torch.int32).contiguous()
     return as_i32(state.active_j, state.mask_j), as_i32(active_g, state.mask_g)
+
+
+def cleanup_mask(cleanup_g_mask, state: tj.TopoState):
+    """The cleanup mask as contiguous int32 [(B,) NG] on the state's device,
+    or None (every grain)."""
+    if cleanup_g_mask is None:
+        return None
+    return cleanup_g_mask.to(device=state.mask_g.device,
+                             dtype=torch.int32).contiguous()
 
 
 def _clone(state: tj.TopoState) -> tj.TopoState:
@@ -102,9 +116,10 @@ def _clone(state: tj.TopoState) -> tj.TopoState:
 
 
 def _update_plain(state, prob, grain_events, y_grain, threshold, num_grains,
-                  max_switch, active_g):
+                  max_switch, active_g, cleanup_g_mask=None):
     """editor_core on each lane in turn, in place on a copy of the state."""
     aj, ag = windows(state, active_g)
+    cg = cleanup_mask(cleanup_g_mask, state)
     out = _clone(state)
     lanes = out.mask_g.shape[:-1]
     B = lanes.numel()
@@ -114,6 +129,7 @@ def _update_plain(state, prob, grain_events, y_grain, threshold, num_grains,
         B, -1, 2)
     mg, mj = out.mask_g.reshape(B, -1), out.mask_j.reshape(B, -1)
     aj, ag = aj.reshape(B, -1), ag.reshape(B, -1)
+    cg = None if cg is None else cg.reshape(B, -1)
     prob = prob.reshape(B, -1)
     yg0 = y_grain[..., 0].float().reshape(B, -1)
     ge = grain_events.reshape(B, -1)
@@ -127,7 +143,8 @@ def _update_plain(state, prob, grain_events, y_grain, threshold, num_grains,
         )
         sw0, sw1, ex = ec.editor_core(
             st, yg0[b], prob[b], ge[b].tolist(), np.float32(threshold),
-            num_grains, max_switch, aj[b], ag[b])
+            num_grains, max_switch, aj[b], ag[b],
+            None if cg is None else cg[b])
         ptr[b] = st.ptr
         switching.append(torch.tensor([sw0, sw1], dtype=torch.int32).T)
         extra.append(torch.tensor(ex, dtype=torch.int32))
@@ -136,14 +153,15 @@ def _update_plain(state, prob, grain_events, y_grain, threshold, num_grains,
 
 
 def _update_cuda(state, prob, grain_events, y_grain, threshold, num_grains,
-                 max_switch, active_g):
+                 max_switch, active_g, cleanup_g_mask=None):
     global launches
     dev = prob.device
     for name, t in (("E_pp", state.E_pp), ("E_pq", state.E_pq),
                     ("xj", state.xj), ("y_joint", state.y_joint),
                     ("mask_g", state.mask_g), ("mask_j", state.mask_j),
                     ("grain_events", grain_events), ("y_grain", y_grain),
-                    ("active_j", state.active_j), ("active_g", active_g)):
+                    ("active_j", state.active_j), ("active_g", active_g),
+                    ("cleanup_g_mask", cleanup_g_mask)):
         if t is not None and t.device != dev:
             raise ValueError(f"update_fused: {name} on {t.device}, prob on {dev}")
     lanes = tuple(state.mask_g.shape[:-1])
@@ -163,6 +181,8 @@ def _update_cuda(state, prob, grain_events, y_grain, threshold, num_grains,
             or (state.active_j is not None
                 and state.active_j.shape != (*lanes, NJ))
             or (active_g is not None and active_g.shape != (*lanes, NG))
+            or (cleanup_g_mask is not None
+                and cleanup_g_mask.shape != (*lanes, NG))
             or grain_events.shape[:-1] != lanes
             or not 0 < num_grains <= NG):
         raise ValueError("update_fused: state, probabilities and grain "
@@ -176,20 +196,22 @@ def _update_cuda(state, prob, grain_events, y_grain, threshold, num_grains,
     fn = _build.function(SOURCE, "editor_update", _ARGTYPES, NVCC_FLAGS)
     out = launch(fn, torch.cuda.current_stream(dev).cuda_stream, state, prob,
                  grain_events, y_grain, threshold, num_grains, max_switch,
-                 active_g)
+                 active_g, cleanup_g_mask)
     launches += 1
     return out
 
 
 def launch(fn, stream, state, prob, grain_events, y_grain, threshold,
-           num_grains, max_switch, active_g=None):
+           num_grains, max_switch, active_g=None, cleanup_g_mask=None):
     """Copy the state, allocate the outputs beside it and call the C entry
     `fn` (the built kernel; tests pass a CPU build of the same source) on
     checked inputs of one lane or B lanes, with the active windows of
-    state.active_j and active_g (all ones where not given). Returns
-    (state, switching, extra)."""
+    state.active_j and active_g (all ones where not given) and the cleanup
+    mask (a null pointer where not given). Returns (state, switching,
+    extra)."""
     dev = prob.device
     aj, ag = windows(state, active_g)
+    cg = cleanup_mask(cleanup_g_mask, state)
     out = _clone(state)
     lanes = out.mask_g.shape[:-1]
     B = lanes.numel()
@@ -209,7 +231,7 @@ def launch(fn, stream, state, prob, grain_events, y_grain, threshold,
         out.xj.data_ptr(), NJ, F,
         out.y_joint.data_ptr(), out.mask_g.data_ptr(), out.mask_j.data_ptr(),
         NG, prob.data_ptr(), yg0.data_ptr(), ge.data_ptr(), GE,
-        aj.data_ptr(), ag.data_ptr(),
+        aj.data_ptr(), ag.data_ptr(), None if cg is None else cg.data_ptr(),
         float(np.float32(threshold)), num_grains, max_switch,
         out.append_ptr.data_ptr(), switching.data_ptr(), extra.data_ptr(),
         scratch.data_ptr(), MX, stream,

@@ -88,16 +88,25 @@ def _lstm_update(gates: torch.Tensor, c: torch.Tensor, C: int):
     return h_new, c_new
 
 
-def _period_convs(cell, sample, xg, xj, num_gates, C, kernels):
+def _sources(xg, xj, src_gather):
+    """The source node tables of the convs: (xg, xj) themselves, or
+    src_gather(xg, xj) where the node rows are split over ranks (the halo
+    stripes' [left | local | right] tables, parallel.halo)."""
+    return (xg, xj) if src_gather is None else src_gather(xg, xj)
+
+
+def _period_convs(cell, sample, xg, xj, num_gates, C, kernels,
+                  src_gather=None):
     """(push + connect into joints, pull into grains) of a periodic cell."""
     kw = dict(num_gates=num_gates, out_channels=C, kernels=kernels)
     s = sample
-    out_push = apply_period_conv(cell.conv["push"], xg, xj, s.push_nbr,
+    xg_src, xj_src = _sources(xg, xj, src_gather)
+    out_push = apply_period_conv(cell.conv["push"], xg_src, xj, s.push_nbr,
                                  s.push_len, s.push_mask, **kw)
-    out_connect = apply_period_conv(cell.conv["connect"], xj, xj,
+    out_connect = apply_period_conv(cell.conv["connect"], xj_src, xj,
                                     s.connect_nbr, s.connect_len,
                                     s.connect_mask, **kw)
-    out_pull = apply_period_conv(cell.conv["pull"], xj, xg, s.pull_nbr,
+    out_pull = apply_period_conv(cell.conv["pull"], xj_src, xg, s.pull_nbr,
                                  s.pull_len, s.pull_mask, **kw)
     return out_push + out_connect, out_pull
 
@@ -117,14 +126,17 @@ def apply_pgclstm(
     out_channels: int,
     *,
     kernels: bool,
+    src_gather=None,
 ):
     """One recurrent step. state = (h, c), each {'grain': [NG,C],
-    'joint': [NJ,C]}."""
+    'joint': [NJ,C]}. src_gather(xg, xj) -> (xg_src, xj_src) makes the
+    convs' source tables where node rows are split over ranks; None on
+    one device."""
     C = out_channels
     h, c = state
     xg, xj = _gate_inputs(grain_in, joint_in, h)
     joint_msg, grain_msg = _period_convs(cell, sample, xg, xj, NUM_GATES, C,
-                                         kernels)
+                                         kernels, src_gather)
     joint_gates = joint_msg + cell.bias["joint"].reshape(-1)
     grain_gates = grain_msg + cell.bias["grain"].reshape(-1)
     h_g, c_g = _lstm_update(grain_gates, c["grain"], C)
@@ -207,16 +219,17 @@ def init_sage_clstm(cell: SageCLSTM, generator: torch.Generator):
 
 
 def apply_sage_clstm(cell: SageCLSTM, sample, grain_in, joint_in, state,
-                     out_channels):
+                     out_channels, src_gather=None):
     C = out_channels
     h, c = state
     xg, xj = _gate_inputs(grain_in, joint_in, h)
     s = sample
-    out_push = apply_sage_conv(cell.conv["push"], xg, xj, s.push_nbr,
+    xg_src, xj_src = _sources(xg, xj, src_gather)
+    out_push = apply_sage_conv(cell.conv["push"], xg_src, xj, s.push_nbr,
                                s.push_mask)
-    out_connect = apply_sage_conv(cell.conv["connect"], xj, xj,
+    out_connect = apply_sage_conv(cell.conv["connect"], xj_src, xj,
                                   s.connect_nbr, s.connect_mask)
-    out_pull = apply_sage_conv(cell.conv["pull"], xj, xg, s.pull_nbr,
+    out_pull = apply_sage_conv(cell.conv["pull"], xj_src, xg, s.pull_nbr,
                                s.pull_mask)
     joint_gates = out_push + out_connect + cell.bias["joint"].reshape(-1)
     grain_gates = out_pull + cell.bias["grain"].reshape(-1)
@@ -256,14 +269,15 @@ def apply_pgc(cell: PGC, sample, grain_in, joint_in, state, out_channels, *,
 
 
 def apply_cell(cell, sample, grain_in, joint_in, state, out_channels, *,
-               kind: str, kernels: bool):
+               kind: str, kernels: bool, src_gather=None):
     """kind is static config ('pgclstm' for layer 0, 'sage' for layers >= 1,
     HyperParams.cell_kinds)."""
     if kind == "pgclstm":
         return apply_pgclstm(cell, sample, grain_in, joint_in, state,
-                             out_channels, kernels=kernels)
+                             out_channels, kernels=kernels,
+                             src_gather=src_gather)
     return apply_sage_clstm(cell, sample, grain_in, joint_in, state,
-                            out_channels)
+                            out_channels, src_gather)
 
 
 def zero_state(sample: GraphSample, out_channels: int):

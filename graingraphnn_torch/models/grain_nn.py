@@ -52,7 +52,8 @@ def _init_stack(stack: nn.ModuleList, hp: HyperParams, gen):
 
 
 def _pair(hj: torch.Tensor, sample: GraphSample) -> torch.Tensor:
-    """[h_src, h_dst, length] per directed jj edge."""
+    """[h_src, h_dst, length] per directed jj edge; hj is the table the
+    sample's jj indices point into."""
     return torch.cat([hj.index_select(0, sample.jj_src.long()),
                       hj.index_select(0, sample.jj_dst.long()),
                       sample.jj_len[:, None]], dim=1)
@@ -65,7 +66,7 @@ class _EncoderDecoder(nn.Module):
         self.encoder = _stack(hp)
         self.decoder = _stack(hp)
 
-    def _apply_stack(self, stack, sample, states, kernels):
+    def _apply_stack(self, stack, sample, states, kernels, src_gather):
         C = self.hp.layer_size
         if states is None:
             states = [cells.zero_state(sample, C) for _ in stack]
@@ -73,15 +74,18 @@ class _EncoderDecoder(nn.Module):
         g_in, j_in = sample.grain_x, sample.joint_x
         for cell, kind, st in zip(stack, self.hp.cell_kinds, states):
             h, c = cells.apply_cell(cell, sample, g_in, j_in, st, C,
-                                    kind=kind, kernels=kernels)
+                                    kind=kind, kernels=kernels,
+                                    src_gather=src_gather)
             new_states.append((h, c))
             g_in, j_in = h["grain"], h["joint"]
         return new_states
 
-    def encode_decode(self, sample: GraphSample, *, kernels: bool
-                      ) -> Dict[str, torch.Tensor]:
-        enc = self._apply_stack(self.encoder, sample, None, kernels)
-        h, _c = self._apply_stack(self.decoder, sample, enc, kernels)[-1]
+    def encode_decode(self, sample: GraphSample, *, kernels: bool,
+                      src_gather=None) -> Dict[str, torch.Tensor]:
+        enc = self._apply_stack(self.encoder, sample, None, kernels,
+                                src_gather)
+        h, _c = self._apply_stack(self.decoder, sample, enc, kernels,
+                                  src_gather)[-1]
         return h
 
 
@@ -101,12 +105,18 @@ class Regressor(_EncoderDecoder):
             # sized to its input [h_src, h_dst, length], as in the JAX package
             self.lin1 = Dense((2 * head_in + 1, 1), (1,))
 
-    def forward(self, sample: GraphSample, *, kernels: bool
+    def forward(self, sample: GraphSample, *, kernels: bool,
+                src_gather=None, node_gather=None
                 ) -> Dict[str, torch.Tensor]:
         """Returns 'joint' [NJ, 2] tanh(dx, dy), 'grain' [NG, 2] (tanh
         darea, relu extraV), 'grain_area' [NG], the predicted area, and with
-        edge_len 'edge' [E], the tanh length change."""
-        h = self.encode_decode(sample, kernels=kernels)
+        edge_len 'edge' [E], the tanh length change.
+
+        Where node rows are split over ranks (parallel.halo), src_gather(xg,
+        xj) makes the convs' source tables and node_gather(hj) the table the
+        jj indices point into; None on one device."""
+        h = self.encode_decode(sample, kernels=kernels,
+                               src_gather=src_gather)
         hg, hj = h["grain"], h["joint"]
         if self.hp.history:
             w = self.hp.window
@@ -127,8 +137,9 @@ class Regressor(_EncoderDecoder):
             "grain_area": area,
         }
         if self.hp.edge_len:
+            hj_full = hj if node_gather is None else node_gather(hj)
             out["edge"] = torch.tanh(
-                _pair(hj, sample) @ self.lin1.w + self.lin1.b)[:, 0]
+                _pair(hj_full, sample) @ self.lin1.w + self.lin1.b)[:, 0]
         return out
 
 
@@ -141,12 +152,15 @@ class Classifier(_EncoderDecoder):
         self.lin1 = Dense((head_in, 2), (2,))   # length prediction
         self.lin2 = Dense((head_in, 1), (1,))   # event logit
 
-    def forward(self, sample: GraphSample, *, kernels: bool
+    def forward(self, sample: GraphSample, *, kernels: bool,
+                src_gather=None, node_gather=None
                 ) -> Dict[str, torch.Tensor]:
         """Returns 'edge_event' [E] raw logits per directed jj edge and
-        'edge' [E, 2] tanh length prediction."""
-        pair = _pair(self.encode_decode(sample, kernels=kernels)["joint"],
-                     sample)
+        'edge' [E, 2] tanh length prediction. src_gather and node_gather
+        as in Regressor.forward."""
+        hj = self.encode_decode(sample, kernels=kernels,
+                                src_gather=src_gather)["joint"]
+        pair = _pair(hj if node_gather is None else node_gather(hj), sample)
         logits = (pair @ self.lin2.w + self.lin2.b)[:, 0]
         edge = torch.tanh(pair @ self.lin1.w + self.lin1.b)
         return {"edge_event": logits, "edge": edge}

@@ -17,7 +17,9 @@ and, with reconstruct=True, rasterised), both inside the timed loop.
 
 Scope: the periodic boundary, with nucleation and the moving melt pool,
 and with compare=True the PF truth's layer error, event hits and
-size-distribution KS. The partitioned rollout is not ported.
+size-distribution KS. With partition=D it runs on each of D ranks of a
+parallel.mesh.launch as the partitioned rollout
+(parallel.partitioned_rollout), static and nucleation-free.
 """
 
 from __future__ import annotations
@@ -229,15 +231,30 @@ def run_device_resident(
     size distribution against the truth's (KS); it needs traj's PF truth.
     Returns the result dict (event counts and hits, layer errors,
     elimination-budget deferrals, live grains, misorientation per observed
-    layer, and with compare the KS)."""
+    layer, and with compare the KS).
+
+    partition=D runs the partitioned rollout on this rank of a group of D
+    ranks (call it on every rank of a parallel.mesh.launch; the state
+    lives on the rank's device, not on `device`): the halo-striped
+    forward, the column-sharded editor and the shared finalize, striped
+    by physical x where the domain is rescaled. Rank 0 observes and
+    returns the result dict, the other ranks None."""
     if compare and traj.alpha_pde_frames is None:
         raise ValueError("compare=True needs a trajectory with a phase-field "
                          "truth (trajectory_from_extractor of a PF "
                          "extractor)")
+    mesh = None
     if partition:
-        raise NotImplementedError(
-            "partition: the partitioned rollout "
-            "(parallel.partitioned_rollout) is not ported")
+        if nucleation_density > 0 or meltpool is not None:
+            raise ValueError("--partition covers the nucleation-free "
+                             "static-meltpool rollout; nucleation and the "
+                             "moving melt pool run on the single-device "
+                             "rollout")
+        from ..parallel import mesh as mesh_mod
+
+        mesh = mesh_mod.current(partition)
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     if traj.bc != "periodic":
         raise ValueError("the device-resident rollout covers the periodic "
                          "boundary only")
@@ -319,12 +336,30 @@ def run_device_resident(
 
     nuc_density_term = (nucleation_density * traj.lxd * traj.lxd
                         * TRAIN_DELTA_Z if nuc else 0.0)
-    run_chunk = dr.make_rollout(
-        regressor, classifier, n_steps=eval_every, r_threshold=r_threshold,
-        c_threshold=c_threshold, span=span,
-        nuc_density_term=nuc_density_term, melt_term=melt_term)
+    if mesh is not None:
+        from ..parallel import partitioned_rollout as pro
 
-    observe(st, 0)
+        # stripe by physical x: the scaled torus keeps the 40 um
+        # interaction range whatever the domain (PartitionedRollout)
+        roll = pro.PartitionedRollout(
+            regressor.to(device).eval(), classifier.to(device).eval(), mesh,
+            span=span, r_threshold=r_threshold, c_threshold=c_threshold,
+            stripe_offsets=pro.stripe_offsets(traj.x["grain"], offset_j,
+                                              domain_factor))
+
+        def run_chunk(s, melt_lefts=None):
+            return roll.run(s, eval_every)
+    else:
+        run_chunk = dr.make_rollout(
+            regressor, classifier, n_steps=eval_every,
+            r_threshold=r_threshold, c_threshold=c_threshold, span=span,
+            nuc_density_term=nuc_density_term, melt_term=melt_term)
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+    if lead:
+        observe(st, 0)
     t0 = time.time()
     saturated_steps = 0
     done = 0
@@ -346,9 +381,8 @@ def run_device_resident(
                                 melt_lefts)
         else:
             st, aux = run_chunk(st, melt_lefts=melt_lefts)
-        ge = aux["grain_events"].cpu().numpy()
-        extra = aux["extra_events"].cpu().numpy()
-        saturated_steps += int(aux["elim_saturated"].sum())
+        ge, extra = host(aux["grain_events"]), host(aux["extra_events"])
+        saturated_steps += int(host(aux["elim_saturated"]).sum())
 
         steps_here = min(eval_every, len(frames) - done)
         for k in range(steps_here):
@@ -356,6 +390,8 @@ def run_device_resident(
             grain_event_list.extend(int(g) for g in extra[k] if g >= 0)
         done += steps_here
         frame = frames[done - 1]
+        if not lead:
+            continue
         observe(st, frame)
         truth = set()
         for s_ in events_truth_sets[: frame // frame_ratio + 1]:
@@ -367,6 +403,8 @@ def run_device_resident(
         if verbose:
             print(f"frame {frame}: events {tp}/{n_truth} (pred {n_pred})")
     elapsed = time.time() - t0
+    if not lead:
+        return None
 
     result = {
         "inference_time": elapsed,

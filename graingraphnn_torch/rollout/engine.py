@@ -68,7 +68,13 @@ class RolloutEngine:
     classifier averages the members' probabilities and turns the mean back
     into a logit: c_threshold keeps its single-model calibration. One
     numpy Generator, default_rng(seed), held by the host editor, draws the
-    nucleation sites and orientations of both editors."""
+    nucleation sites and orientations of both editors.
+
+    halo = (mesh, D): both forwards split over the D ranks of a
+    parallel.mesh.launch with halo-exchange stripes (parallel.halo), the
+    stripes rebuilt from the moved positions each span; the editor stays
+    whole on every rank. Call run on every rank; each returns the same
+    result. Periodic boundary and single models only."""
 
     def __init__(
         self,
@@ -83,13 +89,18 @@ class RolloutEngine:
         halo: Optional[tuple] = None,
         device="cuda",
     ):
-        if halo is not None:
-            raise NotImplementedError(
-                "halo: the halo-partitioned forward (parallel.halo) is not "
-                "ported")
-        self.device = torch.device(device)
         self._ens_r = isinstance(regressor, (list, tuple))
         self._ens_c = isinstance(classifier, (list, tuple))
+        self._halo_span = self._halo_D = None
+        if halo is not None:
+            from ..parallel.halo import make_halo_span_forward
+
+            if self._ens_r or self._ens_c:
+                raise ValueError("the halo rollout takes single models, "
+                                 "not ensembles")
+            mesh, self._halo_D = halo[0], halo[1]
+            device = mesh.device
+        self.device = torch.device(device)
         self.regressors = [m.to(self.device).eval() for m in
                            (regressor if self._ens_r else [regressor])]
         self.classifiers = [m.to(self.device).eval() for m in
@@ -101,6 +112,9 @@ class RolloutEngine:
             threshold=c_threshold, rng=np.random.default_rng(seed),
             verbose=verbose)
         self.verbose = verbose
+        if halo is not None:
+            self._halo_span = make_halo_span_forward(
+                self.regressors[0], self.classifiers[0], halo[0])
 
     def _log(self, *a):
         if self.verbose:
@@ -273,7 +287,17 @@ class RolloutEngine:
 
     def _forward(self, x, edges, edge_attr, caps):
         """The forwards on the padded sample: (y_r, y_c) as float32 numpy
-        arrays on the host, and the sample on the device."""
+        arrays on the host, and the sample on the device. Under `halo`,
+        the forwards over the stripes, and no sample."""
+        if self._halo_span is not None:
+            pred = self._halo_span(
+                x, {schema.EDGE_TYPES[0]: edges["push"],
+                    schema.EDGE_TYPES[1]: edges["pull"],
+                    schema.EDGE_TYPES[2]: edges["connect"]}, edge_attr,
+                self._mask, self._halo_D)
+            y_r = {k: pred[k] for k in ("joint", "grain", "grain_area")}
+            y_c = {k: pred[k] for k in ("edge_event", "edge")}
+            return self._to_host((y_r, y_c)), None
         sample = self._sample(x, edges, edge_attr, caps).to(self.device)
         return self._to_host(self._predict(sample)), sample
 
@@ -342,6 +366,9 @@ class RolloutEngine:
             x["joint"][:, 4] = np.clip(r, r_min, r_max) / 2.0
         self._mask = mask
         self._bc = traj.BC
+        if self._halo_span is not None and traj.BC != "periodic":
+            raise ValueError("the halo-partitioned rollout covers the "
+                             "periodic boundary")
 
         # patch rescaling for domains larger than the 40 um training patch
         # (test.py:29-55,310-312): local geometry scaled to the training

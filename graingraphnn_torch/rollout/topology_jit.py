@@ -1,7 +1,8 @@
 """Editor state, the per-span event budgets of the device-side topology
-editor, and the generate-mode nucleation pass. The editor itself is
-kernels/editor_core.py (plain version) and kernels/editor_fused.py (the CUDA
-kernel's wrapper).
+editor, `update_jit` and the generate-mode nucleation pass. The editor
+itself is kernels/editor_core.py (plain version) and
+kernels/editor_fused.py (the CUDA kernel's wrapper); `update_jit` is the
+JAX package's entry of the same edit, with its two-sided cleanup mask.
 
 The nucleation pass is plain PyTorch with fixed shapes and no host sync: a
 first-k query is a top-k over negated indices, a write that JAX drops when
@@ -52,6 +53,25 @@ def map_fields(obj, fn):
     return dataclasses.replace(obj, **{
         f.name: fn(getattr(obj, f.name)) for f in dataclasses.fields(obj)
         if getattr(obj, f.name) is not None})
+
+
+def update_jit(state: TopoState, edge_logits, grain_events, y_grain,
+               threshold, num_grains: int, active_g=None,
+               max_switch: int = MAX_SWITCH, cleanup_g_mask=None):
+    """One span's topology update: edge_logits [EP] (dead columns at
+    -1e30), grain_events [GE] (grain ids by ascending area, -1 pad),
+    y_grain [NG, 2], active_g [NG] the melt pool's grain window (None: all)
+    and cleanup_g_mask [NG] bool, which limits the two-sided cleanups to
+    the grains it sets (None: every grain; the working-set editor passes
+    its footprint). The editor kernel on the card, its plain version on
+    the CPU (kernels/editor_fused.update_fused). Returns (state, switching
+    [max_switch, 2], extra [2 * GE * (RING_MAX + 1) + 2 * max_switch])."""
+    from ..kernels import editor_fused
+
+    return editor_fused.update_fused(
+        state, edge_logits, grain_events, y_grain, threshold, num_grains,
+        max_switch=max_switch, active_g=active_g,
+        cleanup_g_mask=cleanup_g_mask)
 
 
 # ---------------------------------------------------------------------------

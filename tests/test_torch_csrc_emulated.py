@@ -301,6 +301,39 @@ def test_edge_stage_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs, Fd):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("G,C,K,cap,Fs,Fd", [(4, 8, 3, 24, 19, 17),
+                                            (4, 8, 16, 20, 17, 19)])
+def test_edge_stage_source_on_halo_tables(emulated, G, C, K, cap, Fs, Fd):
+    """The halo stripes' layout (parallel.halo): 3 * cap source rows
+    [left | local | right], cap destination rows, indices into all three
+    parts; node_proj and edge_attn launched alone and fused, against the
+    plain versions."""
+    fns = [emulated(edge_stage.SOURCE, sym, args) for sym, args in (
+        ("edge_stage_forward", edge_stage._ARGTYPES),
+        ("edge_node_proj", edge_stage._PROJ_ARGTYPES),
+        ("edge_attn_forward", edge_stage._ATTN_ARGTYPES))]
+    conv, rng = _random_conv(cap + K, Fs, Fd, G, C)
+    xs = torch.from_numpy(rng.uniform(0, 1, (3 * cap, Fs)).astype(np.float32))
+    xd = torch.from_numpy(rng.uniform(0, 1, (cap, Fd)).astype(np.float32))
+    nbr = rng.integers(0, 3 * cap, (cap, K)).astype(np.int32)
+    nbr[:, 0] = np.arange(cap) % 3 * cap + np.arange(cap)   # every part
+    nbr = torch.from_numpy(nbr)
+    ln = torch.from_numpy(rng.uniform(0, 0.3, (cap, K)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=(cap, K)) < 0.8)
+                            .astype(np.float32))
+    kw = dict(num_gates=G, out_channels=C)
+    ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln, mask,
+                                              **kw)
+    out = edge_stage.launch(fns[0], 0, conv, xs, xd, nbr, ln, mask, G, C)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    proj = edge_stage.launch_node_proj(fns[1], 0, conv, xs, xd)
+    for o, r in zip(proj, period_conv.node_projections_plain(conv, xs, xd)):
+        torch.testing.assert_close(o, r, atol=1e-4, rtol=1e-4)
+    out = edge_stage.launch_edge_attn(fns[2], 0, conv, xs, xd, nbr, ln, mask,
+                                      proj, G, C)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
 def _random_conv(seed, Fs, Fd, G, C):
     rng = np.random.default_rng(seed)
     conv = period_conv.PeriodConv(Fs, Fd, C, G)
@@ -516,6 +549,42 @@ def test_editor_source_matches_plain(emulated, threads, scenario):
         assert n_extra >= 1        # the forced elimination ran
     if scenario == "windowed":
         assert n_gated == len(cases)   # the windows changed every edit
+
+
+@pytest.mark.parametrize("threads", [64, 96])
+def test_editor_source_cleanup_mask_matches_plain(emulated, threads):
+    """The cleanup mask cg: on the 120 um graph with three grains made
+    two-sided before the edit, the source with a mask that spares one of
+    them matches the plain version with that mask, and the spared grain
+    lives; a null mask gives the bits of a mask of all ones."""
+    fn = emulated(editor_fused.SOURCE, "editor_update",
+                  editor_fused._ARGTYPES, (f"EDITOR_THREADS={threads}",))
+    ts0 = _editor_cases()["forced"][0][0]
+    NG = ts0.mask_g.shape[0]
+    for seed in (0, 1):
+        ts, logits, ge, yg, cg = chip_smoke.two_sided_inputs(ts0, seed)
+        prob = torch.sigmoid(logits)
+        ref = editor_fused.update_from_prob(ts, prob, ge, yg, 0.6, NG,
+                                            cleanup_g_mask=cg)
+        out = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
+                                  tj.MAX_SWITCH, cleanup_g_mask=cg)
+        for f in ("E_pp", "E_pq", "mask_g", "mask_j", "append_ptr"):
+            assert torch.equal(getattr(out[0], f), getattr(ref[0], f)), f
+        assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+        torch.testing.assert_close(out[0].xj, ref[0].xj, atol=1e-6, rtol=0)
+        null = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
+                                   tj.MAX_SWITCH)
+        ones = editor_fused.launch(fn, 0, ts, prob, ge, yg, 0.6, NG,
+                                   tj.MAX_SWITCH,
+                                   cleanup_g_mask=torch.ones_like(cg))
+        for a, b in zip((null[0].E_pp, null[0].E_pq, null[0].mask_g,
+                         null[0].xj, null[1], null[2]),
+                        (ones[0].E_pp, ones[0].E_pq, ones[0].mask_g,
+                         ones[0].xj, ones[1], ones[2])):
+            assert torch.equal(a, b)
+        spared = int(torch.nonzero(~cg)[0])
+        assert int(null[0].mask_g[spared]) == 0
+        assert int(out[0].mask_g[spared]) == 1
 
 
 def test_editor_candidates_beyond_max_switch(emulated):

@@ -635,3 +635,64 @@ def test_train_step_on_the_card_matches_the_cpu(train_batch8, name):
     assert errs["loss_rel_err"] <= chip_smoke.TRAIN_LOSS_RTOL
     # the kernels ran only in the eval forward, never under autograd
     assert edge_stage.launches == {"node_proj": 6, "edge_attn": 6}
+
+
+def test_editor_kernel_cleanup_mask_matches_plain(state120):
+    """The cleanup mask cg on the card: chip_smoke's two-sided cases, the
+    kernel against its plain version, the spared grain alive, a null mask
+    the bits of a mask of all ones."""
+    dev = card()
+    models = [checkpoint.load_model(f"artifacts/40um/{m}", dev)[0]
+              for m in ("regressor0", "classifier1")]
+    with torch.no_grad():
+        first = chip_smoke.editor_inputs(*models, state120)
+    assert chip_smoke.editor_cleanup_mask_cases(
+        first[0], state120.xg.shape[0]) <= chip_smoke.EDITOR_ATOL
+
+
+def test_edge_stage_kernels_on_stripe_tables():
+    """node_proj and edge_attn at the halo stripes' shapes of the 120 um
+    fixture at D = 4 (3 * cap source rows, cap destination rows), against
+    their plain versions (chip_smoke.conv_kernel_rows raises past the
+    tolerance)."""
+    dev = card()
+    reg, cls = [checkpoint.load_model(f"artifacts/40um/{m}", dev)[0]
+                for m in ("regressor0", "classifier1")]
+    with torch.no_grad():
+        inputs = chip_smoke.stripe_conv_inputs(reg, cls, dd.load_fixture(),
+                                               4, dev)
+        for _c, xs, xd, nbr, *_r in inputs.values():
+            assert xs.shape[0] % 3 == 0 and xs.shape[0] > xd.shape[0]
+            assert int(nbr.max()) >= xs.shape[0] // 3
+        rows = chip_smoke.conv_kernel_rows(inputs, reg.hp.layer_size,
+                                           suffix="_stripe",
+                                           workload="partition")
+    assert len(rows) == 6
+
+
+def test_partitioned_spans_on_the_card(tmp_path):
+    """Two gloo ranks sharing the card, 2 spans of the 120 um fixture:
+    each rank launches the kernels on its stripe, and each span equals the
+    one-device span from the same state (topology bit-equal, positions
+    within 2e-5)."""
+    card()
+    from graingraphnn_torch.parallel import mesh as mesh_mod
+
+    res = mesh_mod.launch(chip_smoke.partition_rank, 2, dd.load_fixture(), 2,
+                          "span", device="cuda", store_dir=str(tmp_path))
+    chip_smoke.check_partition_run("card test", res, 2, 2,
+                                   mesh_mod.choose_backend(2, "cuda"))
+
+
+def test_partitioned_spans_over_nccl_at_one_rank(tmp_path):
+    """One rank alone on the card takes NCCL, and every collective of the
+    partitioned span goes through it (the exchange sends to itself): 2
+    spans, each equal to the one-device span."""
+    card()
+    from graingraphnn_torch.parallel import mesh as mesh_mod
+
+    res = mesh_mod.launch(chip_smoke.partition_rank, 1, dd.load_fixture(), 2,
+                          "span", device="cuda", store_dir=str(tmp_path))
+    chip_smoke.check_partition_run("card test", res, 2, 1, "nccl")
+    assert res[0]["transport"] == "device buffers over NCCL"
+    assert res[0]["bytes_exchanged"] > 0

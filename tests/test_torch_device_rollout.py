@@ -215,13 +215,13 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 def test_deferred_options_raise(setup):
     """What the port's driver refuses: the phase-field comparison on a
-    trajectory that carries no truth (the generated fixture), and the
-    partitioned rollout, which is not ported."""
+    trajectory that carries no truth (the generated fixture), and a
+    partitioned rollout outside the ranks of a launch."""
     _, (reg, cls), _, _ = setup
     traj = dd.load_trajectory()
     for kw, err, what in (({"compare": True}, ValueError, "truth"),
-                          ({"partition": 4}, NotImplementedError,
-                           "partitioned")):
+                          ({"partition": 4}, ValueError,
+                           "parallel.mesh.launch")):
         with pytest.raises(err, match=what):
             dd.run_device_resident(traj, reg, cls, device="cpu", **kw)
 

@@ -147,16 +147,19 @@ def test_cli_generate_prints_the_json_line(capsys):
 @pytest.mark.parametrize("extra", [
     [], ["--generate", "--plot3D", "--device_resident"], ["--temporal"],
     ["--interp_frames", "2"],
-    ["--plot3D"], ["--partition", "4"], ["--pallas"],
+    ["--plot3D"], ["--partition", "4", "--nucleation_density", "2e-4"],
+    ["--pallas"],
     ["--fused_editor", "off"], ["--jit_editor"], ["--clamp_gr", "1,2,1,2"],
-    ["--generate", "--partition", "4"], ["--generate", "--pallas"],
+    ["--generate", "--partition", "4", "--temporal"],
+    ["--generate", "--pallas"],
     ["--generate", "--clamp_gr", "1,2"]])
 def test_cli_refuses_what_is_not_ported(extra):
     """PF data (no --generate) with no PF file in --rawdat_dir; plot3D on
     the device-resident rollout; on the host engine (extras that start
-    with --generate) partition, pallas and a malformed clamp; on the
-    device-resident rollout the host engine's options and the options of
-    other paths: each ends in an argument error."""
+    with --generate) a partitioned run with a host engine option, pallas
+    and a malformed clamp; on the device-resident rollout the host
+    engine's options, the options of other paths and a partitioned run
+    with nucleation: each ends in an argument error."""
     base = [] if not extra or extra[0] == "--generate" else [
         "--generate", "--device_resident"]
     with pytest.raises(SystemExit):

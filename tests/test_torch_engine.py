@@ -417,8 +417,11 @@ def test_ensemble_forward_is_the_member_mean(narrow):
 
 
 def test_engine_refuses_the_halo_forward(narrow):
-    with pytest.raises(NotImplementedError, match="parallel.halo"):
-        teng.RolloutEngine(*narrow["port"], device="cpu", halo=(None, 4))
+    """The halo-partitioned forward takes single models, as in JAX: an
+    ensemble under halo is refused."""
+    reg, cls = narrow["port"]
+    with pytest.raises(ValueError, match="single models"):
+        teng.RolloutEngine([reg, reg], cls, device="cpu", halo=(None, 4))
 
 
 def cli_line(main, argv):
