@@ -60,8 +60,16 @@ D = 8 on the column tables, trajectory-equal to the one-device run; 5
 spans at D = 1 over NCCL; cli.test --partition 4 --device_resident on
 the PF recipe; ms a span, editor retries, bytes exchanged a conv and
 launches per rank, and the kernels at the stripes' shapes and at the
-mini edit's. The editor phase (5) also holds the kernel's cleanup mask
-to its plain version.
+mini edit's, (16) distributed training (last in the run): 4 ranks
+sharing the card on a (dp 2, gp 2) mesh run the partitioned forward of
+both models on the 120 um fixture (row blocks, tables all-gathered;
+12 + 12 launches a rank) against the one-device forward, one SGD(lr=1)
+step of the partitioned, halo, hybrid and dp train steps against the
+one-rank step, and cli.dist_train for each --partition (2 epochs, and 1
+epoch resumed to 2); the dp step at D = 1 over NCCL; cli.dist_train
+through its own launcher, its checkpoint through cli.test; and the
+kernels at the gathered shapes. The editor phase (5) also holds the
+kernel's cleanup mask to its plain version.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -78,6 +86,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -96,12 +105,14 @@ from graingraphnn_torch.models import cells, grain_nn
 from graingraphnn_torch.ops import period_conv
 from graingraphnn_torch.parallel import halo
 from graingraphnn_torch.parallel import mesh as mesh_mod
+from graingraphnn_torch.parallel import data_parallel, partition
 from graingraphnn_torch.parallel import partitioned_rollout as pro
 from graingraphnn_torch.rollout import device_driver as dd
 from graingraphnn_torch.rollout import device_rollout as dr
 from graingraphnn_torch.rollout import engine as engine_mod
 from graingraphnn_torch.rollout import topology, topology_jit as tj
 from graingraphnn_torch.train import checkpoint, trainer
+from graingraphnn_torch.utils import profiling
 
 N_SPANS = 20
 C_THRESHOLD = 0.99
@@ -165,9 +176,29 @@ TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
 PART = {"D": 4, "spans": 20, "D240": 8, "spans240": 5, "wq240": 8192,
         "nccl_spans": 5, "cli_D": 4}
 PART_POS_ATOL = 2e-5
-PEAK_FP32 = 67e12             # H100 SXM, fp32 outside the tensor cores
-PEAK_TF32X3 = 495e12 / 3      # H100 SXM TF32 tensor cores, 3 products per fp32 one
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+# the training half of the parallel layer on 4 ranks sharing the card
+# (gloo, staged) on a (dp 2, gp 2) mesh: the partitioned forward of both
+# models on the 120 um fixture (row blocks, tables all-gathered) against
+# the one-device forward; one SGD(lr=1) step of each distributed train
+# step from the shipped weights against the one-rank step on the train
+# phase's windows (partitioned and halo on one window, hybrid on 4, dp
+# over the dp axis on 8), the dp step at D = 1 over NCCL (4 windows);
+# cli.dist_train, each --partition for 2 epochs, and 1 epoch resumed to 2
+DIST = {"D": 4, "axes": (("dp", 2), ("gp", 2)), "hybrid_batch": 4,
+        "dp_batch": 8, "nccl_batch": 4, "epochs": 2, "halo_D": (4, 2),
+        "partitions": ("dp", "hybrid", "halo")}
+DIST_FWD_TOL = 2e-5           # atol and rtol, as JAX's tests/test_parallel.py
+# a resumed run against the uninterrupted one, and two uninterrupted runs:
+# bit-equal on the CPU, but on the card the backward's index_add (the
+# gathers' transpose) sums with atomics in no fixed order (at most 1.1e-6
+# on the H100). A resume that drops the optimizer's state is 6.5e-4 to
+# 2.5e-2 off (the planted fault, read on the CPU and on the card); the
+# limit lies between
+DIST_RESUME_RTOL = 2e-5
+# the H100 SXM's datasheet peaks, from utils.profiling
+PEAK_FP32 = profiling.H100_PEAK_FP32
+PEAK_TF32X3 = profiling.H100_PEAK_TF32X3
+PEAK_BYTES = profiling.H100_PEAK_BYTES
 REPLACES = {
     "push": "graingraphnn_tpu/kernels/edge_stage.py:58",
     "connect": "graingraphnn_tpu/kernels/edge_stage.py:58",
@@ -2969,6 +3000,385 @@ def phase_partition(reg, cls, dev, smi, workdir, traj240, pf, pf_line):
 
 
 # ---------------------------------------------------------------------------
+# distributed training
+# ---------------------------------------------------------------------------
+
+
+def params_digest(model):
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+DIST_STEPS = {"partitioned": partition.make_partitioned_train_step,
+              "halo": halo.make_halo_train_step,
+              "hybrid": partition.make_hybrid_train_step,
+              "dp": data_parallel.make_dp_train_step}
+
+
+def dist_step_check(mesh, kind, name, data, ref, axes):
+    """One SGD(lr=1) step of the distributed train step `kind` of the
+    shipped checkpoint `name` on `data`, timed; on rank 0 the one-rank
+    step's loss and gradients on `ref` (the same graphs, one packed
+    sample) from the same weights: the loss within TRAIN_LOSS_RTOL, the
+    update (= the summed gradient) within TRAIN_GRAD_ATOL +
+    TRAIN_GRAD_RTOL |g| of the one-rank gradient. Every rank returns its
+    parameters' digest and the ranks of its group."""
+    dev = mesh.device
+    model, hp, _ = checkpoint.load_model(f"artifacts/40um/{name}", dev)
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = torch.optim.SGD(model.parameters(), lr=1.0)
+    sched = torch.optim.lr_scheduler.StepLR(opt, step_size=1 << 30)
+    step = DIST_STEPS[kind](hp, model, opt, sched, mesh, **axes)
+    mesh.bytes_exchanged = mesh.bytes_gathered = mesh.bytes_reduced = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    loss = float(step(data))
+    out = {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+           "digest": params_digest(model),
+           # the ranks that reduced this step's gradients together
+           "peers": mesh.peers(axes.get("axis")),
+           "bytes_sent": {"exchange": mesh.bytes_exchanged,
+                          "all_gather": mesh.bytes_gathered,
+                          "all_reduce": mesh.bytes_reduced}}
+    if mesh.rank != 0:
+        return out
+    one, _, _ = checkpoint.load_model(f"artifacts/40um/{name}", dev)
+    l_ref, _ = trainer.make_loss_fn(hp)(one, ref, kernels=False)
+    l_ref.backward()
+    err, worst = 0.0, None
+    for (n, p), (_, q) in zip(model.named_parameters(),
+                              one.named_parameters()):
+        g = (q.grad if q.grad is not None else torch.zeros_like(q)).detach()
+        d = (p0[n] - p.detach() - g).abs()
+        if bool((d > TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * g.abs()).any()):
+            worst = worst or n
+        err = max(err, d.max().item())
+    out.update(loss_one_rank=l_ref.item(),
+               loss_rel_err=abs(loss - l_ref.item()) / abs(l_ref.item()),
+               update_max_abs_err=err, update_outside_tolerance=worst)
+    return out
+
+
+def dist_cli_runs(mesh, data, workdir, halo_D):
+    """cli.dist_train's main on this group, per --partition (a mesh on its
+    layout built anew for every run): 2 epochs; 1 epoch; a run resumed
+    from the 1-epoch checkpoint to epoch 2; and that resume with a
+    planted fault, the optimizer's and schedule's state not restored,
+    which the resume check must catch. A halo layout of fewer stripes
+    than ranks is left to the launcher (main without a mesh). Returns
+    {partition: (full, first, resumed, planted)} summaries."""
+    from graingraphnn_torch.cli import dist_train
+
+    out = {}
+    for part in DIST["partitions"]:
+        base = ["--dataset", data, "--model_type", "regressor",
+                "--model_id", "0", "--n_devices", str(mesh.D),
+                "--platform", "gpu" if mesh.device.type == "cuda" else "cpu",
+                "--partition", part] + (
+                    ["--gp", str(halo_D)] if part == "halo" else [])
+        n, axes = dist_train.layout(dist_train.parse(base), mesh.D)
+        if n != mesh.D:
+            continue
+
+        def run(extra):
+            m = mesh_mod.make_mesh(mesh.D, mesh.rank, mesh.backend,
+                                   mesh.device, axes)
+            with contextlib.redirect_stdout(io.StringIO()):
+                return dist_train.main(base + extra, mesh=m)
+
+        d = os.path.join(workdir, part)
+        full = run(["--epochs", str(DIST["epochs"]), "--model_dir",
+                    f"{d}_full"])
+        first = run(["--epochs", "1", "--model_dir", f"{d}_epoch1"])
+        resume = ["--epochs", str(DIST["epochs"]), "--resume",
+                  first["checkpoint"]]
+        resumed = run(resume + ["--model_dir", f"{d}_resumed"])
+        with mock.patch.object(checkpoint, "restore_opt_state",
+                               lambda *a: None):
+            planted = run(resume + ["--model_dir", f"{d}_planted"])
+        out[part] = (full, first, resumed, planted)
+    return out
+
+
+def dist_rank(mesh, data, workdir, halo_D):
+    """One rank of the dist_train phase on DIST's (dp, gp) mesh: the
+    partitioned forward of both shipped models on the 120 um fixture
+    (rows padded to a multiple of D), counted after a warm-up, and on
+    rank 0 against the one-device forward; the distributed train steps
+    against the one-rank step; cli.dist_train's runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    out = dict(rank=mesh.rank, backend=mesh.backend,
+               transport=mesh.transport)
+    models = {n: checkpoint.load_model(f"artifacts/40um/{c}", dev)[0].eval()
+              for n, c in (("regressor", "regressor0"),
+                           ("classifier", "classifier1"))}
+    st, _, _ = dd.init_scaled_state(*dd.load_fixture(), device=dev)
+    sample = partition.pad_rows(dr.make_sample(st)[0], mesh.D)
+    fwd = {n: partition.make_partitioned_forward(m, mesh)
+           for n, m in models.items()}
+    for f in fwd.values():                       # warm-up
+        f(sample)
+    sync(dev)
+    mesh.barrier()
+    reset_launches()
+    mesh.bytes_gathered = 0
+    t0 = time.perf_counter()
+    ys = {n: f(sample) for n, f in fwd.items()}
+    sync(dev)
+    launches = counted_launches()
+    out.update(forward_ms=(time.perf_counter() - t0) * 1e3,
+               forward_launches=jsonable(launches),
+               forward_by_shape=dict(launches["by_shape"]),
+               forward_bytes_gathered=mesh.bytes_gathered)
+    if mesh.rank == 0:
+        err = {}
+        with torch.no_grad():
+            for n, m in models.items():
+                for k, v in m(sample, kernels=True).items():
+                    d = (ys[n][k] - v).abs()
+                    err[f"{n}.{k}"] = d.max().item()
+                    if bool((d > DIST_FWD_TOL + DIST_FWD_TOL * v.abs())
+                            .any()) or not bool(torch.isfinite(ys[n][k])
+                                                .all()):
+                        raise RuntimeError(f"dist_train forward {n}.{k}: "
+                                           f"max abs err {err[f'{n}.{k}']}")
+        out["forward_max_abs_err"] = err
+
+    raw = checkpoint.load_pickle(data)
+    train = train_cli_mod.load_datasets(data, dev)[0].samples
+    r0 = raw[0]
+    striped = halo.build_striped(
+        r0["feature_dicts"], r0["edge_index_dicts"], r0["edge_weight_dicts"],
+        {"grain": r0["mask"]["grain"], "joint": r0["mask"]["joint"]},
+        halo_D, dict(r0["target_dicts"]))[0]
+    packed = lambda k: gstate.pack(gstate.stack(train[:k]))
+    stacked = lambda k: gstate.stack(train[:k])
+    hb, db = DIST["hybrid_batch"], DIST["dp_batch"]
+    cases = {
+        "partitioned_regressor": ("partitioned", "regressor0", train[0],
+                                  packed(1), {}),
+        "partitioned_classifier": ("partitioned", "classifier1", train[0],
+                                   packed(1), {}),
+        f"halo_D{halo_D}": ("halo", "regressor0", striped, packed(1),
+                            {} if halo_D == mesh.D else {"axis": "gp"}),
+        "hybrid_dp2_gp2": ("hybrid", "regressor0", stacked(hb), packed(hb),
+                           {}),
+        "dp_D2": ("dp", "regressor0", stacked(db), packed(db),
+                  {"axis": "dp"}),
+    }
+    out["steps"] = {k: dist_step_check(mesh, *v) for k, v in cases.items()}
+    out["cli"] = dist_cli_runs(mesh, data, workdir, halo_D)
+    return out
+
+
+def dist_nccl_rank(mesh, data):
+    """The dp step at D = 1 on a card of its own (NCCL: the gradient
+    bucket's all_reduce goes through it) against the one-rank step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train = train_cli_mod.load_datasets(data, mesh.device)[0].samples
+    k = DIST["nccl_batch"]
+    res = dist_step_check(mesh, "dp", "regressor0",
+                          gstate.stack(train[:k]),
+                          gstate.pack(gstate.stack(train[:k])), {})
+    return dict(res, rank=mesh.rank, backend=mesh.backend,
+                transport=mesh.transport)
+
+
+def halo_stripes(data):
+    """The largest of DIST["halo_D"] whose stripes every train window
+    allows (stripe width over the interaction range)."""
+    raw = checkpoint.load_pickle(data)
+    for D in DIST["halo_D"]:
+        try:
+            for r in raw:
+                halo.build_striped(
+                    r["feature_dicts"], r["edge_index_dicts"],
+                    r["edge_weight_dicts"],
+                    {"grain": r["mask"]["grain"],
+                     "joint": r["mask"]["joint"]}, D)
+            return D
+        except ValueError:
+            continue
+    raise RuntimeError("dist_train: no halo stripe count fits the windows")
+
+
+def rel_diff(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_step(name, r):
+    if r.get("update_outside_tolerance") or not (
+            r["loss_rel_err"] <= TRAIN_LOSS_RTOL):
+        raise RuntimeError(
+            f"dist_train step {name}: loss {r['loss']} against "
+            f"{r['loss_one_rank']}, update err {r['update_max_abs_err']} "
+            f"({r['update_outside_tolerance']})")
+
+
+def gathered_conv_inputs(reg, sample, D):
+    """Rank 0's decoder conv inputs in the partitioned forward: the whole
+    gathered source table (Ns = N), the first of D destination blocks
+    (Nd = N / D) with its ELL rows, global indices."""
+    out = {}
+    for name, (conv, xs, xd, nbr, ln, m) in decoder_conv_inputs(
+            reg, sample).items():
+        b = xd.shape[0] // D
+        out[name] = (conv, xs, xd[:b].contiguous(), nbr[:b].contiguous(),
+                     ln[:b].contiguous(), m[:b].contiguous())
+    return out
+
+
+def phase_dist_train(reg, dev, smi, workdir):
+    """The training half of the parallel layer on the card (DIST): the
+    partitioned forward at D = 4 against the one-device forward, counted
+    per rank; each distributed train step against the one-rank step;
+    the dp step at D = 1 over NCCL; cli.dist_train per --partition (in
+    the ranks, and once through its own launcher), its checkpoints loaded
+    and one run through cli.test; the kernels at the gathered shapes.
+    Returns the kernels line's rows."""
+    from graingraphnn_torch.cli import dist_train
+    from graingraphnn_torch.cli import test as test_cli
+
+    data = os.path.join(workdir, "train.pkl")
+    write_train_pickle(data)
+    halo_D = halo_stripes(data)
+    D = DIST["D"]
+    t0 = time.perf_counter()
+    res = mesh_mod.launch(dist_rank, D, data, workdir, halo_D,
+                          device="cuda", axes=DIST["axes"], timeout=900)
+    seconds = time.perf_counter() - t0
+    top = res[0]
+    for r in res:
+        l = r["forward_launches"]
+        if r["backend"] != "gloo" or (l["node_proj"], l["edge_attn"]) != (
+                12, 12):
+            raise RuntimeError(f"dist_train forward: rank {r['rank']} on "
+                               f"{r['backend']}, launches {l}")
+        for k, v in r["steps"].items():
+            # a group's ranks hold one set of parameters; two dp groups
+            # differ in the last bits (the backward's atomics)
+            lead = res[v["peers"][0]]["steps"][k]["digest"]
+            if v["digest"] != lead:
+                raise RuntimeError(f"dist_train step {k}: rank {r['rank']}'s "
+                                   "parameters differ from rank "
+                                   f"{v['peers'][0]}'s")
+    for k, v in top["steps"].items():
+        check_step(k, v)
+    emit(phase="dist_train", case="forward", nvidia_smi=smi, ranks=D,
+         backend=top["backend"], transport=top["transport"],
+         seconds=seconds, forward_ms=[r["forward_ms"] for r in res],
+         launches_per_rank=[{k: r["forward_launches"][k]
+                             for k in ("node_proj", "edge_attn")}
+                            for r in res],
+         bytes_gathered_per_rank=top["forward_bytes_gathered"],
+         max_abs_err=top["forward_max_abs_err"], tol=DIST_FWD_TOL)
+    emit(phase="dist_train", case="steps", nvidia_smi=smi, halo_D=halo_D,
+         steps={k: {kk: vv for kk, vv in v.items() if kk != "digest"}
+                for k, v in top["steps"].items()},
+         tolerances={"loss_rtol": TRAIN_LOSS_RTOL,
+                     "grad_atol": TRAIN_GRAD_ATOL,
+                     "grad_rtol": TRAIN_GRAD_RTOL})
+
+    nccl = mesh_mod.launch(dist_nccl_rank, 1, data, device="cuda",
+                           timeout=600)[0]
+    check_step("dp_D1_nccl", nccl)
+    if nccl["backend"] != "nccl" or nccl["bytes_sent"]["all_reduce"] <= 0:
+        raise RuntimeError(f"dist_train nccl: {nccl['backend']}, "
+                           f"{nccl['bytes_sent']}")
+    emit(phase="dist_train", case="dp_D1_nccl", nvidia_smi=smi,
+         **{k: v for k, v in nccl.items() if k != "digest"})
+
+    # cli.dist_train: the ranks' runs, then the launcher's own for dp
+    cli = dict(top["cli"])
+    argv = ["--dataset", data, "--model_type", "regressor", "--model_id",
+            "0", "--n_devices", str(D), "--epochs", str(DIST["epochs"])]
+    for part in DIST["partitions"]:
+        if part in cli:
+            continue
+        extra = ["--gp", str(halo_D)] if part == "halo" else []
+        full = dist_train.main(argv + ["--partition", part, "--model_dir",
+                                       os.path.join(workdir, "launch_"
+                                                    + part)] + extra)
+        cli[part] = (full, None, None, None)
+    with contextlib.redirect_stdout(io.StringIO()):
+        launched = dist_train.main(argv + ["--partition", "dp",
+                                           "--model_dir", os.path.join(
+                                               workdir, "launch_dp")])
+    summary = {}
+    for part, (full, first, resumed, planted) in cli.items():
+        losses = full["train_loss"]
+        if len(losses) != DIST["epochs"] or not np.isfinite(losses).all():
+            raise RuntimeError(f"dist_train cli {part}: losses {losses}")
+        model, hp, _ = checkpoint.load_model(full["checkpoint"], dev)
+        summary[part] = dict(
+            ranks=full["ranks"], axes=full["axes"], train_loss=losses,
+            steps=len(full["step_ms"]),
+            ms_per_step=sum(full["step_ms"]) / max(len(full["step_ms"]), 1),
+            bytes_sent_per_rank=full["bytes_sent"],
+            checkpoint_params=grain_nn.count_params(model))
+        if resumed is not None:
+            rel = [rel_diff(first["train_loss"][0], losses[0]),
+                   rel_diff(resumed["train_loss"][0], losses[1])]
+            planted_rel = rel_diff(planted["train_loss"][0], losses[1])
+            summary[part].update(resumed_epoch2_loss=resumed["train_loss"],
+                                 resumed_rel_diff=rel,
+                                 resumed_bit_equal=resumed["train_loss"]
+                                 == losses[1:],
+                                 planted_epoch2_loss=planted["train_loss"],
+                                 planted_rel_diff=planted_rel)
+            if len(resumed["train_loss"]) != 1 or not max(rel) <= \
+                    DIST_RESUME_RTOL:
+                raise RuntimeError(
+                    f"dist_train cli {part}: resumed {resumed['train_loss']}"
+                    f" after {first['train_loss']}, uninterrupted {losses}")
+            if not planted_rel > DIST_RESUME_RTOL:
+                raise RuntimeError(
+                    f"dist_train cli {part}: a resume without the optimizer "
+                    f"state ({planted['train_loss']}) passes the resume "
+                    f"check against {losses[1]}")
+    launcher_rel = [rel_diff(a, b) for a, b in zip(
+        launched["train_loss"], cli["dp"][0]["train_loss"])]
+    if len(launcher_rel) != DIST["epochs"] or not max(launcher_rel) <= \
+            DIST_RESUME_RTOL:
+        raise RuntimeError(f"dist_train cli: the launcher's dp run "
+                           f"{launched['train_loss']} against the ranks' "
+                           f"{cli['dp'][0]['train_loss']}")
+    # the dp checkpoint rolls out through cli.test, as regressor0 beside
+    # the shipped classifier
+    mdir = os.path.join(workdir, "cli_test_models")
+    os.makedirs(mdir)
+    for ext in (".ckpt", ".json"):
+        shutil.copy(launched["checkpoint"] + ext,
+                    os.path.join(mdir, "regressor0" + ext))
+        shutil.copy("artifacts/40um/classifier1" + ext, mdir)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        test_cli.main(["--generate", "--device_resident", "--model_dir",
+                       mdir, "--seed", "3", "--G", "4", "--R", "1",
+                       "--eval_every", "5", "--growth_height", "4.8"])
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    emit(phase="dist_train", case="cli", nvidia_smi=smi, runs=summary,
+         launcher_dp_loss=launched["train_loss"],
+         launcher_dp_rel_diff=launcher_rel,
+         launcher_ms_per_step=sum(launched["step_ms"])
+         / max(len(launched["step_ms"]), 1),
+         resume_rtol=DIST_RESUME_RTOL, cli_test=line)
+
+    sample = partition.pad_rows(dr.make_sample(dd.init_scaled_state(
+        *dd.load_fixture(), device=dev)[0])[0], D)
+    with torch.no_grad():
+        rows = conv_kernel_rows(gathered_conv_inputs(reg, sample, D),
+                                reg.hp.layer_size, suffix="_gathered",
+                                workload="dist_train")
+    return [dict(row, launches=top["forward_by_shape"].get(key, 0))
+            for key, row in rows.items()]
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -3306,6 +3716,9 @@ def main():
         with torch.no_grad():
             partition_rows = phase_partition(reg, cls, cuda, smi, workdir,
                                              trajs[R240["lxd"]], pf, pf_line)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_dist_",
+                                     dir=here) as workdir:
+        dist_rows = phase_dist_train(reg, cuda, smi, workdir)
 
     kernels = [dict(row, launches=launches["by_shape"].get(key, 0))
                for key, row in conv_rows.items()]
@@ -3319,6 +3732,7 @@ def main():
     kernels.append(generate_row)
     kernels += gen40_rows + r240_rows + batched_rows + engine_rows
     kernels += list(train_rows.values()) + pf_rows + partition_rows
+    kernels += dist_rows
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -108,6 +108,40 @@ def build_ell(src: np.ndarray, dst: np.ndarray, attr: np.ndarray,
     return nbr, length, mask
 
 
+def build_ell_device(src: torch.Tensor, dst: torch.Tensor,
+                     attr: torch.Tensor, num_dst: int, max_deg: int):
+    """Destination-major padded neighbor lists from a padded COO edge list
+    on its device (-1 marks dead columns), the counterpart of the host
+    build_ell: slots fill in ascending edge index per destination, padding
+    slots hold index 0 and mask 0. As in the JAX package, edges past
+    max_deg into one destination are dropped (the host build_ell raises).
+    A stable sort and one scatter; no host sync."""
+    dev = src.device
+    E = src.shape[0]
+    live = (src >= 0) & (dst >= 0)
+    key = torch.where(live, dst.long(), num_dst)     # dead edges sort last
+    key, order = torch.sort(key, stable=True)
+    pos = torch.arange(E, device=dev)
+    first = torch.ones(E, dtype=torch.bool, device=dev)
+    first[1:] = key[1:] != key[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    slot = pos - start
+    ok = (key < num_dst) & (slot < max_deg)
+    # kept edges go to their slot, the rest to one spare slot past the end
+    flat = torch.where(ok, key * max_deg + slot, num_dst * max_deg)
+    size = num_dst * max_deg + 1
+
+    def scatter(values, dtype):
+        out = torch.zeros(size, dtype=dtype, device=dev)
+        out.scatter_(0, flat, values.to(dtype))
+        return out[:-1].reshape(num_dst, max_deg)
+
+    nbr = scatter(torch.where(ok, src[order], 0), torch.int32)
+    length = scatter(torch.where(ok, attr[order], 0), torch.float32)
+    mask = scatter(ok, torch.float32)
+    return nbr, length, mask
+
+
 def build_sample(
     feature_dicts: Dict[str, np.ndarray],
     edge_index_dicts: Dict[tuple, np.ndarray],

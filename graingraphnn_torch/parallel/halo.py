@@ -16,17 +16,23 @@ extended tables by the mesh's neighbour exchange (parallel.mesh); the
 convs run node_proj and edge_attn on them (Ns = 3 * cap sources, Nd = cap
 destinations). Its outputs are all-gathered, so every rank holds the
 whole prediction, as JAX's sharded output is one array.
+`make_halo_train_step` trains on one striped graph: each stripe
+differentiates its partial loss (parallel.partition.partial_loss) through
+the differentiable exchange, whose backward returns the boundary rows'
+cotangents to the stripes that own them; loss and gradients are summed
+once over the stripes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..graph import schema, state
 from .mesh import Mesh
+from .partition import partial_loss, reduce_grads
 
 
 class StripeMeta:
@@ -278,11 +284,11 @@ def build_striped(
     return sample, meta
 
 
-def _hooks(mesh: Mesh):
+def _hooks(mesh: Mesh, axis: Optional[str] = None):
     """(src_gather, node_gather) of a stripe: a table's [left | local |
-    right] extension by the mesh's neighbour exchange."""
+    right] extension by the mesh's neighbour exchange along `axis`."""
     def extend(x):
-        left, right = mesh.exchange(x)
+        left, right = mesh.exchange(x, axis)
         return torch.cat([left, x, right], dim=0)
 
     return (lambda xg, xj: (extend(xg), extend(xj))), extend
@@ -305,6 +311,30 @@ def make_halo_forward(model, mesh: Mesh):
                     for k, v in y.items()}
 
     return f
+
+
+def make_halo_train_step(hp, model, opt, sched, mesh: Mesh,
+                         axis: Optional[str] = None):
+    """step(striped) -> the loss of one striped graph (build_striped's
+    layout with targets, one stripe a rank along `axis`): each rank runs
+    striped[index] on the torch formulation with [left | local | right]
+    tables from the differentiable exchange, differentiates its partial
+    loss, sums the loss and the gradients over the stripes once, and
+    steps the optimizer and the schedule."""
+    src_gather, node_gather = _hooks(mesh, axis)
+
+    def step(striped: state.GraphSample) -> torch.Tensor:
+        local = striped.map(lambda a: a[mesh.index(axis)].to(mesh.device))
+        opt.zero_grad(set_to_none=True)
+        lval = partial_loss(hp, model, local, mesh, axis, src_gather,
+                            node_gather)
+        lval.backward()
+        reduce_grads(model, mesh, axis)
+        opt.step()
+        sched.step()
+        return mesh.all_reduce(lval.detach(), axis=axis)
+
+    return step
 
 
 def make_halo_span_forward(regressor, classifier, mesh: Mesh):

@@ -2,7 +2,8 @@
 and written as legacy VTK files that ParaView reads.
 
 `GrainVisual.graph_recon` stacks the rollout's predicted cross-sections
-(cli.test --plot3D) and `load` exports a PF file's full 3D field. The writer is a
+(cli.test --plot3D), `load` exports a PF file's full 3D field and
+`reconstruct` stacks the PF truth's cross-sections (or given fields). The writer is a
 dependency-free ASCII STRUCTURED_POINTS writer; h5py is imported only to
 read PF files.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import glob
 import math
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -81,6 +83,36 @@ class GrainVisual:
         vol = theta_z[alpha] / math.pi * 180
         out = out or f"{rawdat_dir}/seed{self.seed}.vtk"
         return write_vtk_structured_points(out, vol, spacing=(dx, dx, dx))
+
+    def reconstruct(
+        self,
+        rawdat_dir: str = "./",
+        span: int = 6,
+        alpha_field_list: Optional[Sequence[np.ndarray]] = None,
+        out: Optional[str] = None,
+    ):
+        """The PF truth's cross-sections (the file's `cross_sec`, one plane
+        a frame, every span-th) stacked into a volume whose planes lie one
+        span's growth apart, coloured by theta_z in degrees, as
+        rawdat_dir/seed<seed>leapz.vtk (or out). With alpha_field_list,
+        those fields are stacked instead."""
+        f, path, x, theta_z = self._load_h5(rawdat_dir)
+        with f:
+            dx = x[1] - x[0]
+            fnx, fny = len(x), len(np.asarray(f["y_coordinates"]))
+            m = re.search(r"frames(\d+)", path)
+            data_frames = (int(m.group(1)) + 1) if m else 121
+            if alpha_field_list:
+                vol = np.stack(alpha_field_list, axis=2)
+            else:
+                vol = np.asarray(f["cross_sec"]).reshape(
+                    (fnx, fny, data_frames), order="F")[1:-1, 1:-1, ::span]
+        dx_frame = (50 - self.base_width) / (data_frames - 1) * span
+        top_z = int(np.round((self.height - self.base_width) / dx_frame)) + 1
+        vol = theta_z[vol[:, :, :top_z]] / math.pi * 180
+        out = out or f"{rawdat_dir}/seed{self.seed}leapz.vtk"
+        return write_vtk_structured_points(out, vol,
+                                           spacing=(dx, dx, dx_frame))
 
     def graph_recon(
         self,

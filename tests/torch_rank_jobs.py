@@ -7,12 +7,13 @@ read."""
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
 import torch
 
-from graingraphnn_torch.parallel import halo
+from graingraphnn_torch.parallel import data_parallel, halo, partition
 from graingraphnn_torch.parallel import partitioned_rollout as pro
 from graingraphnn_torch.parallel import sharded_editor as se
 from graingraphnn_torch.rollout import device_rollout as dr
@@ -132,8 +133,96 @@ def engine_halo(mesh, reg, cls, recipe, kw):
     return eng.run(hg0, traj, **kw)
 
 
+def partitioned_forward(mesh, model, sample, axis):
+    """partition.make_partitioned_forward's outputs (every rank's)."""
+    y = partition.make_partitioned_forward(model.to(mesh.device), mesh,
+                                           axis)(sample)
+    return {k: _np(v) for k, v in y.items()}
+
+
+def collective_grads(mesh, axis, xs, w_left, w_right, w_gather):
+    """The differentiable exchange and all_gather along `axis` on x =
+    xs[index]: the outputs, and x's gradient of sum(w_left[i] * left +
+    w_right[i] * right + w_gather[i] * gathered) (i this rank's index
+    along the axis)."""
+    i = mesh.index(axis)
+    x = torch.from_numpy(xs[i]).to(mesh.device).requires_grad_(True)
+    left, right = mesh.exchange(x, axis)
+    g = mesh.all_gather(x, axis)
+    t = lambda a: torch.from_numpy(a[i]).to(mesh.device)
+    loss = ((t(w_left) * left).sum() + (t(w_right) * right).sum()
+            + (t(w_gather) * g).sum())
+    loss.backward()
+    return {"left": _np(left.detach()), "right": _np(right.detach()),
+            "gather": _np(g.detach()), "grad": _np(x.grad)}
+
+
+def bump(mesh, t):
+    """Add one to the tensor `t` in place, then, once every rank has,
+    return it: t + 1 where each rank holds a copy of its own."""
+    t.add_(1.0)
+    mesh.barrier()
+    return _np(t)
+
+
+STEPS = {"partitioned": partition.make_partitioned_train_step,
+         "halo": halo.make_halo_train_step,
+         "dp": data_parallel.make_dp_train_step}
+
+
+def train_steps(mesh, kind, model, hp, data, opt, n_steps, axes):
+    """n_steps of a distributed train step `kind` (partitioned, halo, dp
+    or hybrid) of `model` on `data` (a sample, a striped sample or a
+    stacked batch) with opt = (name, lr) (sgd or adam) and a constant
+    schedule; axes = the step's axis keyword arguments. Returns the
+    losses and the parameters after, by name. The model is copied first:
+    the jobs of one rank get the one model they were passed."""
+    model = copy.deepcopy(model).to(mesh.device)
+    name, lr = opt
+    params = [p for p in model.parameters() if p.requires_grad]
+    o = (torch.optim.SGD(params, lr=lr) if name == "sgd" else
+         torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8))
+    sched = torch.optim.lr_scheduler.StepLR(o, step_size=1 << 30)
+    make = (partition.make_hybrid_train_step if kind == "hybrid"
+            else STEPS[kind])
+    step = make(hp, model, o, sched, mesh, **axes)
+    losses = [float(step(data)) for _ in range(n_steps)]
+    return {"losses": losses,
+            "params": {k: _np(v.detach()) for k, v in
+                       model.named_parameters()},
+            "bytes": (mesh.bytes_exchanged, mesh.bytes_gathered,
+                      mesh.bytes_reduced)}
+
+
+def dist_train_resume(mesh, argv, partitions, workdir):
+    """cli.dist_train's rank body on this group, per partition (the mesh
+    rebuilt on its layout): one epoch, then a run resumed from that
+    checkpoint to the second. Returns {partition: (epoch 1's summary,
+    the resumed run's)}."""
+    from graingraphnn_torch.cli import dist_train
+    from graingraphnn_torch.parallel import mesh as mesh_mod
+
+    out = {}
+    for part in partitions:
+        base = argv + ["--partition", part, "--n_devices", str(mesh.D)]
+        axes = dist_train.layout(dist_train.parse(base), mesh.D)[1]
+        m = mesh_mod.make_mesh(mesh.D, mesh.rank, mesh.backend, mesh.device,
+                               axes)
+        d1 = f"{workdir}/{part}_epoch1"
+        first = dist_train.main(base + ["--epochs", "1", "--model_dir", d1],
+                                mesh=m)
+        resumed = dist_train.main(
+            base + ["--epochs", "2", "--model_dir", f"{workdir}/{part}_res",
+                    "--resume", first["checkpoint"]],
+            mesh=m)
+        out[part] = (first, resumed)
+    return out
+
+
 JOBS = {f.__name__: f for f in (halo_forward, exchange_bytes, collectives,
-                                sharded_edit, partitioned_run, engine_halo)}
+                                sharded_edit, partitioned_run, engine_halo,
+                                partitioned_forward, collective_grads,
+                                train_steps, dist_train_resume, bump)}
 
 
 def run_jobs(mesh, jobs):
