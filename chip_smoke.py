@@ -68,8 +68,15 @@ step of the partitioned, halo, hybrid and dp train steps against the
 one-rank step, and cli.dist_train for each --partition (2 epochs, and 1
 epoch resumed to 2); the dp step at D = 1 over NCCL; cli.dist_train
 through its own launcher, its checkpoint through cli.test; and the
-kernels at the gathered shapes. The editor phase (5) also holds the
-kernel's cleanup mask to its plain version.
+kernels at the gathered shapes, (17) the bf16 edge stage, JAX's
+pallas=True rollout (after the reference span in the run): 20 spans of
+the 120 um fixture on the bf16 kernels beside the fp32 run (launches by
+precision, ms a span, device time, the event Jaccard of the two runs),
+one bf16 span against the CPU's, 4 batched lanes against their
+single-lane bf16 runs, node_proj_bf16 and edge_attn_bf16 against their
+plain bf16 versions at the first span's decoder convs (and the fp32 conv,
+which must fail the bf16 mean limit), and cli.test --pallas. The editor
+phase (5) also holds the kernel's cleanup mask to its plain version.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -195,9 +202,26 @@ DIST_FWD_TOL = 2e-5           # atol and rtol, as JAX's tests/test_parallel.py
 # 2.5e-2 off (the planted fault, read on the CPU and on the card); the
 # limit lies between
 DIST_RESUME_RTOL = 2e-5
+# the bf16 kernels against their plain bf16 versions: the same roundings
+# with fp32 sums in another order, so now and then the bf16 rounding of one
+# logit product, relu value or alpha flips and moves a gate's row by about
+# 2^-8 of a term. The mean is held tight, the max loose; the emulation of
+# the sources read means up to 2.0e-6 of the scale and the fp32 conv
+# against the plain bf16 version 8.1e-4 (the planted fault, which must
+# read above the mean limit here too)
+BF16_MEAN_REL, BF16_MAX_REL = 1e-5, 1e-2
+# one bf16 span, card against CPU: positions' max and mean (the port's
+# bf16 span against JAX's at 40 um read 1.3e-4 and 1.1e-7, its fp32 span
+# 1.5e-2 and 2.0e-4)
+BF16_POS_MAX, BF16_POS_MEAN = 1e-3, 1e-5
+# the bf16 phase: JAX's pallas=True rollout (the bf16 edge stage) of the
+# 120 um fixture beside the fp32 one, 20 spans; batched on 4 lanes of
+# bench.py's 120 um seeds for 3 spans
+BF16 = {"spans": 20, "repeats": 4, "lanes": 4, "lane_spans": 3}
 # the H100 SXM's datasheet peaks, from utils.profiling
 PEAK_FP32 = profiling.H100_PEAK_FP32
 PEAK_TF32X3 = profiling.H100_PEAK_TF32X3
+PEAK_BF16 = profiling.H100_PEAK_BF16
 PEAK_BYTES = profiling.H100_PEAK_BYTES
 REPLACES = {
     "push": "graingraphnn_tpu/kernels/edge_stage.py:58",
@@ -252,6 +276,7 @@ def phase_device():
 def phase_build():
     t0 = time.perf_counter()
     log = _build.build([(edge_stage.SOURCE, edge_stage.NVCC_FLAGS),
+                        (edge_stage.SOURCE_BF16, edge_stage.NVCC_FLAGS),
                         (editor_fused.SOURCE, editor_fused.NVCC_FLAGS)])
     emit(phase="build", seconds=time.perf_counter() - t0, sources=log)
 
@@ -290,14 +315,14 @@ def bound(bytes_, *work):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def decoder_conv_inputs(reg, sample):
+def decoder_conv_inputs(reg, sample, precision="fp32"):
     """The decoder cell's conv inputs on the first span (h from the
-    encoder, as in the rollout): {name: (conv, x_src, x_dst, nbr, len,
-    mask)}."""
+    encoder at `precision`, as in the rollout): {name: (conv, x_src, x_dst,
+    nbr, len, mask)}."""
     C = reg.hp.layer_size
     h, _c = cells.apply_pgclstm(reg.encoder[0], sample, sample.grain_x,
                                 sample.joint_x, cells.zero_state(sample, C), C,
-                                kernels=True)
+                                kernels=True, precision=precision)
     xg = torch.cat([sample.grain_x, h["grain"]], 1).contiguous()
     xj = torch.cat([sample.joint_x, h["joint"]], 1).contiguous()
     cv = reg.decoder[0].conv
@@ -322,6 +347,22 @@ def close(name, out, ref):
                            f"atol {ATOL} rtol {RTOL}")
     return (diff.max().item(),
             (diff / ref.abs().clamp_min(1e-3)).max().item())
+
+
+def close_bf16(name, out, ref):
+    """(max abs error, mean abs error over max |ref|) of a bf16 kernel's
+    out against its plain bf16 version ref; raises past BF16_MEAN_REL or
+    BF16_MAX_REL of max |ref|, or on a non-finite value."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{name}: non-finite output")
+    err, scale = (out - ref).abs(), ref.abs().max().item()
+    mean, mx = err.mean().item(), err.max().item()
+    if mean > BF16_MEAN_REL * scale or mx > BF16_MAX_REL * scale:
+        raise RuntimeError(f"{name}: mean abs err {mean / scale} and max "
+                           f"{mx / scale} of the scale, over {BF16_MEAN_REL} "
+                           f"and {BF16_MAX_REL}")
+    return mx, mean / scale
 
 
 def phase_edge_stage(reg, state):
@@ -1597,20 +1638,22 @@ def near_threshold(logits, live):
     return bool(((p - C_THRESHOLD).abs() < 1e-5).any())
 
 
-def lanes_vs_singles(reg, cls, state, singles, n):
-    """The batched run span by span beside each lane's single-lane run:
-    a lane's topology must stay bit-equal to its single run's unless a
-    switch probability of that lane's span lies within 1e-5 of the
-    threshold, after which the lane is no longer compared. Returns the
-    lanes still equal at the end, where each other lane parted, and the
-    largest position difference of equal lanes."""
+def lanes_vs_singles(reg, cls, state, singles, n, pallas=False):
+    """The batched run span by span beside each lane's single-lane run
+    (forwards on the kernels `pallas` picks): a lane's topology must stay
+    bit-equal to its single run's unless a switch probability of that
+    lane's span lies within 1e-5 of the threshold, after which the lane
+    is no longer compared. Returns the lanes still equal at the end, where
+    each other lane parted, and the largest position difference of equal
+    lanes."""
     st, sts, parted, pos = state, list(singles), {}, 0.0
+    kw = dict(c_threshold=C_THRESHOLD, pallas=pallas)
     for i in range(n):
-        near = [near_threshold(dr.forward_stage(reg, cls, s, tj.RING_MAX)[2]
-                               ["edge_event"], s.E_pp[0] >= 0) for s in sts]
-        st, _ = dr.batched_step(reg, cls, st, c_threshold=C_THRESHOLD)
-        sts = [dr.device_step(reg, cls, s, c_threshold=C_THRESHOLD)[0]
-               for s in sts]
+        near = [near_threshold(dr.forward_stage(
+            reg, cls, s, tj.RING_MAX, dr._pallas_mode(pallas))[2]
+            ["edge_event"], s.E_pp[0] >= 0) for s in sts]
+        st, _ = dr.batched_step(reg, cls, st, **kw)
+        sts = [dr.device_step(reg, cls, s, **kw)[0] for s in sts]
         for b, s in enumerate(sts):
             if b in parted:
                 continue
@@ -3670,6 +3713,302 @@ def phase_train(state, smi, workdir, profile=False):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the bf16 edge stage (JAX's pallas=True rollout)
+# ---------------------------------------------------------------------------
+
+
+def bf16_span_card_vs_cpu(reg, cls, reg_cpu, cls_cpu, state):
+    """One pallas=True span from the same state on the card (the bf16
+    kernels) and on the CPU (their plain versions). A bf16 rounding that
+    flips where the two sum in another order moves a switch probability by
+    more than fp32 noise, so the window is measured on the span itself:
+    the largest difference between the two forwards' probabilities. The
+    topology must be bit-equal unless a probability of the CPU's forward
+    lies within that window of the threshold; positions (the first two
+    columns of xg and xj) within BF16_POS_MAX and BF16_POS_MEAN where it
+    is."""
+    st_cpu = state.map(lambda v: v.cpu())
+    kw = dict(c_threshold=C_THRESHOLD, pallas=True)
+    s1, a1 = dr.device_step(reg, cls, state, **kw)
+    s0, _ = dr.device_step(reg_cpu, cls_cpu, st_cpu, **kw)
+    p1, p0 = (torch.sigmoid(dr.forward_stage(r, c, st, tj.RING_MAX, "bf16")
+                            [2]["edge_event"]).cpu()
+              for r, c, st in ((reg, cls, state), (reg_cpu, cls_cpu, st_cpu)))
+    live = st_cpu.E_pp[0] >= 0
+    window = (p1 - p0)[live].abs().max().item()
+    near = bool(((p0 - C_THRESHOLD)[live].abs() <= window).any())
+    ints = ["E_pp", "E_pq", "mask_g", "mask_j", "n_pp"]
+    same = all(torch.equal(getattr(s1, f).cpu(), getattr(s0, f))
+               for f in ints)
+    if not same and not near:
+        raise RuntimeError("bf16 span: topology differs from the CPU span")
+    d = torch.cat([(s1.xj[:, :2].cpu() - s0.xj[:, :2]).abs().reshape(-1),
+                   (s1.xg[:, :2].cpu() - s0.xg[:, :2]).abs().reshape(-1)])
+    pos_max, pos_mean = d.max().item(), d.mean().item()
+    if same and not (pos_max <= BF16_POS_MAX and pos_mean <= BF16_POS_MEAN):
+        raise RuntimeError(f"bf16 span: positions differ by {pos_max} at "
+                           f"most, {pos_mean} in the mean")
+    return dict(topology_equal=same, threshold_adjacent=near,
+                probability_window=window, position_max_abs_err=pos_max,
+                position_mean_abs_err=pos_mean,
+                switches=int((a1["switching"][:, 0] >= 0).sum()),
+                grain_events=int((a1["grain_events"] >= 0).sum()))
+
+
+def bf16_kernel_rows(inputs, C):
+    """Per conv of inputs {name: (conv, x_src, x_dst, nbr, len, mask)}: the
+    fused bf16 conv, node_proj_bf16 and edge_attn_bf16 against their plain
+    bf16 versions on the real masks, every 7th row masked and live slots
+    dropped at random (close_bf16; the projections, whose products are
+    exact, at the fp32 limits), the planted fault (the fp32 conv against
+    the plain bf16 version, which must read above the mean limit), and the
+    times. Returns {(kernel, F_src, F_dst): row}."""
+    G = cells.NUM_GATES
+    GC = G * C
+    kw = dict(num_gates=G, out_channels=C, precision="bf16")
+    bf = torch.bfloat16
+    rows = {}
+    for name, (conv, xs, xd, nbr, ln, m) in inputs.items():
+        K, Fs, Fd = nbr.shape[1], xs.shape[1], xd.shape[1]
+        m_cut = m.clone()
+        m_cut[::7] = 0.0
+        gen = torch.Generator(device=m.device).manual_seed(K)
+        m_scat = m * (torch.rand(m.shape, generator=gen,
+                                 device=m.device) < 0.6)
+        err = {"conv": 0.0, "node_proj": 0.0, "edge_attn": 0.0}
+        mean = {"conv": 0.0, "edge_attn": 0.0}
+        planted = math.inf
+        proj = period_conv.node_projections_plain(conv, xs, xd, "bf16")
+        for mask in (m, m_cut, m_scat):
+            out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln,
+                                                    mask, **kw)
+            ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln,
+                                                      mask, **kw)
+            e, r = close_bf16(f"bf16 edge stage {name}", out, ref)
+            err["conv"], mean["conv"] = (max(err["conv"], e),
+                                         max(mean["conv"], r))
+            for k, (o, pr) in enumerate(zip(
+                    edge_stage.node_proj_cuda(conv, xs, xd, "bf16"), proj)):
+                e, _ = close(f"node_proj_bf16 {name} output {k}", o, pr)
+                err["node_proj"] = max(err["node_proj"], e)
+            out = edge_stage.edge_attn_cuda(conv, xs, xd, nbr, ln, mask,
+                                            proj, **kw)
+            e, r = close_bf16(f"edge_attn_bf16 {name}", out,
+                              period_conv.edge_attn_plain(
+                                  conv, xs, xd, nbr, ln, mask, proj, **kw))
+            err["edge_attn"], mean["edge_attn"] = (
+                max(err["edge_attn"], e), max(mean["edge_attn"], r))
+            f32 = edge_stage.apply_period_conv_cuda(
+                conv, xs, xd, nbr, ln, mask, num_gates=G, out_channels=C)
+            planted = min(planted, ((f32 - ref).abs().mean()
+                                    / ref.abs().max()).item())
+        if not planted > BF16_MEAN_REL:
+            raise RuntimeError(f"bf16 {name}: the fp32 conv reads {planted} "
+                               "against the plain bf16 version, not above "
+                               f"the mean limit {BF16_MEAN_REL}")
+        # the library's yardstick: two addmm on operands cast to bf16
+        # before timing (bf16 out)
+        x_s, x_d = xs[:, 3:].to(bf), xd.to(bf)
+        w_src = torch.cat([conv.key.w[3:], conv.value.w[3:]], 1).to(bf)
+        w_dst = torch.cat([conv.query.w, conv.skip.w], 1).to(bf)
+        b_src = torch.cat([conv.key.b, conv.value.b]).to(bf)
+        b_dst = torch.cat([conv.query.b, conv.skip.b]).to(bf)
+        t = {
+            "conv": cuda_ms(lambda: edge_stage.apply_period_conv_cuda(
+                conv, xs, xd, nbr, ln, m, **kw)),
+            "node_proj": cuda_ms(lambda: edge_stage.node_proj_cuda(
+                conv, xs, xd, "bf16")),
+            "node_proj_plain": cuda_ms(
+                lambda: period_conv.node_projections_plain(conv, xs, xd,
+                                                           "bf16")),
+            "node_proj_library": cuda_ms(lambda: (
+                torch.addmm(b_src, x_s, w_src), torch.addmm(b_dst, x_d, w_dst))),
+            "edge_attn": cuda_ms(lambda: edge_stage.edge_attn_cuda(
+                conv, xs, xd, nbr, ln, m, proj, **kw)),
+            "edge_attn_plain": cuda_ms(lambda: period_conv.edge_attn_plain(
+                conv, xs, xd, nbr, ln, m, proj, **kw), n=20),
+        }
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln, m, **kw)
+        conv_host_us = (time.perf_counter() - t0) * 1e4   # per call, issued
+        torch.cuda.synchronize()
+        (Ns, _), (Nd, _) = xs.shape, xd.shape
+        _, np_bytes = node_proj_cost(xs, xd, GC)
+        np_flops = 2 * 2 * GC * (Ns * (Fs - 3) + Nd * Fd)
+        np_bound, np_by = bound(np_bytes, (np_flops, PEAK_BF16))
+        ea_tc, ea_fp32, ea_bytes = edge_attn_cost(xs, xd, m, G, C)
+        ea_bound, ea_by = bound(ea_bytes, (ea_tc, PEAK_BF16),
+                                (ea_fp32, PEAK_FP32))
+        src = "graingraphnn_torch/csrc/edge_stage_bf16.cu"
+        check = (f"pass: mean abs err <= {BF16_MEAN_REL} and max <= "
+                 f"{BF16_MAX_REL} of max |plain bf16|, also fully masked "
+                 "rows and scattered live slots")
+        rows[("node_proj_bf16", Fs, Fd)] = dict(
+            name=f"node_proj_{name}_bf16", route="cuda", source=src,
+            replaces=REPLACES[name], max_abs_err=err["node_proj"],
+            ms=t["node_proj"], plain_ms=t["node_proj_plain"],
+            bound_ms=np_bound, bound_by=np_by,
+            library_ms=t["node_proj_library"],
+            check=f"pass: atol {ATOL} rtol {RTOL} (exact products)")
+        rows[("edge_attn_bf16", Fs, Fd)] = dict(
+            name=f"edge_attn_{name}_bf16", route="cuda", source=src,
+            replaces=REPLACES[name], max_abs_err=err["edge_attn"],
+            ms=t["edge_attn"], plain_ms=t["edge_attn_plain"],
+            bound_ms=ea_bound, bound_by=ea_by, library_ms=None, check=check)
+        emit(phase="bf16_edge_stage", conv=name, K=K, Ns=Ns, Nd=Nd,
+             F_src=Fs, F_dst=Fd, live_edges=float(m.sum()),
+             max_abs_err=err, mean_rel_err=mean, planted_fp32_mean_rel=planted,
+             mean_limit=BF16_MEAN_REL, max_limit=BF16_MAX_REL, ms=t,
+             conv_host_us=conv_host_us,
+             node_proj_gflop=np_flops / 1e9, node_proj_mbytes=np_bytes / 1e6,
+             node_proj_bound_ms=np_bound,
+             node_proj_tflops=np_flops / t["node_proj"] / 1e9,
+             edge_attn_bound_ms=ea_bound, edge_attn_mbytes=ea_bytes / 1e6)
+    return rows
+
+
+def event_set(aux):
+    """The grain and extra events of a run's spans, as a set."""
+    return {int(g) for k in ("grain_events", "extra_events")
+            for g in aux[k].reshape(-1).tolist() if g >= 0}
+
+
+def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev):
+    """JAX's pallas=True rollout on the bf16 kernels: 20 spans of the 120
+    um fixture (c_threshold 0.99) beside the fp32 rollout in the same
+    call. The counted bf16 run (12 + 12 bf16 conv launches a span, no fp32
+    conv launch, one editor launch; peak memory), ms a span and edges/s of
+    each (min of 4, in turns fp32, bf16, bf16, fp32), the event Jaccard of
+    the two runs' events (bench.py's metric, no limit set); one bf16 span
+    against the CPU's; a batched bf16 run of 4 lanes against each lane's
+    single-lane bf16 run; the bf16 kernels at the first span's decoder
+    convs; and cli.test --pallas on the 40 um recipe, with --pallas
+    --partition 4 refused. Returns the kernels line's rows."""
+    from graingraphnn_torch.cli import test as cli
+
+    n = BF16["spans"]
+    runs = {p: dr.make_rollout(reg, cls, n_steps=n, c_threshold=C_THRESHOLD,
+                               pallas=p) for p in ("fp32", "bf16")}
+    for run in runs.values():
+        run(state)                                  # warm-ups
+    torch.cuda.synchronize()
+    reset_launches()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    final, aux = runs["bf16"](state)                # the counted run
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"fp32": dict(edge_stage.launches),
+                "bf16": dict(edge_stage.bf16_launches),
+                "by_shape": dict(edge_stage.shape_launches),
+                "editor": editor_fused.launches}
+    if (launches["bf16"] != {"node_proj": 12 * n, "edge_attn": 12 * n}
+            or any(launches["fp32"].values()) or launches["editor"] != n):
+        raise RuntimeError(f"bf16 rollout: launches {launches}")
+    for name in ("xg", "xj"):
+        if not bool(torch.isfinite(getattr(final, name)).all()):
+            raise RuntimeError(f"bf16 rollout: non-finite {name}")
+    final32, aux32 = runs["fp32"](state)
+    secs = {"fp32": [], "bf16": []}
+    for p in ("fp32", "bf16", "bf16", "fp32") * (BF16["repeats"] // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[p](state)
+        torch.cuda.synchronize()
+        secs[p].append(time.perf_counter() - t0)
+    edges = {p: float(a["message_edges"].sum())
+             for p, a in (("fp32", aux32), ("bf16", aux))}
+    # where a span's time goes: the device's share of each run under the
+    # profiler, and the aten calls the host issues in the first span
+    profiles = {p: profile_run(run, state, top=6) for p, run in runs.items()}
+    calls = {p: aten_calls(lambda p=p: dr.device_step(
+        reg, cls, state, c_threshold=C_THRESHOLD, pallas=p))["span"]
+        for p in runs}
+    ev32, ev16 = event_set(aux32), event_set(aux)
+    jaccard = len(ev32 & ev16) / max(len(ev32 | ev16), 1)
+    emit(phase="bf16_rollout", spans=n, launches={
+             k: ({str(kk): vv for kk, vv in v.items()} if k == "by_shape"
+                 else v) for k, v in launches.items()},
+         seconds=secs, ms_per_span={p: min(v) / n * 1e3
+                                    for p, v in secs.items()},
+         edges_per_s={p: edges[p] / min(secs[p]) for p in secs},
+         peak_mem_bytes=peak, resident_mem_bytes=resident,
+         profiles=profiles, aten_calls_first_span=calls,
+         events_fp32=len(ev32), events_bf16=len(ev16), event_jaccard=jaccard,
+         events_only_fp32=sorted(ev32 - ev16),
+         events_only_bf16=sorted(ev16 - ev32),
+         live_grains={"fp32": int(final32.mask_g.sum()),
+                      "bf16": int(final.mask_g.sum())},
+         capacity={f: int(aux[f].sum()) for f in
+                   ("ring_overflow", "pp_overflow", "elim_saturated")})
+
+    span = bf16_span_card_vs_cpu(reg, cls, reg_cpu, cls_cpu, state)
+    cfg = BATCHED
+    singles = []
+    for seed in cfg["seeds"][:BF16["lanes"]]:
+        t = dd.generate_trajectory(cfg["lxd"], seed, cfg["G"], cfg["R"])
+        singles.append(dd.init_scaled_state(t.x, t.edges, t.mask, t.lxd,
+                                            t.patch_size, device=dev)[0])
+    stacked = dr.stack_states(singles)
+    lanes = lanes_vs_singles(reg, cls, stacked, singles, BF16["lane_spans"],
+                             pallas=True)
+    if lanes["lanes_equal"] < 1:
+        raise RuntimeError(f"bf16 batched: no lane equals its single run "
+                           f"({lanes})")
+    reset_launches()
+    _, baux = dr.make_rollout_batched(reg, cls, n_steps=BF16["lane_spans"],
+                                      c_threshold=C_THRESHOLD,
+                                      pallas=True)(stacked)
+    torch.cuda.synchronize()
+    blaunch = (dict(edge_stage.launches), dict(edge_stage.bf16_launches))
+    nb = BF16["lane_spans"]
+    if blaunch != ({"node_proj": 0, "edge_attn": 0},
+                   {"node_proj": 12 * nb, "edge_attn": 12 * nb}):
+        raise RuntimeError(f"bf16 batched: launches {blaunch}")
+    emit(phase="bf16_span", span=span, batched=dict(
+        lanes, B=len(singles), launches_fp32=blaunch[0],
+        launches_bf16=blaunch[1], switches=int(
+            (baux["switching"][..., 0] >= 0).sum())))
+
+    sample, _ = dr.make_sample(state)
+    rows = bf16_kernel_rows(decoder_conv_inputs(reg, sample, "bf16"),
+                            reg.hp.layer_size)
+
+    reset_launches()
+    with Recorder(capture=False) as rec:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(GEN40 + ["--pallas"])
+    torch.cuda.synchronize()
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    cli_launch = (dict(edge_stage.launches), dict(edge_stage.bf16_launches))
+    if (any(cli_launch[0].values())
+            or cli_launch[1] != {"node_proj": 12 * rec.spans,
+                                 "edge_attn": 12 * rec.spans}
+            or "events_pred" not in line):
+        raise RuntimeError(f"cli --pallas: {line}, launches {cli_launch}")
+    err = io.StringIO()
+    refused = ["--generate", "--device_resident", "--model_dir",
+               "artifacts/40um", "--seed", "3", "--G", "4", "--R", "1",
+               "--pallas", "--partition", "4"]
+    try:
+        with contextlib.redirect_stderr(err):
+            cli.main(refused)
+        raise RuntimeError("cli: --pallas --partition 4 was not refused")
+    except SystemExit:
+        if "--pallas applies to the single-device scan" not in err.getvalue():
+            raise RuntimeError(f"cli: refused for {err.getvalue()!r}")
+    emit(phase="bf16_cli", cli_args=GEN40 + ["--pallas"], cli=line,
+         spans=rec.spans, launches_fp32=cli_launch[0],
+         launches_bf16=cli_launch[1], refused=refused,
+         refusal=err.getvalue().strip().splitlines()[-1])
+    return [dict(row, launches=launches["by_shape"].get(key, 0))
+            for key, row in rows.items()]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -3697,6 +4036,7 @@ def main():
         cls_cpu, _, _ = checkpoint.load_model("artifacts/40um/classifier1",
                                               "cpu")
         phase_reference(reg, cls, state, reg_cpu, cls_cpu)
+        bf16_rows = phase_bf16(reg, cls, reg_cpu, cls_cpu, state, cuda)
         generate_row = phase_generate(reg, cls, reg_cpu, cls_cpu, cuda)
         trajs = phase_generator()
         gen40_rows = phase_generate40(trajs[40], reg, cls, reg_cpu, cls_cpu,
@@ -3730,7 +4070,7 @@ def main():
               "rollout spans",
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
     kernels.append(generate_row)
-    kernels += gen40_rows + r240_rows + batched_rows + engine_rows
+    kernels += bf16_rows + gen40_rows + r240_rows + batched_rows + engine_rows
     kernels += list(train_rows.values()) + pf_rows + partition_rows
     kernels += dist_rows
     for k in kernels:

@@ -23,6 +23,9 @@ default) runs; with --device_resident the device-resident rollout
       --nucleation_density=2e-4 --meltpool=cylinder --r0=20 --z0=4 \
       --c_threshold=0.99 --eval_every=5
 
+--pallas (with --device_resident) runs its forwards on the bf16 edge
+kernels, JAX's pallas=True rollout.
+
 With --partition D it runs the partitioned rollout on D ranks spawned
 from this command (parallel.mesh.launch; implies the device-resident
 path, static and nucleation-free): halo-striped forwards, the
@@ -112,8 +115,9 @@ def _parser():
     p.add_argument("--partition", type=int, default=0,
                    help="run the partitioned rollout on this many ranks "
                         "(implies --device_resident)")
-    # an option of the JAX CLI that the port refuses
-    p.add_argument("--pallas", action="store_true")
+    p.add_argument("--pallas", action="store_true",
+                   help="--device_resident: the forwards on the bf16 "
+                        "kernels (JAX's fused bf16 Pallas convs)")
     return p
 
 
@@ -121,8 +125,6 @@ def _args(argv):
     """(args, clamp) of the command line, checked."""
     p = _parser()
     args = p.parse_args(argv)
-    if args.pallas:
-        p.error("--pallas is not ported: it needs the bf16 edge stage")
     if args.partition < 0:
         p.error("--partition takes a number of ranks")
     if args.partition and (args.nucleation_density > 0
@@ -130,6 +132,12 @@ def _args(argv):
         p.error("--partition covers the nucleation-free static-meltpool "
                 "rollout; nucleation and the moving melt pool run on the "
                 "single-device rollout")
+    if args.pallas and args.partition:
+        p.error("--partition uses the striped XLA forward; --pallas "
+                "applies to the single-device scan")
+    if args.pallas and not args.device_resident:
+        p.error("--pallas is an option of --device_resident (the host "
+                "engine runs the fp32 kernels)")
     if args.meltpool == "cylinder" and not args.generate:
         p.error("--meltpool=cylinder is a generate-mode option")
     if not args.generate and not extraction.find_pf_file(args.rawdat_dir,
@@ -235,7 +243,7 @@ def _run(args, clamp, device):
             compare=args.compare, growth_height=args.growth_height,
             verbose=args.verbose, nucleation_density=args.nucleation_density,
             seed=args.seed, partition=args.partition, meltpool=meltpool,
-            device=device)
+            pallas=args.pallas, device=device)
         if res is None:
             return None, None
     else:

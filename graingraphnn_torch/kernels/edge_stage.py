@@ -9,6 +9,13 @@ per tile of destination rows and gate, the l2 product once per row on
 ops.period_conv.apply_period_conv_plain. `node_proj_cuda` and
 `edge_attn_cuda` launch each kernel alone (plain versions:
 period_conv.node_projections_plain and period_conv.edge_attn_plain).
+
+precision="bf16" takes the bf16 kernels of csrc/edge_stage_bf16.cu
+instead (`node_proj_bf16`, `edge_attn_bf16`: bf16 operands on tensor cores,
+fp32 accumulation, rounded where the TPU kernel rounds), whose plain
+versions are the same functions at precision="bf16". They take the same
+fp32 inputs and weights and round them to bf16 as they load them, so no
+bf16 copy is made or cached.
 """
 
 from __future__ import annotations
@@ -19,14 +26,27 @@ import torch
 
 from . import _build
 
-# kernel launches since the caller last called reset_counts(), by kernel,
-# by (kernel, F_src, F_dst) and, for edge_attn, by its ring width K
+# kernel launches since the caller last called reset_counts(): by kernel,
+# fp32 (launches) and bf16 (bf16_launches); by (kernel, F_src, F_dst), the
+# bf16 kernels named node_proj_bf16 and edge_attn_bf16; and, for the fp32
+# edge_attn, by its ring width K
 launches = {"node_proj": 0, "edge_attn": 0}
+bf16_launches = {"node_proj": 0, "edge_attn": 0}
 shape_launches: dict = {}
 ring_launches: dict = {}
 
 SOURCE = "edge_stage"
+SOURCE_BF16 = "edge_stage_bf16"
 NVCC_FLAGS: tuple = ()
+# each precision's source and its C entries
+ENTRIES = {
+    "fp32": (SOURCE, {"conv": "edge_stage_forward",
+                      "node_proj": "edge_node_proj",
+                      "edge_attn": "edge_attn_forward"}),
+    "bf16": (SOURCE_BF16, {"conv": "edge_stage_bf16_forward",
+                           "node_proj": "edge_node_proj_bf16",
+                           "edge_attn": "edge_attn_bf16_forward"}),
+}
 MAX_F, MAX_G, MAX_C, MAX_K = 128, 8, 128, 64    # limits of csrc/edge_stage.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (
@@ -41,18 +61,31 @@ _ATTN_ARGTYPES = ([_P, _I, _I] * 2 + [_P] * 3 + [_I] + [_P] * 9 + [_I] * 2
 
 
 def reset_counts():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, bf16_launches):
+        for k in counts:
+            counts[k] = 0
     shape_launches.clear()
     ring_launches.clear()
 
 
-def _count(kernel, Fs, Fd, K=None):
-    launches[kernel] += 1
-    key = (kernel, Fs, Fd)
+def _count(kernel, Fs, Fd, precision, K=None):
+    bf16 = precision == "bf16"
+    (bf16_launches if bf16 else launches)[kernel] += 1
+    key = (kernel + "_bf16" if bf16 else kernel, Fs, Fd)
     shape_launches[key] = shape_launches.get(key, 0) + 1
-    if K is not None:
+    if K is not None and not bf16:
         ring_launches[K] = ring_launches.get(K, 0) + 1
+
+
+def _entry(precision, which):
+    """The bound C entry `which` ("conv", "node_proj" or "edge_attn") of
+    the precision's source."""
+    if precision not in ENTRIES:
+        raise ValueError(f"precision {precision!r}: one of {tuple(ENTRIES)}")
+    source, symbols = ENTRIES[precision]
+    argtypes = {"conv": _ARGTYPES, "node_proj": _PROJ_ARGTYPES,
+                "edge_attn": _ATTN_ARGTYPES}[which]
+    return _build.function(source, symbols[which], argtypes, NVCC_FLAGS)
 
 
 def _check(x_src, tensors):
@@ -109,42 +142,44 @@ def _stream(t):
 
 
 def apply_period_conv_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, *,
-                           num_gates: int, out_channels: int):
-    """Fused-gate periodic conv on the card, fp32. Returns [Nd, G*C]."""
+                           num_gates: int, out_channels: int,
+                           precision: str = "fp32"):
+    """Fused-gate periodic conv on the card, fp32 or bf16. Returns
+    [Nd, G*C] fp32."""
     G, C = num_gates, out_channels
     (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
     _check(x_src, {**_proj_tensors(conv, x_src, x_dst, G * C),
                    **_attn_tensors(conv, x_src, x_dst, nbr, edge_len,
                                    nbr_mask, G, C)})
     _limits(Fs, Fd, G, C, K)
-    fn = _build.function(SOURCE, "edge_stage_forward", _ARGTYPES, NVCC_FLAGS)
-    out = launch(fn, _stream(x_src), conv, x_src, x_dst, nbr, edge_len,
-                 nbr_mask, G, C)
+    out = launch(_entry(precision, "conv"), _stream(x_src), conv, x_src,
+                 x_dst, nbr, edge_len, nbr_mask, G, C)
     if Ns + Nd > 0:
-        _count("node_proj", Fs, Fd)
+        _count("node_proj", Fs, Fd, precision)
     if Nd > 0:
-        _count("edge_attn", Fs, Fd, K)
+        _count("edge_attn", Fs, Fd, precision, K)
     return out
 
 
-def node_proj_cuda(conv, x_src, x_dst):
+def node_proj_cuda(conv, x_src, x_dst, precision: str = "fp32"):
     """The node projections alone, one node_proj launch. Returns
-    (K [Ns, GC], V [Ns, GC], Q [Nd, GC], skip [Nd, GC])."""
+    (K [Ns, GC], V [Ns, GC], Q [Nd, GC], skip [Nd, GC]); at bf16, K and V
+    leave out the position lanes (period_conv.node_projections_plain)."""
     GC = conv.key.w.shape[1]
     (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
     _check(x_src, _proj_tensors(conv, x_src, x_dst, GC))
     _limits(Fs, Fd)
-    fn = _build.function(SOURCE, "edge_node_proj", _PROJ_ARGTYPES, NVCC_FLAGS)
-    out = launch_node_proj(fn, _stream(x_src), conv, x_src, x_dst)
+    out = launch_node_proj(_entry(precision, "node_proj"), _stream(x_src),
+                           conv, x_src, x_dst)
     if Ns + Nd > 0:
-        _count("node_proj", Fs, Fd)
+        _count("node_proj", Fs, Fd, precision)
     return out
 
 
 def edge_attn_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, proj, *,
-                   num_gates: int, out_channels: int):
+                   num_gates: int, out_channels: int, precision: str = "fp32"):
     """The edge kernel alone, one edge_attn launch, on the node projections
-    `proj` = (K, V, Q, skip). Returns [Nd, G*C]."""
+    `proj` = (K, V, Q, skip) of the same precision. Returns [Nd, G*C]."""
     G, C = num_gates, out_channels
     (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
     names = ("kn", "vn", "q", "sk")
@@ -156,12 +191,11 @@ def edge_attn_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, proj, *,
         **{n: (t, (Ns if i < 2 else Nd, G * C))
            for i, (n, t) in enumerate(zip(names, proj))}})
     _limits(Fs, Fd, G, C, K)
-    fn = _build.function(SOURCE, "edge_attn_forward", _ATTN_ARGTYPES,
-                         NVCC_FLAGS)
-    out = launch_edge_attn(fn, _stream(x_src), conv, x_src, x_dst, nbr,
-                           edge_len, nbr_mask, proj, G, C)
+    out = launch_edge_attn(_entry(precision, "edge_attn"), _stream(x_src),
+                           conv, x_src, x_dst, nbr, edge_len, nbr_mask, proj,
+                           G, C)
     if Nd > 0:
-        _count("edge_attn", Fs, Fd, K)
+        _count("edge_attn", Fs, Fd, precision, K)
     return out
 
 

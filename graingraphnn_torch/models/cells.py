@@ -14,7 +14,9 @@ the non-recurrent single-gate variant (ReLU, the cell state passes
 through); no shipped model uses it.
 
 Every apply function takes `kernels`, the conv formulation its caller
-chose (ops.period_conv.apply_period_conv).
+chose, and `precision` ("fp32" or "bf16"), its numerics
+(ops.period_conv.apply_period_conv); the SAGE cells have no periodic conv
+and take neither.
 """
 
 from __future__ import annotations
@@ -96,9 +98,10 @@ def _sources(xg, xj, src_gather):
 
 
 def _period_convs(cell, sample, xg, xj, num_gates, C, kernels,
-                  src_gather=None):
+                  src_gather=None, precision="fp32"):
     """(push + connect into joints, pull into grains) of a periodic cell."""
-    kw = dict(num_gates=num_gates, out_channels=C, kernels=kernels)
+    kw = dict(num_gates=num_gates, out_channels=C, kernels=kernels,
+              precision=precision)
     s = sample
     xg_src, xj_src = _sources(xg, xj, src_gather)
     out_push = apply_period_conv(cell.conv["push"], xg_src, xj, s.push_nbr,
@@ -127,6 +130,7 @@ def apply_pgclstm(
     *,
     kernels: bool,
     src_gather=None,
+    precision: str = "fp32",
 ):
     """One recurrent step. state = (h, c), each {'grain': [NG,C],
     'joint': [NJ,C]}. src_gather(xg, xj) -> (xg_src, xj_src) makes the
@@ -136,7 +140,7 @@ def apply_pgclstm(
     h, c = state
     xg, xj = _gate_inputs(grain_in, joint_in, h)
     joint_msg, grain_msg = _period_convs(cell, sample, xg, xj, NUM_GATES, C,
-                                         kernels, src_gather)
+                                         kernels, src_gather, precision)
     joint_gates = joint_msg + cell.bias["joint"].reshape(-1)
     grain_gates = grain_msg + cell.bias["grain"].reshape(-1)
     h_g, c_g = _lstm_update(grain_gates, c["grain"], C)
@@ -257,25 +261,27 @@ class PGC(nn.Module):
 
 
 def apply_pgc(cell: PGC, sample, grain_in, joint_in, state, out_channels, *,
-              kernels: bool):
+              kernels: bool, precision: str = "fp32"):
     """h = relu(conv(cat([x, h])) + b); the cell state passes through."""
     C = out_channels
     h, c = state
     xg, xj = _gate_inputs(grain_in, joint_in, h)
-    joint_msg, grain_msg = _period_convs(cell, sample, xg, xj, 1, C, kernels)
+    joint_msg, grain_msg = _period_convs(cell, sample, xg, xj, 1, C, kernels,
+                                         precision=precision)
     h_j = torch.relu(joint_msg + cell.bias["joint"].reshape(-1))
     h_g = torch.relu(grain_msg + cell.bias["grain"].reshape(-1))
     return {"grain": h_g, "joint": h_j}, c
 
 
 def apply_cell(cell, sample, grain_in, joint_in, state, out_channels, *,
-               kind: str, kernels: bool, src_gather=None):
+               kind: str, kernels: bool, src_gather=None,
+               precision: str = "fp32"):
     """kind is static config ('pgclstm' for layer 0, 'sage' for layers >= 1,
     HyperParams.cell_kinds)."""
     if kind == "pgclstm":
         return apply_pgclstm(cell, sample, grain_in, joint_in, state,
                              out_channels, kernels=kernels,
-                             src_gather=src_gather)
+                             src_gather=src_gather, precision=precision)
     return apply_sage_clstm(cell, sample, grain_in, joint_in, state,
                             out_channels, src_gather)
 

@@ -12,7 +12,8 @@ Parameter names follow the JAX package's tree, so `encoder.0.conv.push.key.w`
 here is `params["encoder"][0]["conv"]["push"]["key"]["w"]` there. The
 forwards take `kernels`, the conv formulation (ops.period_conv): True for
 the hand kernels on the card (no autograd), False for the torch
-formulation that training differentiates.
+formulation that training differentiates; and `precision`, "fp32" (the
+default) or "bf16" (JAX's pallas=True forwards with kernels).
 
 Initialisation draws from an explicit torch.Generator with the JAX
 package's distributions (Glorot convs, torch-Linear heads and SAGE convs,
@@ -66,7 +67,8 @@ class _EncoderDecoder(nn.Module):
         self.encoder = _stack(hp)
         self.decoder = _stack(hp)
 
-    def _apply_stack(self, stack, sample, states, kernels, src_gather):
+    def _apply_stack(self, stack, sample, states, kernels, src_gather,
+                     precision):
         C = self.hp.layer_size
         if states is None:
             states = [cells.zero_state(sample, C) for _ in stack]
@@ -75,17 +77,19 @@ class _EncoderDecoder(nn.Module):
         for cell, kind, st in zip(stack, self.hp.cell_kinds, states):
             h, c = cells.apply_cell(cell, sample, g_in, j_in, st, C,
                                     kind=kind, kernels=kernels,
-                                    src_gather=src_gather)
+                                    src_gather=src_gather,
+                                    precision=precision)
             new_states.append((h, c))
             g_in, j_in = h["grain"], h["joint"]
         return new_states
 
     def encode_decode(self, sample: GraphSample, *, kernels: bool,
-                      src_gather=None) -> Dict[str, torch.Tensor]:
+                      src_gather=None, precision: str = "fp32"
+                      ) -> Dict[str, torch.Tensor]:
         enc = self._apply_stack(self.encoder, sample, None, kernels,
-                                src_gather)
+                                src_gather, precision)
         h, _c = self._apply_stack(self.decoder, sample, enc, kernels,
-                                  src_gather)[-1]
+                                  src_gather, precision)[-1]
         return h
 
 
@@ -106,7 +110,7 @@ class Regressor(_EncoderDecoder):
             self.lin1 = Dense((2 * head_in + 1, 1), (1,))
 
     def forward(self, sample: GraphSample, *, kernels: bool,
-                src_gather=None, node_gather=None
+                src_gather=None, node_gather=None, precision: str = "fp32"
                 ) -> Dict[str, torch.Tensor]:
         """Returns 'joint' [NJ, 2] tanh(dx, dy), 'grain' [NG, 2] (tanh
         darea, relu extraV), 'grain_area' [NG], the predicted area, and with
@@ -116,7 +120,7 @@ class Regressor(_EncoderDecoder):
         xj) makes the convs' source tables and node_gather(hj) the table the
         jj indices point into; None on one device."""
         h = self.encode_decode(sample, kernels=kernels,
-                               src_gather=src_gather)
+                               src_gather=src_gather, precision=precision)
         hg, hj = h["grain"], h["joint"]
         if self.hp.history:
             w = self.hp.window
@@ -153,13 +157,14 @@ class Classifier(_EncoderDecoder):
         self.lin2 = Dense((head_in, 1), (1,))   # event logit
 
     def forward(self, sample: GraphSample, *, kernels: bool,
-                src_gather=None, node_gather=None
+                src_gather=None, node_gather=None, precision: str = "fp32"
                 ) -> Dict[str, torch.Tensor]:
         """Returns 'edge_event' [E] raw logits per directed jj edge and
         'edge' [E, 2] tanh length prediction. src_gather and node_gather
         as in Regressor.forward."""
         hj = self.encode_decode(sample, kernels=kernels,
-                                src_gather=src_gather)["joint"]
+                                src_gather=src_gather,
+                                precision=precision)["joint"]
         pair = _pair(hj if node_gather is None else node_gather(hj), sample)
         logits = (pair @ self.lin2.w + self.lin2.b)[:, 0]
         edge = torch.tanh(pair @ self.lin1.w + self.lin1.b)

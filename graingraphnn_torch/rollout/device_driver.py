@@ -214,6 +214,7 @@ def run_device_resident(
     seed: int = 0,
     partition: int = 0,
     meltpool: Optional[Dict] = None,
+    pallas=False,
     device="cuda",
 ) -> Dict:
     """Rollout of traj's starting graph with the models on `device`:
@@ -238,7 +239,10 @@ def run_device_resident(
     lives on the rank's device, not on `device`): the halo-striped
     forward, the column-sharded editor and the shared finalize, striped
     by physical x where the domain is rescaled. Rank 0 observes and
-    returns the result dict, the other ranks None."""
+    returns the result dict, the other ranks None.
+
+    pallas=True (or "bf16") runs the forwards on the bf16 kernels
+    (device_rollout._pallas_mode), on the single-device rollout only."""
     if compare and traj.alpha_pde_frames is None:
         raise ValueError("compare=True needs a trajectory with a phase-field "
                          "truth (trajectory_from_extractor of a PF "
@@ -250,6 +254,9 @@ def run_device_resident(
                              "static-meltpool rollout; nucleation and the "
                              "moving melt pool run on the single-device "
                              "rollout")
+        if pallas:
+            raise ValueError("--partition uses the striped XLA forward; "
+                             "--pallas applies to the single-device scan")
         from ..parallel import mesh as mesh_mod
 
         mesh = mesh_mod.current(partition)
@@ -353,7 +360,8 @@ def run_device_resident(
         run_chunk = dr.make_rollout(
             regressor, classifier, n_steps=eval_every,
             r_threshold=r_threshold, c_threshold=c_threshold, span=span,
-            nuc_density_term=nuc_density_term, melt_term=melt_term)
+            nuc_density_term=nuc_density_term, melt_term=melt_term,
+            pallas=pallas)
 
     def host(a):
         return a.cpu().numpy() if isinstance(a, torch.Tensor) else a

@@ -308,13 +308,25 @@ def make_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
     return sample, overflow
 
 
-def forward_stage(regressor, classifier, state, ring):
-    """ELL rebuild + model forwards on the hand kernels, in inference mode.
-    Returns (sample, y_r, y_c, ring_overflow)."""
+def _pallas_mode(pallas) -> str:
+    """The conv precision of the rollout factories' `pallas` option, JAX's
+    values: False, None and "fp32" take the fp32 kernels (JAX's XLA
+    formulation and its fp32 Pallas conv, one precision class); True and
+    "bf16" the bf16 kernels (JAX's fused Pallas conv at bf16 operands)."""
+    if pallas in (False, None) or pallas == "fp32":
+        return "fp32"
+    if pallas is True or pallas == "bf16":
+        return "bf16"
+    raise ValueError(f"pallas mode {pallas!r}")
+
+
+def forward_stage(regressor, classifier, state, ring, precision="fp32"):
+    """ELL rebuild + model forwards on the hand kernels of `precision`, in
+    inference mode. Returns (sample, y_r, y_c, ring_overflow)."""
     sample, overflow = make_sample(state, ring)
     with torch.inference_mode():
-        y_r = regressor(sample, kernels=True)
-        y_c = classifier(sample, kernels=True)
+        y_r = regressor(sample, kernels=True, precision=precision)
+        y_c = classifier(sample, kernels=True, precision=precision)
     return sample, y_r, y_c, overflow
 
 
@@ -522,14 +534,16 @@ def device_step(regressor, classifier, state: DeviceRolloutState, *,
                 max_elim: int = tj.MAX_ELIM, max_switch: int = tj.MAX_SWITCH,
                 nuc_density_term: float = 0.0,
                 nuc_rand=None, nuc_angles=None, melt_term=None,
-                melt_left=None):
+                melt_left=None, pallas=False):
     """One rollout span. Returns (next_state, aux): aux holds the span's
     grain events, extra events, switching pairs, message-edge count and
     capacity flags, all on the device. nuc_density_term > 0 turns on
     nucleation with this span's draws nuc_rand [NJcap] and nuc_angles
-    [MAX_NUC, 2]; melt_term turns on the moving melt pool at melt_left."""
+    [MAX_NUC, 2]; melt_term turns on the moving melt pool at melt_left.
+    pallas=True (or "bf16") runs the forwards on the bf16 kernels, JAX's
+    pallas=True scan (_pallas_mode)."""
     sample, y_r, y_c, overflow = forward_stage(regressor, classifier, state,
-                                               ring)
+                                               ring, _pallas_mode(pallas))
     message_edges = (sample.push_mask.sum() + sample.pull_mask.sum()
                      + sample.connect_mask.sum())
     return post_forward_step(
@@ -632,7 +646,9 @@ def make_rollout(regressor, classifier, *, n_steps: int, **step_kw):
     nuc_rand[i] ([n_steps, NJcap] draws) and nuc_angles[i] ([n_steps,
     MAX_NUC, 2]); with the moving melt pool (step_kw melt_term) it takes
     melt_lefts[i]. The loop runs without host sync; run() reads the
-    capacity flags once after it and raises on a bust."""
+    capacity flags once after it and raises on a bust. step_kw pallas:
+    device_step's (an unknown mode raises here)."""
+    _pallas_mode(step_kw.get("pallas", False))
 
     def run(state: DeviceRolloutState, nuc_rand=None, nuc_angles=None,
             melt_lefts=None):
@@ -812,20 +828,21 @@ def _pack_build_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
 
 def batched_step(regressor, classifier, state: DeviceRolloutState, *,
                  r_threshold: float = 1e-4, c_threshold: float = 0.6,
-                 span: int = 6, ring: int = tj.RING_MAX):
+                 span: int = 6, ring: int = tj.RING_MAX, pallas=False):
     """One static span of B independent lanes (a stack_states state): the
     sample built once in the packed id space, ONE regressor and ONE
     classifier forward over all lanes on the hand kernels, the
     predictions reshaped to [B, ...], then the post-forward stages over
     the lane axis with one editor launch for all lanes (one block a lane,
     single-lane budgets). Returns (next_state, aux), every aux entry with
-    a leading [B] axis."""
+    a leading [B] axis. pallas as device_step's."""
     B, NG = state.xg.shape[:2]
     NJ = state.xj.shape[1]
+    precision = _pallas_mode(pallas)
     sample, overflow, edges = _pack_build_sample(state, ring)
     with torch.inference_mode():
-        y_r = regressor(sample, kernels=True)
-        y_c = classifier(sample, kernels=True)
+        y_r = regressor(sample, kernels=True, precision=precision)
+        y_c = classifier(sample, kernels=True, precision=precision)
         y_r = {"joint": y_r["joint"].reshape(B, NJ, -1),
                "grain": y_r["grain"].reshape(B, NG, -1),
                "grain_area": y_r["grain_area"].reshape(B, NG)}
@@ -837,10 +854,11 @@ def batched_step(regressor, classifier, state: DeviceRolloutState, *,
 
 def make_rollout_batched(regressor, classifier, *, n_steps: int, **step_kw):
     """run(state) -> (state, aux) over n_steps static spans of B lanes
-    (batched_step; step_kw: r_threshold, c_threshold, span, ring), aux
-    [n_steps, B, ...] like a scan's output. The loop runs without host
+    (batched_step; step_kw: r_threshold, c_threshold, span, ring, pallas),
+    aux [n_steps, B, ...] like a scan's output. The loop runs without host
     sync; run() reads the capacity flags once after it and raises on a
     bust, naming the span and the lane."""
+    _pallas_mode(step_kw.get("pallas", False))
 
     def run(state: DeviceRolloutState):
         auxs = []

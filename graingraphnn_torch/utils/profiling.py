@@ -28,6 +28,7 @@ import torch
 # NVIDIA H100 SXM datasheet peaks (chip_smoke.py's bounds use these)
 H100_PEAK_FP32 = 67e12          # fp32 outside the tensor cores, FLOP/s
 H100_PEAK_TF32X3 = 495e12 / 3   # TF32 tensor cores, 3 products per fp32 one
+H100_PEAK_BF16 = 989e12         # bf16 tensor cores, dense, FLOP/s
 H100_PEAK_BYTES = 3.35e12       # HBM3, bytes/s
 
 

@@ -12,7 +12,9 @@ Dynamic shared memory is a buffer of the launch's size. A grid has two
 dimensions. csrc/mma_tf32.cuh is replaced by a C++ header of the same
 name: TF32 rounding as cvt.rna does it, cp.async as a copy, and the
 m16n8k8 product with the PTX fragment layout, its operands exchanged
-through memory between two barriers of the warp. That is exact for these
+through memory between two barriers of the warp; csrc/mma_bf16.cuh
+likewise, on a bf16 type that rounds as __float2bfloat16_rn does, with
+the m16n8k16 bf16 product. That is exact for these
 kernels, whose every thread reaches every barrier, and every lane of a
 warp every shuffle, ballot and product."""
 
@@ -112,6 +114,22 @@ inline unsigned __ballot_sync(unsigned, int p) {
   return r;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+// bf16 as cuda_bf16.h has it: __float2bfloat16_rn rounds to nearest, ties
+// to even (a NaN stays a quiet NaN)
+struct __nv_bfloat16 { uint16_t x; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)((u >> 16) | 0x40u)};
+  return {(uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const uint32_t u = (uint32_t)b.x << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
@@ -205,6 +223,55 @@ inline void cp_async_wait_all() {}
 """
 
 
+# csrc/mma_bf16.cuh for the emulation: the same helpers in C++ on the bf16
+# type of emu.h, and the m16n8k16 bf16 product, its operands exchanged
+# through memory as the TF32 one's.
+EMU_MMA_BF16_H = r"""
+#pragma once
+#include "emu.h"
+inline uint16_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+inline float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+inline uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)bf16_bits(lo) | ((uint32_t)bf16_bits(hi) << 16);
+}
+// mma.m16n8k16.row.col.f32.bf16.bf16.f32; g = lane / 4, t = lane % 4, two
+// values a register, the lower k in the low half:
+// a0 (g, 2t..), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..);
+// b0 (2t.., g), b1 (2t+8.., g); d0 (g, 2t), d1 (g, 2t+1), d2 (g+8, 2t),
+// d3 (g+8, 2t+1)
+inline void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  const int lane = threadIdx.x & 31, w0 = threadIdx.x - lane;
+  uint32_t* mine = &(*emu_frag)[6 * threadIdx.x];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b[0];
+  mine[5] = b[1];
+  emu_warp_bar->arrive_and_wait();
+  auto half = [&](int l, int reg, int hi) {
+    const uint32_t w = (*emu_frag)[6 * (w0 + l) + reg];
+    return __bfloat162float({(uint16_t)(hi ? w >> 16 : w & 0xffffu)});
+  };
+  auto A = [&](int r, int k) {
+    return half(4 * (r & 7) + ((k & 7) >> 1), (r >= 8) + 2 * (k >= 8), k & 1);
+  };
+  auto B = [&](int k, int n) { return half(4 * n + ((k & 7) >> 1), 4 + (k >= 8), k & 1); };
+  const int g = lane >> 2, t = lane & 3;
+  float out[4];
+  for (int u = 0; u < 4; ++u) {
+    const int r = g + 8 * (u >> 1), n = 2 * t + (u & 1);
+    float s = 0.f;
+    for (int k = 0; k < 16; ++k) s += A(r, k) * B(k, n);
+    out[u] = d[u] + s;
+  }
+  emu_warp_bar->arrive_and_wait();
+  for (int u = 0; u < 4; ++u) d[u] = out[u];
+}
+"""
+
+
 def _translate(src: str) -> str:
     """`k<<<grid, block, smem, stream>>>(args)`, k a name or `name<args>`,
     -> `emu_launch(k, grid, block, smem, args)`; `extern __shared__ T
@@ -249,6 +316,7 @@ def emulated(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_emu")
     (d / "emu.h").write_text(EMU_H)
     (d / "mma_tf32.cuh").write_text(EMU_MMA_H)
+    (d / "mma_bf16.cuh").write_text(EMU_MMA_BF16_H)
     libs = {}
 
     def build(source, symbol, argtypes, defines=()):
@@ -272,6 +340,7 @@ def emulated(tmp_path_factory):
         call.raw = fn                  # returns the entry's error code
         return call
 
+    build.dir = d
     return build
 
 
@@ -483,6 +552,145 @@ def test_edge_attn_source_refuses_wide_gates(emulated):
     edge_stage.launch_edge_attn(lambda *a: codes.append(fn.raw(*a)), 0, conv,
                                 x, x, nbr, f, f, proj, G, C)
     assert codes[0] != 0
+
+
+# the bf16 kernels against their plain bf16 versions: the same roundings,
+# fp32 sums in another order, so now and then the bf16 rounding of one
+# logit product, relu value or alpha flips and moves a gate's row; the
+# mean is held tight and the max loose (chip_smoke's limits). Readings
+# here: means 3.4e-9 to 2.0e-6 of the scale, maxima up to 1.1e-3; the fp32
+# conv against the plain bf16 version reads 8.1e-4 in the mean
+BF16_MEAN, BF16_MAX = 1e-5, 1e-2
+
+
+def _bf16_close(out, ref):
+    err, scale = (out - ref).abs(), float(ref.abs().max())
+    assert bool(torch.isfinite(out).all())
+    assert float(err.mean()) <= BF16_MEAN * scale, float(err.mean()) / scale
+    assert float(err.max()) <= BF16_MAX * scale, float(err.max()) / scale
+    return float(err.mean()) / scale
+
+
+def test_bf16_emulation_rounds_as_torch(emulated):
+    """The emulation's __float2bfloat16_rn (csrc/mma_bf16.cuh's bf16_bits
+    on it) against torch's float -> bfloat16 conversion, both to nearest
+    with ties to even: random values over many binades, exact ties both
+    ways, subnormals, zeros and infinities."""
+    src = emulated.dir / "round.cpp"
+    src.write_text('#include "mma_bf16.cuh"\n'
+                   'extern "C" void round_all(const float* x, uint16_t* y, '
+                   'int n) { for (int i = 0; i < n; ++i) y[i] = '
+                   'bf16_bits(x[i]); }\n')
+    so = emulated.dir / "libround.so"
+    subprocess.run(["g++", "-std=c++20", "-shared", "-fPIC",
+                    f"-I{emulated.dir}", "-o", str(so), str(src)],
+                   check=True, capture_output=True, timeout=120)
+    fn = ctypes.CDLL(str(so)).round_all
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    rng = np.random.default_rng(0)
+    ties = (np.arange(1 << 12, dtype=np.uint32) << 16 | 0x8000).view(
+        np.float32)
+    x = np.concatenate([
+        rng.normal(0, 1, 4096) * np.exp2(rng.integers(-130, 120, 4096)),
+        ties, -ties, [0.0, -0.0, np.inf, -np.inf, 1e-45, 3.4e38]]
+    ).astype(np.float32)
+    y = np.empty(x.shape, np.uint16)
+    fn(x.ctypes.data, y.ctypes.data, x.size)
+    want = torch.from_numpy(x).to(torch.bfloat16).view(torch.int16).numpy()
+    np.testing.assert_array_equal(y, want.view(np.uint16))
+
+
+@pytest.mark.parametrize("G,C,K,Ns,Nd,Fs,Fd", [
+    pytest.param(4, 8, 3, 13, 11, 11, 9, id="K3-oddF"),
+    pytest.param(1, 30, 16, 20, 23, 11, 9, id="K16-C30"),
+    pytest.param(2, 20, 33, 30, 41, 19, 8, id="K33"),
+    # the rollout's widths; 197 rows are 3+ row tiles with a ragged last one
+    pytest.param(4, 96, 3, 70, 197, 107, 104, id="rollout-K3"),
+    pytest.param(4, 96, 16, 90, 37, 104, 107, id="rollout-K16"),
+    pytest.param(1, 128, 5, 66, 9, 128, 3, id="C128-F128"),
+])
+def test_edge_stage_bf16_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs,
+                                              Fd):
+    """csrc/edge_stage_bf16.cu's three entries against the plain bf16
+    versions: node_proj_bf16 alone (F odd, or 3, so F - 3 is no multiple
+    of 16; N not a multiple of the 64-row tile), edge_attn_bf16 alone on
+    the plain projections and the fused conv, with fully masked rows,
+    fully live rows and scattered live slots, K = 3, 16 and 33 (two
+    ballots)."""
+    entries = [emulated(edge_stage.SOURCE_BF16, sym, args) for sym, args in (
+        ("edge_stage_bf16_forward", edge_stage._ARGTYPES),
+        ("edge_node_proj_bf16", edge_stage._PROJ_ARGTYPES),
+        ("edge_attn_bf16_forward", edge_stage._ATTN_ARGTYPES))]
+    conv, rng = _random_conv(K + Nd + C, Fs, Fd, G, C)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = t(_scattered_mask(rng, Nd, K))
+    kw = dict(num_gates=G, out_channels=C, precision="bf16")
+    proj = edge_stage.launch_node_proj(entries[1], 0, conv, xs, xd)
+    ref = period_conv.node_projections_plain(conv, xs, xd, "bf16")
+    for o, r in zip(proj, ref):
+        torch.testing.assert_close(o, r, atol=1e-5, rtol=1e-5)
+    out = edge_stage.launch_edge_attn(entries[2], 0, conv, xs, xd, nbr, ln,
+                                      mask, ref, G, C)
+    _bf16_close(out, period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask,
+                                                 ref, **kw))
+    # a fully masked row is its skip projection alone
+    torch.testing.assert_close(out[0], ref[3][0], atol=0, rtol=0)
+    out = edge_stage.launch(entries[0], 0, conv, xs, xd, nbr, ln, mask, G, C)
+    _bf16_close(out, period_conv.apply_period_conv_plain(conv, xs, xd, nbr,
+                                                         ln, mask, **kw))
+    torch.testing.assert_close(out[0], proj[3][0], atol=0, rtol=0)
+
+
+def test_fp32_source_fails_the_bf16_limits(emulated):
+    """The planted fault: the fp32 conv's output held against the plain
+    bf16 version reads above the bf16 mean limit (so a bf16 path that
+    computes fp32 fails it), while the bf16 conv reads below it."""
+    G, C, K, Ns, Nd, Fs, Fd = 4, 96, 16, 90, 37, 104, 107
+    conv, rng = _random_conv(7, Fs, Fd, G, C)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = t(_scattered_mask(rng, Nd, K))
+    ref = period_conv.apply_period_conv_plain(
+        conv, xs, xd, nbr, ln, mask, num_gates=G, out_channels=C,
+        precision="bf16")
+    outs = {p: edge_stage.launch(emulated(src, sym, edge_stage._ARGTYPES), 0,
+                                 conv, xs, xd, nbr, ln, mask, G, C)
+            for p, src, sym in (
+                ("fp32", edge_stage.SOURCE, "edge_stage_forward"),
+                ("bf16", edge_stage.SOURCE_BF16, "edge_stage_bf16_forward"))}
+    _bf16_close(outs["bf16"], ref)
+    err = (outs["fp32"] - ref).abs()
+    assert float(err.mean()) > 10 * BF16_MEAN * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("K,C", [(65, 8), (3, 129)])
+def test_edge_stage_bf16_source_refuses_what_it_cannot_take(emulated, K, C):
+    """Rings past 64 slots and gates past 128 columns: the bf16 entries
+    refuse them, as the fp32 ones do (no fallback)."""
+    G, N, F = 1, 5, 8
+    conv, rng = _random_conv(0, F, F, G, C)
+    x = torch.from_numpy(rng.uniform(0, 1, (N, F)).astype(np.float32))
+    nbr = torch.zeros((N, K), dtype=torch.int32)
+    f = torch.ones((N, K))
+    proj = period_conv.node_projections_plain(conv, x, x, "bf16")
+    for sym, args, call in (
+            ("edge_attn_bf16_forward", edge_stage._ATTN_ARGTYPES,
+             lambda fn: edge_stage.launch_edge_attn(fn, 0, conv, x, x, nbr, f,
+                                                    f, proj, G, C)),
+            ("edge_stage_bf16_forward", edge_stage._ARGTYPES,
+             lambda fn: edge_stage.launch(fn, 0, conv, x, x, nbr, f, f, G,
+                                          C))):
+        raw = emulated(edge_stage.SOURCE_BF16, sym, args).raw
+        codes = []
+        call(lambda *a: codes.append(raw(*a)))
+        assert codes[0] != 0, sym
 
 
 @functools.lru_cache(maxsize=1)

@@ -127,6 +127,70 @@ def test_node_proj_kernel_matches_plain(Ns, Nd, Fs, Fd):
         torch.testing.assert_close(o, r, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("K,Ns,Nd,Fs,Fd", [(3, 1043, 2086, 107, 104),
+                                           (3, 2086, 2086, 104, 104),
+                                           (16, 2086, 1043, 104, 107),
+                                           (33, 77, 131, 19, 8)])
+def test_bf16_edge_stage_kernels_match_plain(K, Ns, Nd, Fs, Fd):
+    """The bf16 kernels at the rollout's three conv shapes (and K = 33, F
+    odd): the fused conv, node_proj_bf16 and edge_attn_bf16 alone against
+    the plain bf16 versions at chip_smoke's bf16 limits, counted as bf16
+    launches only; the fp32 conv reads above the mean limit."""
+    dev = card()
+    G, C = 4, 96
+    rng = np.random.default_rng(K + Nd + 1)
+    conv = random_conv(K + 1, Fs, Fd, G, C, dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = (rng.uniform(size=(Nd, K)) < 0.6).astype(np.float32)
+    mask[::5] = 0.0
+    mask[1::5] = 1.0
+    mask[2::5, ::2] = 0.0
+    mask = t(mask)
+    kw = dict(num_gates=G, out_channels=C, precision="bf16")
+    fp32, bf16 = dict(edge_stage.launches), dict(edge_stage.bf16_launches)
+    out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln, mask, **kw)
+    ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln, mask,
+                                              **kw)
+    chip_smoke.close_bf16("fused bf16", out, ref)
+    assert edge_stage.launches == fp32
+    assert edge_stage.bf16_launches == {k: v + 1 for k, v in bf16.items()}
+    proj = period_conv.node_projections_plain(conv, xs, xd, "bf16")
+    for o, r in zip(edge_stage.node_proj_cuda(conv, xs, xd, "bf16"), proj):
+        torch.testing.assert_close(o, r, atol=ATOL, rtol=RTOL)
+    out = edge_stage.edge_attn_cuda(conv, xs, xd, nbr, ln, mask, proj, **kw)
+    chip_smoke.close_bf16("edge_attn_bf16", out, period_conv.edge_attn_plain(
+        conv, xs, xd, nbr, ln, mask, proj, **kw))
+    again = period_conv.apply_period_conv(conv, xs, xd, nbr, ln, mask,
+                                          kernels=True, **kw)
+    assert edge_stage.bf16_launches == {k: v + 3 for k, v in bf16.items()}
+    planted = edge_stage.apply_period_conv_cuda(
+        conv, xs, xd, nbr, ln, mask, num_gates=G, out_channels=C)
+    with pytest.raises(RuntimeError, match="mean abs err"):
+        chip_smoke.close_bf16("fp32 against bf16", planted, ref)
+    chip_smoke.close_bf16("fused bf16, again", again, ref)
+
+
+def test_pallas_span_on_the_card_matches_the_cpu_span(state120):
+    """One span of the 120 um fixture with pallas=True on the card against
+    the CPU's plain bf16 span (chip_smoke.bf16_span_card_vs_cpu: the span
+    and one more forward on the card, 12 + 12 bf16 launches each, no fp32
+    conv launch)."""
+    dev = card()
+    path = "artifacts/40um/"
+    models = [checkpoint.load_model(path + name, d)[0]
+              for d in (dev, "cpu") for name in ("regressor0", "classifier1")]
+    edge_stage.reset_counts()
+    with torch.no_grad():
+        res = chip_smoke.bf16_span_card_vs_cpu(*models, state120)
+    assert edge_stage.bf16_launches == {"node_proj": 24, "edge_attn": 24}
+    assert edge_stage.launches == {"node_proj": 0, "edge_attn": 0}
+    assert res["position_max_abs_err"] <= chip_smoke.BF16_POS_MAX
+
+
 def test_edge_stage_kernel_refuses_what_it_cannot_take():
     dev = card()
     conv = random_conv(0, 11, 8, 4, 8, dev)

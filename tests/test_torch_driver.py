@@ -148,7 +148,7 @@ def test_cli_generate_prints_the_json_line(capsys):
     [], ["--generate", "--plot3D", "--device_resident"], ["--temporal"],
     ["--interp_frames", "2"],
     ["--plot3D"], ["--partition", "4", "--nucleation_density", "2e-4"],
-    ["--pallas"],
+    ["--pallas", "--partition", "4"],
     ["--fused_editor", "off"], ["--jit_editor"], ["--clamp_gr", "1,2,1,2"],
     ["--generate", "--partition", "4", "--temporal"],
     ["--generate", "--pallas"],
@@ -158,8 +158,8 @@ def test_cli_refuses_what_is_not_ported(extra):
     the device-resident rollout; on the host engine (extras that start
     with --generate) a partitioned run with a host engine option, pallas
     and a malformed clamp; on the device-resident rollout the host
-    engine's options, the options of other paths and a partitioned run
-    with nucleation: each ends in an argument error."""
+    engine's options, the options of other paths, a partitioned run with
+    nucleation and one with pallas: each ends in an argument error."""
     base = [] if not extra or extra[0] == "--generate" else [
         "--generate", "--device_resident"]
     with pytest.raises(SystemExit):
