@@ -75,7 +75,10 @@ precision, ms a span, device time, the event Jaccard of the two runs),
 one bf16 span against the CPU's, 4 batched lanes against their
 single-lane bf16 runs, node_proj_bf16 and edge_attn_bf16 against their
 plain bf16 versions at the first span's decoder convs (and the fp32 conv,
-which must fail the bf16 mean limit), and cli.test --pallas. The editor
+which must fail the bf16 mean limit) with both library yardsticks and the
+weight pack's one-time ms, cli.test --pallas and the kernels at the 40 um
+graph's convs, and 2 counted bf16 spans of the 240 um graph and the
+kernels at its convs; the bf16 kernels' ptxas lines first. The editor
 phase (5) also holds the kernel's cleanup mask to its plain version.
 Prints one JSON line per phase, the kernels line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero.
@@ -86,6 +89,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import hashlib
 import io
@@ -216,8 +220,10 @@ BF16_MEAN_REL, BF16_MAX_REL = 1e-5, 1e-2
 BF16_POS_MAX, BF16_POS_MEAN = 1e-3, 1e-5
 # the bf16 phase: JAX's pallas=True rollout (the bf16 edge stage) of the
 # 120 um fixture beside the fp32 one, 20 spans; batched on 4 lanes of
-# bench.py's 120 um seeds for 3 spans
-BF16 = {"spans": 20, "repeats": 4, "lanes": 4, "lane_spans": 3}
+# bench.py's 120 um seeds for 3 spans; 2 counted spans of the 240 um graph
+# (the launches of its kernel rows)
+BF16 = {"spans": 20, "repeats": 4, "lanes": 4, "lane_spans": 3,
+        "spans240": 2}
 # the H100 SXM's datasheet peaks, from utils.profiling
 PEAK_FP32 = profiling.H100_PEAK_FP32
 PEAK_TF32X3 = profiling.H100_PEAK_TF32X3
@@ -281,28 +287,33 @@ def phase_build():
     emit(phase="build", seconds=time.perf_counter() - t0, sources=log)
 
 
-def node_proj_cost(x_src, x_dst, GC):
+def node_proj_cost(x_src, x_dst, GC, bf16=False):
     """(flops, bytes) of the four node projections: inputs and weights read
-    once, the [N, 2 GC] outputs written once."""
+    once, the [N, 2 GC] outputs written once. With bf16, as the bf16 kernel
+    takes them: the weights pre-packed at 2 bytes a value, and x_src's
+    position lanes 0..2 left out of K and V (their weight rows are zero)."""
     (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
-    flops = 2 * 2 * GC * (Ns * Fs + Nd * Fd)
-    bytes_ = 4 * (Ns * Fs + Nd * Fd + 2 * GC * (Fs + Fd) + 4 * GC
-                  + 2 * GC * (Ns + Nd))
+    f0 = 3 if bf16 else 0
+    flops = 2 * 2 * GC * (Ns * (Fs - f0) + Nd * Fd)
+    bytes_ = (4 * (Ns * (Fs - f0) + Nd * Fd + 4 * GC + 2 * GC * (Ns + Nd))
+              + (2 if bf16 else 4) * 2 * GC * (Fs - f0 + Fd))
     return flops, bytes_
 
 
-def edge_attn_cost(x_src, x_dst, nbr_mask, G, C):
+def edge_attn_cost(x_src, x_dst, nbr_mask, G, C, bf16=False):
     """(tensor-core flops, fp32 flops, bytes) of the least work of the edge
     kernel on these inputs: the l2 product once per destination row with a
     live slot (the alpha-weighted sum moves inside the linear layer), the
     elementwise work per live edge; the projections, positions, tables and
-    weights it needs read once, the output written once."""
+    weights it needs read once (with bf16, Wl2 pre-packed at 2 bytes a
+    value), the output written once."""
     Ns, Nd, GC = x_src.shape[0], x_dst.shape[0], G * C
     live = nbr_mask > 0
     rows = float(live.any(1).sum())
     K = nbr_mask.shape[1]
-    bytes_ = 4 * (3 * Ns + 3 * Nd + 3 * Nd * K + 2 * Ns * GC + 2 * Nd * GC
-                  + 6 * GC + G * C * C + 2 * GC + Nd * GC)
+    bytes_ = (4 * (3 * Ns + 3 * Nd + 3 * Nd * K + 2 * Ns * GC + 2 * Nd * GC
+                   + 6 * GC + 2 * GC + Nd * GC)
+              + (2 if bf16 else 4) * G * C * C)
     return 2 * rows * G * C * C, float(live.sum()) * GC * 26, bytes_
 
 
@@ -3756,14 +3767,43 @@ def bf16_span_card_vs_cpu(reg, cls, reg_cpu, cls_cpu, state):
                 grain_events=int((a1["grain_events"] >= 0).sum()))
 
 
-def bf16_kernel_rows(inputs, C):
+def library_fp32_out(b, x, w):
+    """The library's bf16 product that writes fp32, as node_proj_bf16
+    does: addmm on bf16 operands with out_dtype=float32 (an fp32 bias), or
+    None with the reason where this torch has no such overload."""
+    try:
+        out = torch.addmm(b, x, w, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    if out.dtype != torch.float32:
+        return None, f"addmm(out_dtype=float32) returned {out.dtype}"
+    return (lambda: torch.addmm(b, x, w, out_dtype=torch.float32)), None
+
+
+def pack_ms(conv):
+    """The one-time cost of the bf16 weight pack (edge_stage.pack_bf16) of
+    conv: host ms of a cold build, ended on a synchronize, the cache of the
+    conv dropped first; the pack is rebuilt for the calls that follow."""
+    edge_stage._packs.pop(conv, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    edge_stage.pack_bf16(conv)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bf16_kernel_rows(inputs, C, suffix=""):
     """Per conv of inputs {name: (conv, x_src, x_dst, nbr, len, mask)}: the
     fused bf16 conv, node_proj_bf16 and edge_attn_bf16 against their plain
     bf16 versions on the real masks, every 7th row masked and live slots
     dropped at random (close_bf16; the projections, whose products are
     exact, at the fp32 limits), the planted fault (the fp32 conv against
-    the plain bf16 version, which must read above the mean limit), and the
-    times. Returns {(kernel, F_src, F_dst): row}."""
+    the plain bf16 version, which must read above the mean limit), the
+    weight pack's one-time ms, and the times, with two library yardsticks
+    for node_proj_bf16: two bf16 addmm writing bf16 (half the kernel's
+    bytes) and writing fp32. Returns {(kernel, F_src, F_dst): row} (row
+    names end in suffix)."""
     G = cells.NUM_GATES
     GC = G * C
     kw = dict(num_gates=G, out_channels=C, precision="bf16")
@@ -3779,6 +3819,7 @@ def bf16_kernel_rows(inputs, C):
         err = {"conv": 0.0, "node_proj": 0.0, "edge_attn": 0.0}
         mean = {"conv": 0.0, "edge_attn": 0.0}
         planted = math.inf
+        pack = pack_ms(conv)
         proj = period_conv.node_projections_plain(conv, xs, xd, "bf16")
         for mask in (m, m_cut, m_scat):
             out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln,
@@ -3807,13 +3848,16 @@ def bf16_kernel_rows(inputs, C):
             raise RuntimeError(f"bf16 {name}: the fp32 conv reads {planted} "
                                "against the plain bf16 version, not above "
                                f"the mean limit {BF16_MEAN_REL}")
-        # the library's yardstick: two addmm on operands cast to bf16
-        # before timing (bf16 out)
+        # the library's yardsticks: two addmm on operands cast to bf16
+        # before timing, writing bf16, and writing fp32 where torch can
         x_s, x_d = xs[:, 3:].to(bf), xd.to(bf)
         w_src = torch.cat([conv.key.w[3:], conv.value.w[3:]], 1).to(bf)
         w_dst = torch.cat([conv.query.w, conv.skip.w], 1).to(bf)
-        b_src = torch.cat([conv.key.b, conv.value.b]).to(bf)
-        b_dst = torch.cat([conv.query.b, conv.skip.b]).to(bf)
+        b_src32 = torch.cat([conv.key.b, conv.value.b])
+        b_dst32 = torch.cat([conv.query.b, conv.skip.b])
+        b_src, b_dst = b_src32.to(bf), b_dst32.to(bf)
+        f32_src, why = library_fp32_out(b_src32, x_s, w_src)
+        f32_dst, _ = library_fp32_out(b_dst32, x_d, w_dst)
         t = {
             "conv": cuda_ms(lambda: edge_stage.apply_period_conv_cuda(
                 conv, xs, xd, nbr, ln, m, **kw)),
@@ -3828,6 +3872,8 @@ def bf16_kernel_rows(inputs, C):
                 conv, xs, xd, nbr, ln, m, proj, **kw)),
             "edge_attn_plain": cuda_ms(lambda: period_conv.edge_attn_plain(
                 conv, xs, xd, nbr, ln, m, proj, **kw), n=20),
+            "node_proj_library_fp32_out": None if f32_src is None else
+                cuda_ms(lambda: (f32_src(), f32_dst())),
         }
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3836,10 +3882,9 @@ def bf16_kernel_rows(inputs, C):
         conv_host_us = (time.perf_counter() - t0) * 1e4   # per call, issued
         torch.cuda.synchronize()
         (Ns, _), (Nd, _) = xs.shape, xd.shape
-        _, np_bytes = node_proj_cost(xs, xd, GC)
-        np_flops = 2 * 2 * GC * (Ns * (Fs - 3) + Nd * Fd)
+        np_flops, np_bytes = node_proj_cost(xs, xd, GC, bf16=True)
         np_bound, np_by = bound(np_bytes, (np_flops, PEAK_BF16))
-        ea_tc, ea_fp32, ea_bytes = edge_attn_cost(xs, xd, m, G, C)
+        ea_tc, ea_fp32, ea_bytes = edge_attn_cost(xs, xd, m, G, C, bf16=True)
         ea_bound, ea_by = bound(ea_bytes, (ea_tc, PEAK_BF16),
                                 (ea_fp32, PEAK_FP32))
         src = "graingraphnn_torch/csrc/edge_stage_bf16.cu"
@@ -3847,21 +3892,31 @@ def bf16_kernel_rows(inputs, C):
                  f"{BF16_MAX_REL} of max |plain bf16|, also fully masked "
                  "rows and scattered live slots")
         rows[("node_proj_bf16", Fs, Fd)] = dict(
-            name=f"node_proj_{name}_bf16", route="cuda", source=src,
+            name=f"node_proj_{name}_bf16{suffix}", route="cuda", source=src,
             replaces=REPLACES[name], max_abs_err=err["node_proj"],
             ms=t["node_proj"], plain_ms=t["node_proj_plain"],
             bound_ms=np_bound, bound_by=np_by,
             library_ms=t["node_proj_library"],
+            library_fp32_out_ms=t["node_proj_library_fp32_out"],
+            pack_ms=pack,
             check=f"pass: atol {ATOL} rtol {RTOL} (exact products)")
         rows[("edge_attn_bf16", Fs, Fd)] = dict(
-            name=f"edge_attn_{name}_bf16", route="cuda", source=src,
+            name=f"edge_attn_{name}_bf16{suffix}", route="cuda", source=src,
             replaces=REPLACES[name], max_abs_err=err["edge_attn"],
             ms=t["edge_attn"], plain_ms=t["edge_attn_plain"],
             bound_ms=ea_bound, bound_by=ea_by, library_ms=None, check=check)
-        emit(phase="bf16_edge_stage", conv=name, K=K, Ns=Ns, Nd=Nd,
+        # rows past edge_attn_bf16's first chunk of 8 live slots (their V
+        # rows are gathered a second time), and the 32-row tiles with one
+        live = (m > 0).sum(1)
+        past = torch.nn.functional.pad(live > 8, (0, -Nd % 32))
+        emit(phase="bf16_edge_stage", graph=suffix.strip("_") or "120um",
+             conv=name, K=K, Ns=Ns, Nd=Nd,
              F_src=Fs, F_dst=Fd, live_edges=float(m.sum()),
+             rows_by_live_slots=torch.bincount(live).tolist(),
+             tiles_past_first_chunk=int(past.view(-1, 32).any(1).sum()),
              max_abs_err=err, mean_rel_err=mean, planted_fp32_mean_rel=planted,
              mean_limit=BF16_MEAN_REL, max_limit=BF16_MAX_REL, ms=t,
+             library_fp32_out_refused=why, pack_ms=pack,
              conv_host_us=conv_host_us,
              node_proj_gflop=np_flops / 1e9, node_proj_mbytes=np_bytes / 1e6,
              node_proj_bound_ms=np_bound,
@@ -3870,13 +3925,48 @@ def bf16_kernel_rows(inputs, C):
     return rows
 
 
+def bf16_ptxas(Fs=107, Fd=104, C=96, K=(3, 16)):
+    """Each kernel of the bf16 source as ptxas built it in this run
+    (registers, spill bytes, stack; from _build.build_log), and the
+    dynamic shared memory a block takes at the rollout's widths, from the
+    source's own sizes (edge_stage_bf16_smem)."""
+    import re
+
+    lines = next((v["ptxas"] for k, v in _build.build_log.items()
+                  if k.split()[0] == edge_stage.SOURCE_BF16), [])
+    kernels, cur = [], None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            m = re.search(r"(node_proj_bf16|edge_attn_bf16)"
+                          r"(?:ILi(\d+)ELi(\d+)ELi(\d+)E)?", ln)
+            name = (m.group(1) + (f"<{m.group(2)},{m.group(3)},{m.group(4)}>"
+                                  if m.group(2) else "")) if m else ln
+            cur = {"kernel": name}
+            kernels.append(cur)
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+        elif cur is not None and "spill" in ln:
+            st, sp_st, sp_ld = (int(v) for v in re.findall(r"(\d+) bytes", ln)[:3])
+            cur.update(stack=st, spill_stores=sp_st, spill_loads=sp_ld)
+    fn = _build.library(edge_stage.SOURCE_BF16, edge_stage.NVCC_FLAGS
+                        ).edge_stage_bf16_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    smem = {"node_proj_bf16, one stage": fn(1, Fs, Fd, C, 0),
+            "node_proj_bf16, two stages": fn(2, Fs, Fd, C, 0),
+            **{f"edge_attn_bf16, K = {k}": fn(0, Fs, Fd, C, k) for k in K}}
+    return kernels, smem
+
+
 def event_set(aux):
     """The grain and extra events of a run's spans, as a set."""
     return {int(g) for k in ("grain_events", "extra_events")
             for g in aux[k].reshape(-1).tolist() if g >= 0}
 
 
-def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev):
+def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev, trajs):
     """JAX's pallas=True rollout on the bf16 kernels: 20 spans of the 120
     um fixture (c_threshold 0.99) beside the fp32 rollout in the same
     call. The counted bf16 run (12 + 12 bf16 conv launches a span, no fp32
@@ -3885,10 +3975,16 @@ def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev):
     the two runs' events (bench.py's metric, no limit set); one bf16 span
     against the CPU's; a batched bf16 run of 4 lanes against each lane's
     single-lane bf16 run; the bf16 kernels at the first span's decoder
-    convs; and cli.test --pallas on the 40 um recipe, with --pallas
-    --partition 4 refused. Returns the kernels line's rows."""
+    convs; cli.test --pallas on the 40 um recipe, with --pallas
+    --partition 4 refused, and the kernels at that graph's decoder convs;
+    a counted bf16 run of the 240 um graph and the kernels at its decoder
+    convs. The kernels' ptxas lines and shared memory first. Returns the
+    kernels line's rows, each with the launches of its graph's counted
+    run."""
     from graingraphnn_torch.cli import test as cli
 
+    ptxas, smem = bf16_ptxas()
+    emit(phase="bf16_ptxas", kernels=ptxas, smem_bytes=smem)
     n = BF16["spans"]
     runs = {p: dr.make_rollout(reg, cls, n_steps=n, c_threshold=C_THRESHOLD,
                                pallas=p) for p in ("fp32", "bf16")}
@@ -3976,6 +4072,8 @@ def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev):
     sample, _ = dr.make_sample(state)
     rows = bf16_kernel_rows(decoder_conv_inputs(reg, sample, "bf16"),
                             reg.hp.layer_size)
+    kernel_rows = [dict(row, launches=launches["by_shape"].get(key, 0))
+                   for key, row in rows.items()]
 
     reset_launches()
     with Recorder(capture=False) as rec:
@@ -4005,8 +4103,42 @@ def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev):
          spans=rec.spans, launches_fp32=cli_launch[0],
          launches_bf16=cli_launch[1], refused=refused,
          refusal=err.getvalue().strip().splitlines()[-1])
-    return [dict(row, launches=launches["by_shape"].get(key, 0))
-            for key, row in rows.items()]
+    # the kernels at the 40 um graph's decoder convs, launched by the CLI
+    cli_shapes = dict(edge_stage.shape_launches)
+    t40 = trajs[40]
+    st40, _, _ = dd.init_scaled_state(t40.x, t40.edges, t40.mask, t40.lxd,
+                                      t40.patch_size, device=dev)
+    rows = bf16_kernel_rows(decoder_conv_inputs(
+        reg, dr.make_sample(st40)[0], "bf16"), reg.hp.layer_size, "_40um")
+    kernel_rows += [dict(row, launches=cli_shapes.get(key, 0))
+                    for key, row in rows.items()]
+
+    # a counted bf16 run of the 240 um graph, then the kernels at its
+    # decoder convs
+    t240 = trajs[R240["lxd"]]
+    st240, _, _ = dd.init_scaled_state(t240.x, t240.edges, t240.mask,
+                                       t240.lxd, t240.patch_size, device=dev)
+    n240 = BF16["spans240"]
+    reset_launches()
+    _, aux240 = dr.make_rollout(reg, cls, n_steps=n240,
+                                c_threshold=C_THRESHOLD,
+                                pallas="bf16")(st240)
+    torch.cuda.synchronize()
+    l240 = counted_launches()
+    if (dict(edge_stage.bf16_launches) != {"node_proj": 12 * n240,
+                                           "edge_attn": 12 * n240}
+            or l240["node_proj"] or l240["edge_attn"]
+            or l240["editor"] != n240):
+        raise RuntimeError(f"bf16 240 um: launches {l240}, "
+                           f"{edge_stage.bf16_launches}")
+    emit(phase="bf16_rollout240", spans=n240,
+         launches_bf16=dict(edge_stage.bf16_launches), editor=l240["editor"],
+         switches=int((aux240["switching"][..., 0] >= 0).sum()))
+    rows = bf16_kernel_rows(decoder_conv_inputs(
+        reg, dr.make_sample(st240)[0], "bf16"), reg.hp.layer_size, "_240um")
+    kernel_rows += [dict(row, launches=l240["by_shape"].get(key, 0))
+                    for key, row in rows.items()]
+    return kernel_rows
 
 
 def main():
@@ -4036,9 +4168,10 @@ def main():
         cls_cpu, _, _ = checkpoint.load_model("artifacts/40um/classifier1",
                                               "cpu")
         phase_reference(reg, cls, state, reg_cpu, cls_cpu)
-        bf16_rows = phase_bf16(reg, cls, reg_cpu, cls_cpu, state, cuda)
-        generate_row = phase_generate(reg, cls, reg_cpu, cls_cpu, cuda)
         trajs = phase_generator()
+        bf16_rows = phase_bf16(reg, cls, reg_cpu, cls_cpu, state, cuda,
+                               trajs)
+        generate_row = phase_generate(reg, cls, reg_cpu, cls_cpu, cuda)
         gen40_rows = phase_generate40(trajs[40], reg, cls, reg_cpu, cls_cpu,
                                       cuda)
         r240_rows = phase_rollout240(trajs[R240["lxd"]], reg, cls, reg_cpu,

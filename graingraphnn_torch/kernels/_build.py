@@ -93,8 +93,9 @@ def _build(specs):
         build_log[" ".join((source, *flags))] = {
             "seconds": time.perf_counter() - t0,
             "ptxas": [ln.strip() for ln in text.splitlines()
-                      if "ptxas" in ln and ("registers" in ln or "spill" in ln
-                                            or "Compiling" in ln)],
+                      if ("ptxas" in ln and ("registers" in ln
+                                             or "Compiling" in ln))
+                      or "spill stores" in ln],
         }
         if proc.returncode != 0:
             failed.append(f"{source}.cu:\n{text}")

@@ -13,14 +13,24 @@ period_conv.node_projections_plain and period_conv.edge_attn_plain).
 precision="bf16" takes the bf16 kernels of csrc/edge_stage_bf16.cu
 instead (`node_proj_bf16`, `edge_attn_bf16`: bf16 operands on tensor cores,
 fp32 accumulation, rounded where the TPU kernel rounds), whose plain
-versions are the same functions at precision="bf16". They take the same
-fp32 inputs and weights and round them to bf16 as they load them, so no
-bf16 copy is made or cached.
+versions are the same functions at precision="bf16". They take the fp32
+inputs and round them as they load them, and the conv's weights as
+`pack_bf16` lays them out: bf16, in the operand layouts of the kernels'
+products, built once per weight version and cached per conv (rebuilt
+when a weight's storage or version changes, as after an optimizer's
+in-place step; never used stale), so that each block brings its weight
+slice in with one bulk copy. Both kernels are bound by bytes (the fp32
+outputs; the gathered projections) and, at the rollout's sizes, by the
+latency of their dependent loads: the source note of
+csrc/edge_stage_bf16.cu says what each design does about it. x_src and
+x_dst and the projections' biases must be 16-byte aligned at bf16 (the
+bulk copies' rule; a tensor torch allocates is).
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -58,6 +68,19 @@ _ARGTYPES = (
 _PROJ_ARGTYPES = [_P, _I, _I] * 2 + [_P] * 8 + [_I] + [_P] * 5
 _ATTN_ARGTYPES = ([_P, _I, _I] * 2 + [_P] * 3 + [_I] + [_P] * 9 + [_I] * 2
                   + [_P] * 2)
+# the bf16 entries: the pack in place of the fp32 weight matrices (the
+# biases, We and the position rows of Wk and Wv stay fp32)
+_BF16_ARGTYPES = ([_P, _I, _I] * 2 + [_P] * 3 + [_I] + [_P] * 9 + [_I] * 2
+                  + [_P] * 6)
+_BF16_PROJ_ARGTYPES = [_P, _I, _I] * 2 + [_P] * 5 + [_I] + [_P] * 5
+ARGTYPES = {            # edge_attn's lists match: the pack takes wk's place
+    "fp32": {"conv": _ARGTYPES, "node_proj": _PROJ_ARGTYPES,
+             "edge_attn": _ATTN_ARGTYPES},
+    "bf16": {"conv": _BF16_ARGTYPES, "node_proj": _BF16_PROJ_ARGTYPES,
+             "edge_attn": _ATTN_ARGTYPES},
+}
+PACK_COLS = 128          # the projections' column slice (NB_BN)
+_packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def reset_counts():
@@ -83,9 +106,91 @@ def _entry(precision, which):
     if precision not in ENTRIES:
         raise ValueError(f"precision {precision!r}: one of {tuple(ENTRIES)}")
     source, symbols = ENTRIES[precision]
-    argtypes = {"conv": _ARGTYPES, "node_proj": _PROJ_ARGTYPES,
-                "edge_attn": _ATTN_ARGTYPES}[which]
-    return _build.function(source, symbols[which], argtypes, NVCC_FLAGS)
+    return _build.function(source, symbols[which], ARGTYPES[precision][which],
+                           NVCC_FLAGS)
+
+
+def _pad16(n):
+    return (n + 15) // 16 * 16
+
+
+def _words(w, depth, cols):
+    """w [k, n] as int32 words [cols, depth // 2 + 4]: word (n, j) holds
+    bf16(w[2j, n]) in its low half and bf16(w[2j + 1, n]) in its high half
+    (a k pair of one column, as an m16n8k16 B fragment takes it); zero past
+    w and in the last 4 words of a column (padding that keeps fragment
+    loads conflict-free)."""
+    b = torch.zeros((cols, depth + 8), dtype=torch.bfloat16, device=w.device)
+    b[:w.shape[1], :w.shape[0]] = w.t()
+    return b.view(torch.int32)
+
+
+def _core_matrices(w, depth, cols):
+    """w [k, n] in bf16 as wgmma's K-major B operand without swizzle, one
+    block of 128 columns after the other: per block [depth / 16 k-steps]
+    [16 groups of 8 columns][2 halves of 8 k][8 columns][8 k], so a k-step
+    is 4096 contiguous bytes of 8 x 8 core matrices (16 bytes a column),
+    the two k halves 128 bytes apart and the column groups 256 (the lbo
+    and sbo of csrc/wgmma_bf16.cuh's descriptor); zero past w. As int32
+    words (pairs of k, the lower in the low half)."""
+    b = torch.zeros((depth, cols), dtype=torch.bfloat16, device=w.device)
+    b[:w.shape[0], :w.shape[1]] = w
+    b = b.view(depth // 16, 2, 8, cols // PACK_COLS, 16, 8)   # ks h e s j r
+    return b.permute(3, 0, 4, 1, 5, 2).contiguous().view(torch.int32)
+
+
+def pack_layout(Fs, Fd, G, C):
+    """Shapes of pack_bf16's two parts in bf16 values: the projections
+    [4, GCp / 128, depth / 16, 16, 2, 8, 8] (_core_matrices, depth the
+    wider F padded to 16) and Wl2 [G, Cp, Cp + 8] (_words as bf16 halves);
+    csrc/edge_stage_bf16.cu's np_fp, np_gcp, eb_cp, eb_kp."""
+    GCp = (G * C + PACK_COLS - 1) // PACK_COLS * PACK_COLS
+    Cp = _pad16(C)
+    return ((4, GCp // PACK_COLS, _pad16(max(Fs, Fd)) // 16, 16, 2, 8, 8),
+            (G, Cp, Cp + 8))
+
+
+def _build_pack(conv):
+    G, C = conv.num_gates, conv.out_channels
+    Fs, Fd = conv.key.w.shape[0], conv.query.w.shape[0]
+    (_, slices, steps, *_), (_, Cp, _) = pack_layout(Fs, Fd, G, C)
+    pos = torch.zeros_like(conv.key.w[:3])
+    proj = torch.stack([_core_matrices(w, 16 * steps, slices * PACK_COLS)
+                        for w in (torch.cat([pos, conv.key.w[3:]]),
+                                  torch.cat([pos, conv.value.w[3:]]),
+                                  conv.query.w, conv.skip.w)])
+    l2 = torch.stack([_words(conv.l2.w[g], Cp, Cp) for g in range(G)])
+    return torch.cat([proj.reshape(-1), l2.reshape(-1)])
+
+
+def pack_bf16(conv):
+    """The bf16 weights of `conv` as csrc/edge_stage_bf16.cu reads them, one
+    int32 tensor on the weights' device: the projections Wk and Wv (their
+    position rows 0..2 zeroed), Wq and Wskip as wgmma's B operands
+    (_core_matrices: G*C padded to 128 columns, depth max(F) padded to
+    16), then Wl2 as [G, Cp, Cp / 2 + 4] words (_words, mma.sync's B
+    fragments; C padded to 16); each value bf16_round of the weight. A
+    plain function, the same on the CPU; cached per conv under a key of
+    each weight's data_ptr, version and device, so a weight changed in
+    place (w.add_(), an optimizer step) or replaced gives a new pack, and
+    unchanged weights give the cached one. Weights that are inference
+    tensors (no version counter) are packed anew at every call. A write
+    through `.data` (`w.data.copy_(v)`) does not move the version counter
+    and is not seen: write weights in place under torch.no_grad()
+    (`w.copy_(v)`, as load_state_dict and the optimizers do) or assign
+    a new tensor."""
+    ws = (conv.key.w, conv.value.w, conv.query.w, conv.skip.w, conv.l2.w)
+    key = None
+    if not any(w.is_inference() for w in ws):
+        key = tuple((w.data_ptr(), w._version, str(w.device)) for w in ws)
+        hit = _packs.get(conv)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+    with torch.no_grad():
+        pack = _build_pack(conv)
+    if key is not None:
+        _packs[conv] = (key, pack)
+    return pack
 
 
 def _check(x_src, tensors):
@@ -106,6 +211,16 @@ def _check(x_src, tensors):
         if t.dtype != want or not t.is_contiguous() or t.shape != shape:
             raise ValueError(f"edge stage: {name} must be contiguous {want} "
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _aligned(precision, conv, *xs):
+    # the bf16 kernels bring x and the biases in by bulk copies
+    if precision == "bf16":
+        for t in (*xs, conv.query.b, conv.key.b, conv.value.b, conv.skip.b):
+            if t.data_ptr() % 16:
+                raise ValueError("edge stage bf16: x_src, x_dst and the "
+                                 "projections' biases must be 16-byte "
+                                 "aligned")
 
 
 def _limits(Fs, Fd, G=1, C=1, K=1):
@@ -152,8 +267,9 @@ def apply_period_conv_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, *,
                    **_attn_tensors(conv, x_src, x_dst, nbr, edge_len,
                                    nbr_mask, G, C)})
     _limits(Fs, Fd, G, C, K)
+    _aligned(precision, conv, x_src, x_dst)
     out = launch(_entry(precision, "conv"), _stream(x_src), conv, x_src,
-                 x_dst, nbr, edge_len, nbr_mask, G, C)
+                 x_dst, nbr, edge_len, nbr_mask, G, C, precision)
     if Ns + Nd > 0:
         _count("node_proj", Fs, Fd, precision)
     if Nd > 0:
@@ -169,8 +285,9 @@ def node_proj_cuda(conv, x_src, x_dst, precision: str = "fp32"):
     (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
     _check(x_src, _proj_tensors(conv, x_src, x_dst, GC))
     _limits(Fs, Fd)
+    _aligned(precision, conv, x_src, x_dst)
     out = launch_node_proj(_entry(precision, "node_proj"), _stream(x_src),
-                           conv, x_src, x_dst)
+                           conv, x_src, x_dst, precision)
     if Ns + Nd > 0:
         _count("node_proj", Fs, Fd, precision)
     return out
@@ -193,7 +310,7 @@ def edge_attn_cuda(conv, x_src, x_dst, nbr, edge_len, nbr_mask, proj, *,
     _limits(Fs, Fd, G, C, K)
     out = launch_edge_attn(_entry(precision, "edge_attn"), _stream(x_src),
                            conv, x_src, x_dst, nbr, edge_len, nbr_mask, proj,
-                           G, C)
+                           G, C, precision)
     if Nd > 0:
         _count("edge_attn", Fs, Fd, precision, K)
     return out
@@ -203,57 +320,69 @@ def _empty(n, GC, like):
     return torch.empty((n, GC), dtype=torch.float32, device=like.device)
 
 
-def _proj_args(conv, x_src, x_dst):
+def _proj_args(conv, x_src, x_dst, precision):
     (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
+    w = [conv.query.w, conv.query.b, conv.key.w, conv.key.b, conv.value.w,
+         conv.value.b, conv.skip.w, conv.skip.b]
+    if precision == "bf16":
+        w = [pack_bf16(conv)] + w[1::2]
     return [x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
-            conv.query.w.data_ptr(), conv.query.b.data_ptr(),
-            conv.key.w.data_ptr(), conv.key.b.data_ptr(),
-            conv.value.w.data_ptr(), conv.value.b.data_ptr(),
-            conv.skip.w.data_ptr(), conv.skip.b.data_ptr()]
+            *[t.data_ptr() for t in w]]
 
 
-def launch(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C):
+def _attn_weights(conv, precision):
+    if precision == "bf16":
+        w = [pack_bf16(conv), conv.key.w, conv.value.w, conv.l2.b,
+             conv.edge.w]
+    else:
+        w = [conv.key.w, conv.value.w, conv.l2.w, conv.l2.b, conv.edge.w]
+    return [t.data_ptr() for t in w]
+
+
+def launch(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C,
+           precision="fp32"):
     """Allocate the output and scratch beside x_src and call the C entry
-    `fn` of the fused conv (the built kernel; tests pass a CPU build of the
-    same source) on checked inputs."""
+    `fn` of the fused conv at `precision` (the built kernel; tests pass a
+    CPU build of the same source) on checked inputs."""
     (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
     GC = G * C
     kn, vn = _empty(Ns, GC, x_src), _empty(Ns, GC, x_src)
     q, sk, out = _empty(Nd, GC, x_src), _empty(Nd, GC, x_src), _empty(Nd, GC, x_src)
+    if precision == "bf16":
+        w = [pack_bf16(conv), conv.query.b, conv.key.b, conv.value.b,
+             conv.skip.b, conv.key.w, conv.value.w, conv.l2.b, conv.edge.w]
+    else:
+        w = [conv.query.w, conv.query.b, conv.key.w, conv.key.b,
+             conv.value.w, conv.value.b, conv.skip.w, conv.skip.b,
+             conv.l2.w, conv.l2.b, conv.edge.w]
     fn(
         x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
         nbr.data_ptr(), edge_len.data_ptr(), nbr_mask.data_ptr(), K,
-        conv.query.w.data_ptr(), conv.query.b.data_ptr(),
-        conv.key.w.data_ptr(), conv.key.b.data_ptr(),
-        conv.value.w.data_ptr(), conv.value.b.data_ptr(),
-        conv.skip.w.data_ptr(), conv.skip.b.data_ptr(),
-        conv.l2.w.data_ptr(), conv.l2.b.data_ptr(), conv.edge.w.data_ptr(),
+        *[t.data_ptr() for t in w],
         G, C, kn.data_ptr(), vn.data_ptr(), q.data_ptr(), sk.data_ptr(),
         out.data_ptr(), stream,
     )
     return out
 
 
-def launch_node_proj(fn, stream, conv, x_src, x_dst):
+def launch_node_proj(fn, stream, conv, x_src, x_dst, precision="fp32"):
     """Call the C entry `fn` of node_proj; returns (K, V, Q, skip)."""
     GC = conv.key.w.shape[1]
     Ns, Nd = x_src.shape[0], x_dst.shape[0]
     outs = (_empty(Ns, GC, x_src), _empty(Ns, GC, x_src),
             _empty(Nd, GC, x_src), _empty(Nd, GC, x_src))
-    fn(*_proj_args(conv, x_src, x_dst), GC,
+    fn(*_proj_args(conv, x_src, x_dst, precision), GC,
        *[t.data_ptr() for t in outs], stream)
     return outs
 
 
 def launch_edge_attn(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask,
-                     proj, G, C):
+                     proj, G, C, precision="fp32"):
     """Call the C entry `fn` of edge_attn on the projections `proj`."""
     (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
     out = _empty(Nd, G * C, x_src)
     fn(x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
        nbr.data_ptr(), edge_len.data_ptr(), nbr_mask.data_ptr(), K,
-       *[t.data_ptr() for t in proj],
-       conv.key.w.data_ptr(), conv.value.w.data_ptr(),
-       conv.l2.w.data_ptr(), conv.l2.b.data_ptr(), conv.edge.w.data_ptr(),
+       *[t.data_ptr() for t in proj], *_attn_weights(conv, precision),
        G, C, out.data_ptr(), stream)
     return out

@@ -1,0 +1,144 @@
+"""kernels/edge_stage.pack_bf16, the bf16 weights of a conv in the layouts
+of csrc/edge_stage_bf16.cu's products, on the CPU: each packed value is
+period_conv.bf16_round of its weight, at the place the kernels read it
+(zeros elsewhere); the pack is cached per conv and rebuilt exactly when a
+weight changes."""
+
+import numpy as np
+import pytest
+import torch
+
+from graingraphnn_torch.kernels import edge_stage
+from graingraphnn_torch.ops import period_conv
+
+
+def _conv(Fs, Fd, G, C, seed=0):
+    conv = period_conv.PeriodConv(Fs, Fd, C, G)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.from_numpy(rng.normal(0, 0.3, p.shape)
+                                     .astype(np.float32)))
+    return conv
+
+
+def _unpack(pack, Fs, Fd, G, C):
+    """(projections [4, GCp, depth], Wl2 [G, Cp, Cp]) as fp32, value (p, n,
+    k) the bf16 of W_p[k, n]: the projections' core matrices put back in
+    place, Wl2's columns with their 8 halves of padding checked to be zero
+    and dropped."""
+    proj_shape, l2_shape = edge_stage.pack_layout(Fs, Fd, G, C)
+    n_proj = int(np.prod(proj_shape)) // 2
+    assert pack.dtype == torch.int32
+    assert pack.shape == (n_proj + int(np.prod(l2_shape)) // 2,)
+    P, slices, steps = proj_shape[:3]
+    proj = pack[:n_proj].view(torch.bfloat16).view(proj_shape).float()
+    # [p, s, ks, j, h, r, e] -> [p, s, j, r, ks, h, e] = [p, n, k]
+    proj = proj.permute(0, 1, 3, 5, 2, 4, 6).reshape(P, slices * 128,
+                                                      steps * 16)
+    l2 = pack[n_proj:].view(torch.bfloat16).view(l2_shape).float()
+    assert not l2[..., -8:].any()
+    return proj, l2[..., :-8]
+
+
+@pytest.mark.parametrize("Fs,Fd,G,C", [(107, 104, 4, 96), (104, 107, 4, 96),
+                                       (11, 9, 1, 30), (19, 8, 2, 128)])
+def test_pack_holds_the_rounded_weights_in_the_kernels_layout(Fs, Fd, G, C):
+    """Projections p = Wk, Wv, Wq, Wskip: W_p[k, n] at its place among
+    8 x 8 core matrices (n, k), depth max(F) padded to 16, G*C padded to
+    128 columns; Wk's and Wv's position rows 0..2 zero (x_src's lanes 0..2
+    go in per edge). Wl2[g]: column n of the [C, C] block as one row of k
+    pairs, C padded to 16."""
+    conv = _conv(Fs, Fd, G, C, seed=Fs + C)
+    proj, l2 = _unpack(edge_stage.pack_bf16(conv), Fs, Fd, G, C)
+    r = period_conv.bf16_round
+    GC = G * C
+    for p, (w, f0) in enumerate(((conv.key.w, 3), (conv.value.w, 3),
+                                 (conv.query.w, 0), (conv.skip.w, 0))):
+        want = torch.zeros_like(proj[p])
+        want[:GC, f0:w.shape[0]] = r(w.detach()[f0:]).t()
+        assert torch.equal(proj[p], want), p
+    for g in range(G):
+        want = torch.zeros_like(l2[g])
+        want[:C, :C] = r(conv.l2.w.detach()[g]).t()
+        assert torch.equal(l2[g], want), g
+
+
+@pytest.mark.parametrize("name", ["key", "value", "query", "skip", "l2"])
+def test_pack_is_rebuilt_after_an_in_place_update(name):
+    """An in-place update of any packed weight (as an optimizer step makes)
+    gives a new pack holding the new values; the stale one is not used."""
+    Fs, Fd, G, C = 107, 104, 4, 96
+    conv = _conv(Fs, Fd, G, C, seed=1)
+    before = edge_stage.pack_bf16(conv)
+    with torch.no_grad():
+        getattr(conv, name).w.add_(0.25)
+    after = edge_stage.pack_bf16(conv)
+    assert after is not before and not torch.equal(after, before)
+    assert torch.equal(after, edge_stage.pack_bf16(_clone(conv)))
+
+
+def _clone(conv):
+    other = period_conv.PeriodConv(conv.key.w.shape[0], conv.query.w.shape[0],
+                                   conv.out_channels, conv.num_gates)
+    other.load_state_dict(conv.state_dict())
+    return other
+
+
+def test_pack_is_rebuilt_for_a_replaced_weight():
+    """A weight given new storage (a new parameter, or .data replaced)
+    gives a new pack."""
+    conv = _conv(19, 8, 2, 16, seed=2)
+    before = edge_stage.pack_bf16(conv)
+    conv.query.w.data = conv.query.w.data * 2
+    after = edge_stage.pack_bf16(conv)
+    assert after is not before
+    assert torch.equal(after, edge_stage.pack_bf16(_clone(conv)))
+
+
+def test_pack_is_not_rebuilt_for_unchanged_weights():
+    """Unchanged weights give the cached pack, the same tensor, whatever
+    else changes (biases and We are not packed), and each conv has its
+    own."""
+    conv = _conv(107, 104, 4, 96, seed=3)
+    pack = edge_stage.pack_bf16(conv)
+    with torch.no_grad():
+        conv.key.b.add_(1.0)
+        conv.edge.w.add_(1.0)
+    assert edge_stage.pack_bf16(conv) is pack
+    other = _conv(107, 104, 4, 96, seed=3)
+    assert edge_stage.pack_bf16(other) is not pack
+    assert torch.equal(edge_stage.pack_bf16(other), pack)
+
+
+def test_pack_of_inference_weights_is_built_at_every_call():
+    """Weights made under inference mode carry no version counter, so a
+    change could not be seen: their pack is never cached."""
+    with torch.inference_mode():
+        conv = _conv(11, 9, 1, 30, seed=4)
+        first = edge_stage.pack_bf16(conv)
+        second = edge_stage.pack_bf16(conv)
+    assert first is not second and torch.equal(first, second)
+
+
+
+def test_bf16_bounds_count_the_packed_weights_at_two_bytes():
+    """chip_smoke's bounds of the bf16 kernels count the weights as the
+    kernels read them, the pack's bf16 values at 2 bytes each (Wk and Wv
+    without their position rows, whose x_src lanes node_proj_bf16 does not
+    need either), where the fp32 bounds count the fp32 matrices."""
+    import chip_smoke
+
+    Fs, Fd, G, C, Ns, Nd = 107, 104, 4, 96, 50, 70
+    GC = G * C
+    proj, l2 = _unpack(edge_stage.pack_bf16(_conv(Fs, Fd, G, C)), Fs, Fd,
+                       G, C)
+    n_proj, n_l2 = int(proj.count_nonzero()), int(l2.count_nonzero())
+    assert (n_proj, n_l2) == (2 * GC * (Fs - 3 + Fd), G * C * C)
+    xs, xd, mask = torch.zeros(Ns, Fs), torch.zeros(Nd, Fd), torch.ones(Nd, 16)
+    _, b32 = chip_smoke.node_proj_cost(xs, xd, GC)
+    _, b16 = chip_smoke.node_proj_cost(xs, xd, GC, bf16=True)
+    assert b32 - b16 == 4 * 2 * GC * (Fs + Fd) - 2 * n_proj + 4 * 3 * Ns
+    *_, e32 = chip_smoke.edge_attn_cost(xs, xd, mask, G, C)
+    *_, e16 = chip_smoke.edge_attn_cost(xs, xd, mask, G, C, bf16=True)
+    assert e32 - e16 == 4 * G * C * C - 2 * n_l2

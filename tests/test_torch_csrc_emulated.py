@@ -6,7 +6,8 @@ flow) where there is no GPU; speed and the GPU compiler's view are checked
 on the card only (tests/test_torch_cuda.py, chip_smoke.py).
 
 Emulation: each block runs its threads as std::threads, one block after
-the other; __syncthreads is a barrier; a warp shuffle or ballot
+the other; __syncthreads is a barrier, __syncwarp a barrier of the warp;
+a warp shuffle or ballot
 exchanges values through memory between two barriers of the warp.
 Dynamic shared memory is a buffer of the launch's size. A grid has two
 dimensions. csrc/mma_tf32.cuh is replaced by a C++ header of the same
@@ -14,9 +15,16 @@ name: TF32 rounding as cvt.rna does it, cp.async as a copy, and the
 m16n8k8 product with the PTX fragment layout, its operands exchanged
 through memory between two barriers of the warp; csrc/mma_bf16.cuh
 likewise, on a bf16 type that rounds as __float2bfloat16_rn does, with
-the m16n8k16 bf16 product. That is exact for these
-kernels, whose every thread reaches every barrier, and every lane of a
-warp every shuffle, ballot and product."""
+the m16n8k16 bf16 product; csrc/hopper_async.cuh by a header in which a
+bulk copy is a copy made when it is issued and an mbarrier is a barrier
+with its phase (arrivals and expected bytes count down, the
+phase flips, a wait spins until the phase it names has completed);
+csrc/wgmma_bf16.cuh by the warpgroup product computed from the shared-
+memory descriptor the kernel builds, by the PTX layout. The
+device reports 8 streaming multiprocessors, so grids sized by the SM
+count take several tiles a block.
+That is exact for these kernels, whose every thread reaches every
+barrier, and every lane of a warp every shuffle, ballot and product."""
 
 import ctypes
 import dataclasses
@@ -74,14 +82,23 @@ struct int2 { int x, y; };
 inline int2 make_int2(int x, int y) { return {x, y}; }
 struct int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorMisalignedAddress = 716 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+constexpr int EMU_SMS = 8;   // so that grids sized by SMs walk several tiles
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = EMU_SMS;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_bar->arrive_and_wait(); }
 template <class T> T emu_pull(T v, int src) {
   int64_t b = 0;
   memcpy(&b, &v, sizeof(T));
@@ -272,6 +289,126 @@ inline void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
 """
 
 
+# csrc/hopper_async.cuh for the emulation. A bulk copy is a memcpy when
+# issued, its bytes counted off the mbarrier at once; an
+# mbarrier is a phase bit, the arrivals still due and the bytes still
+# expected (which may run below zero until announced), kept in a table
+# under one lock and keyed by its shared-memory address.
+EMU_ASYNC_H = r"""
+#pragma once
+#include <stdio.h>
+#include <stdlib.h>
+#include <chrono>
+#include <map>
+#include <mutex>
+#include "emu.h"
+struct EmuMbar { unsigned count, due, phase; long tx; };
+inline std::mutex emu_mbar_mu;
+inline std::map<const void*, EmuMbar> emu_mbars;
+inline void emu_mbar_settle(EmuMbar& b) {
+  if (b.due == 0 && b.tx == 0) {
+    b.phase ^= 1u;
+    b.due = b.count;
+  }
+}
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  emu_mbars[bar] = {count, count, 0u, 0};
+}
+inline void mbar_fence_init() {}
+inline void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  emu_mbars.at(bar).tx += bytes;
+}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  EmuMbar& b = emu_mbars.at(bar);
+  b.due -= 1;
+  emu_mbar_settle(b);
+}
+// a phase that never completes is a fault of the kernel: stop after 30 s
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  const auto t0 = std::chrono::steady_clock::now();
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> l(emu_mbar_mu);
+      if (emu_mbars.at(bar).phase != parity) return;
+    }
+    if (std::chrono::steady_clock::now() - t0 > std::chrono::seconds(30)) {
+      fprintf(stderr, "mbar_wait: phase %u never completed\n", parity);
+      abort();
+    }
+    std::this_thread::yield();
+  }
+}
+inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
+                          uint64_t* bar) {
+  memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> l(emu_mbar_mu);
+  EmuMbar& b = emu_mbars.at(bar);
+  b.tx -= bytes;
+  emu_mbar_settle(b);
+}
+"""
+
+
+# csrc/wgmma_bf16.cuh for the emulation. The descriptor holds the B
+# tile's offset in the dynamic shared memory; the product reads B from
+# there by the PTX's K-major layout without swizzle (element (k, n) in the
+# core matrix (n / 8, k / 8), sbo and lbo bytes apart, at byte 16 (n % 8)
+# + 2 (k % 8) of it) and A from the four warps' fragments, exchanged
+# through memory between two barriers of the block (a node_proj_bf16 block
+# is one warpgroup).
+EMU_WGMMA_H = r"""
+#pragma once
+#include <stdio.h>
+#include <stdlib.h>
+#include "emu.h"
+inline uint64_t wgmma_desc(const void* smem, unsigned lbo, unsigned sbo) {
+  const unsigned a = (unsigned)((const unsigned char*)smem - emu_dyn_smem);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32;
+}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+inline void wgmma_wait0() {}
+inline void wgmma_m64n128k16(float* d, const uint32_t* a, uint64_t desc,
+                             int accumulate) {
+  if (blockDim.x != 128) {
+    fprintf(stderr, "wgmma: the emulation takes blocks of one warpgroup\n");
+    abort();
+  }
+  uint32_t* mine = &(*emu_frag)[6 * threadIdx.x];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  emu_bar->arrive_and_wait();
+  const unsigned char* base = emu_dyn_smem + ((desc & 0x3FFFu) << 4);
+  const unsigned lbo = ((desc >> 16) & 0x3FFFu) << 4, sbo = ((desc >> 32) & 0x3FFFu) << 4;
+  auto B = [&](int k, int n) {
+    uint16_t h;
+    memcpy(&h, base + (n / 8) * sbo + (k / 8) * lbo + (n % 8) * 16 + (k % 8) * 2, 2);
+    return __bfloat162float({h});
+  };
+  auto A = [&](int row, int k) {
+    const int r = row % 16, lane = 4 * (r & 7) + ((k & 7) >> 1);
+    const uint32_t w = (*emu_frag)[6 * (32 * (row / 16) + lane) + (r >= 8) + 2 * (k >= 8)];
+    return __bfloat162float({(uint16_t)(k & 1 ? w >> 16 : w & 0xffffu)});
+  };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  float out[64];
+  for (int i = 0; i < 16; ++i)
+    for (int u = 0; u < 4; ++u) {
+      const int row = 16 * warp + g + 8 * (u >> 1), col = 8 * i + 2 * t + (u & 1);
+      float s = 0.f;
+      for (int k = 0; k < 16; ++k) s += A(row, k) * B(k, col);
+      out[4 * i + u] = (accumulate ? d[4 * i + u] : 0.f) + s;
+    }
+  emu_bar->arrive_and_wait();
+  for (int i = 0; i < 64; ++i) d[i] = out[i];
+}
+"""
+
+
 def _translate(src: str) -> str:
     """`k<<<grid, block, smem, stream>>>(args)`, k a name or `name<args>`,
     -> `emu_launch(k, grid, block, smem, args)`; `extern __shared__ T
@@ -317,6 +454,8 @@ def emulated(tmp_path_factory):
     (d / "emu.h").write_text(EMU_H)
     (d / "mma_tf32.cuh").write_text(EMU_MMA_H)
     (d / "mma_bf16.cuh").write_text(EMU_MMA_BF16_H)
+    (d / "hopper_async.cuh").write_text(EMU_ASYNC_H)
+    (d / "wgmma_bf16.cuh").write_text(EMU_WGMMA_H)
     libs = {}
 
     def build(source, symbol, argtypes, defines=()):
@@ -600,6 +739,14 @@ def test_bf16_emulation_rounds_as_torch(emulated):
     np.testing.assert_array_equal(y, want.view(np.uint16))
 
 
+def _bf16_entries(emulated, defines=()):
+    """The emulated C entries of csrc/edge_stage_bf16.cu: {"conv",
+    "node_proj", "edge_attn": entry}."""
+    return {which: emulated(edge_stage.SOURCE_BF16, sym,
+                            edge_stage.ARGTYPES["bf16"][which], defines)
+            for which, sym in edge_stage.ENTRIES["bf16"][1].items()}
+
+
 @pytest.mark.parametrize("G,C,K,Ns,Nd,Fs,Fd", [
     pytest.param(4, 8, 3, 13, 11, 11, 9, id="K3-oddF"),
     pytest.param(1, 30, 16, 20, 23, 11, 9, id="K16-C30"),
@@ -608,19 +755,25 @@ def test_bf16_emulation_rounds_as_torch(emulated):
     pytest.param(4, 96, 3, 70, 197, 107, 104, id="rollout-K3"),
     pytest.param(4, 96, 16, 90, 37, 104, 107, id="rollout-K16"),
     pytest.param(1, 128, 5, 66, 9, 128, 3, id="C128-F128"),
+    # node_proj_bf16's persistent blocks: 64 t + 13 rows, several tiles a
+    # block (two blocks a slice over 4 source tiles), F = 107 at its
+    # 428-byte stride (the ragged tile ends 3 values past a 16-byte block)
+    pytest.param(4, 96, 3, 64 * 3 + 13, 64 * 2 + 13, 107, 104,
+                 id="persistent-ragged"),
+    # pull with masked rows, fully live rows past the first chunk of 8,
+    # and at K = 40 a second ballot
+    pytest.param(4, 96, 16, 141, 64 + 13, 104, 107, id="pull-K16"),
+    pytest.param(4, 96, 40, 90, 37, 104, 107, id="pull-K40"),
 ])
 def test_edge_stage_bf16_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs,
                                               Fd):
     """csrc/edge_stage_bf16.cu's three entries against the plain bf16
     versions: node_proj_bf16 alone (F odd, or 3, so F - 3 is no multiple
-    of 16; N not a multiple of the 64-row tile), edge_attn_bf16 alone on
-    the plain projections and the fused conv, with fully masked rows,
-    fully live rows and scattered live slots, K = 3, 16 and 33 (two
-    ballots)."""
-    entries = [emulated(edge_stage.SOURCE_BF16, sym, args) for sym, args in (
-        ("edge_stage_bf16_forward", edge_stage._ARGTYPES),
-        ("edge_node_proj_bf16", edge_stage._PROJ_ARGTYPES),
-        ("edge_attn_bf16_forward", edge_stage._ATTN_ARGTYPES))]
+    of 16; N not a multiple of the 64-row tile; blocks that walk several
+    tiles), edge_attn_bf16 alone on the plain projections and the fused
+    conv, with fully masked rows, fully live rows and scattered live
+    slots, K = 3, 16, 33 and 40 (two ballots)."""
+    entries = _bf16_entries(emulated)
     conv, rng = _random_conv(K + Nd + C, Fs, Fd, G, C)
     t = lambda a: torch.from_numpy(a)  # noqa: E731
     xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
@@ -629,17 +782,19 @@ def test_edge_stage_bf16_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs,
     ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
     mask = t(_scattered_mask(rng, Nd, K))
     kw = dict(num_gates=G, out_channels=C, precision="bf16")
-    proj = edge_stage.launch_node_proj(entries[1], 0, conv, xs, xd)
+    proj = edge_stage.launch_node_proj(entries["node_proj"], 0, conv, xs, xd,
+                                       "bf16")
     ref = period_conv.node_projections_plain(conv, xs, xd, "bf16")
     for o, r in zip(proj, ref):
         torch.testing.assert_close(o, r, atol=1e-5, rtol=1e-5)
-    out = edge_stage.launch_edge_attn(entries[2], 0, conv, xs, xd, nbr, ln,
-                                      mask, ref, G, C)
+    out = edge_stage.launch_edge_attn(entries["edge_attn"], 0, conv, xs, xd,
+                                      nbr, ln, mask, ref, G, C, "bf16")
     _bf16_close(out, period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask,
                                                  ref, **kw))
     # a fully masked row is its skip projection alone
     torch.testing.assert_close(out[0], ref[3][0], atol=0, rtol=0)
-    out = edge_stage.launch(entries[0], 0, conv, xs, xd, nbr, ln, mask, G, C)
+    out = edge_stage.launch(entries["conv"], 0, conv, xs, xd, nbr, ln, mask,
+                            G, C, "bf16")
     _bf16_close(out, period_conv.apply_period_conv_plain(conv, xs, xd, nbr,
                                                          ln, mask, **kw))
     torch.testing.assert_close(out[0], proj[3][0], atol=0, rtol=0)
@@ -660,11 +815,12 @@ def test_fp32_source_fails_the_bf16_limits(emulated):
     ref = period_conv.apply_period_conv_plain(
         conv, xs, xd, nbr, ln, mask, num_gates=G, out_channels=C,
         precision="bf16")
-    outs = {p: edge_stage.launch(emulated(src, sym, edge_stage._ARGTYPES), 0,
-                                 conv, xs, xd, nbr, ln, mask, G, C)
-            for p, src, sym in (
-                ("fp32", edge_stage.SOURCE, "edge_stage_forward"),
-                ("bf16", edge_stage.SOURCE_BF16, "edge_stage_bf16_forward"))}
+    outs = {p: edge_stage.launch(
+                emulated(src, edge_stage.ENTRIES[p][1]["conv"],
+                         edge_stage.ARGTYPES[p]["conv"]), 0,
+                conv, xs, xd, nbr, ln, mask, G, C, p)
+            for p, src in (("fp32", edge_stage.SOURCE),
+                           ("bf16", edge_stage.SOURCE_BF16))}
     _bf16_close(outs["bf16"], ref)
     err = (outs["fp32"] - ref).abs()
     assert float(err.mean()) > 10 * BF16_MEAN * float(ref.abs().max())
@@ -680,17 +836,63 @@ def test_edge_stage_bf16_source_refuses_what_it_cannot_take(emulated, K, C):
     nbr = torch.zeros((N, K), dtype=torch.int32)
     f = torch.ones((N, K))
     proj = period_conv.node_projections_plain(conv, x, x, "bf16")
-    for sym, args, call in (
-            ("edge_attn_bf16_forward", edge_stage._ATTN_ARGTYPES,
-             lambda fn: edge_stage.launch_edge_attn(fn, 0, conv, x, x, nbr, f,
-                                                    f, proj, G, C)),
-            ("edge_stage_bf16_forward", edge_stage._ARGTYPES,
-             lambda fn: edge_stage.launch(fn, 0, conv, x, x, nbr, f, f, G,
-                                          C))):
-        raw = emulated(edge_stage.SOURCE_BF16, sym, args).raw
+    raw = {w: e.raw for w, e in _bf16_entries(emulated).items()}
+    for which, call in (
+            ("edge_attn", lambda fn: edge_stage.launch_edge_attn(
+                fn, 0, conv, x, x, nbr, f, f, proj, G, C, "bf16")),
+            ("conv", lambda fn: edge_stage.launch(fn, 0, conv, x, x, nbr, f,
+                                                  f, G, C, "bf16"))):
         codes = []
-        call(lambda *a: codes.append(raw(*a)))
-        assert codes[0] != 0, sym
+        call(lambda *a: codes.append(raw[which](*a)))
+        assert codes[0] != 0, which
+
+
+def test_node_proj_bf16_source_refuses_unaligned_rows(emulated):
+    """The bulk copies take 16-byte aligned sources: an x_src 4 bytes off
+    its allocation is refused by the wrapper's check and by the C entry
+    (no fallback), and the same values aligned go through."""
+    G, C, N, F = 1, 8, 9, 11
+    conv, rng = _random_conv(1, F, F, G, C)
+    buf = torch.from_numpy(rng.uniform(0, 1, N * F + 1).astype(np.float32))
+    x = buf[1:].view(N, F)
+    assert x.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        edge_stage._aligned("bf16", conv, x, x)
+    fn = _bf16_entries(emulated)["node_proj"]
+    codes = []
+    edge_stage.launch_node_proj(lambda *a: codes.append(fn.raw(*a)), 0, conv,
+                                x, x, "bf16")
+    assert codes == [716]            # cudaErrorMisalignedAddress
+    out = edge_stage.launch_node_proj(fn, 0, conv, x.clone(), x.clone(),
+                                      "bf16")
+    for o, r in zip(out, period_conv.node_projections_plain(conv, x, x,
+                                                            "bf16")):
+        torch.testing.assert_close(o, r, atol=1e-5, rtol=1e-5)
+
+
+def test_phase_trace_finds_its_anchors():
+    """scripts/bf16_phase_trace.py times the phases between the
+    TRACE_STAMP / TRACE_END markers of the bf16 source: every point it
+    reads has its marker (the script raises on a missing one), the copy
+    defines the markers before the source's empty defaults, and the
+    kernels' own build leaves them empty."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "bf16_phase_trace.py")
+    spec = importlib.util.spec_from_file_location("bf16_phase_trace", path)
+    trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace)
+    src = trace.stamped_source()
+    marked = {(int(k), int(i)) for k, i in re.findall(
+        r"TRACE_(?:STAMP|END)\((\d+), (\d+)[,)]", src)}
+    assert marked == {(k, i) for k, pts in trace.POINTS.items() for i in pts}
+    assert src.index("#define TRACE_STAMP(k, i, on) do") < src.index(
+        "#ifndef TRACE_STAMP")
+    assert "int trace_read(" in src
+    with open(os.path.join(_build.CSRC, edge_stage.SOURCE_BF16 + ".cu")) as f:
+        own = f.read()
+    assert "#define TRACE_STAMP(k, i, on)\n#define TRACE_END(k, i)\n" in own
 
 
 @functools.lru_cache(maxsize=1)

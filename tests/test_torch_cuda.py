@@ -174,6 +174,73 @@ def test_bf16_edge_stage_kernels_match_plain(K, Ns, Nd, Fs, Fd):
     chip_smoke.close_bf16("fused bf16, again", again, ref)
 
 
+@pytest.mark.parametrize("K,Ns,Nd,Fs,Fd", [
+    (3, 64 * 3 + 13, 64 * 2 + 13, 107, 104),   # ragged tiles, odd F
+    (16, 141, 64 + 13, 104, 107),              # pull, ragged
+    (3, 4181, 8362, 107, 104),                 # the 240 um push conv
+    (3, 8362, 8362, 104, 104),                 # connect
+    (16, 8362, 4181, 104, 107),                # pull
+])
+def test_bf16_kernels_at_ragged_and_240um_shapes(K, Ns, Nd, Fs, Fd):
+    """node_proj_bf16 (persistent blocks over several row tiles, a ragged
+    last tile, F = 107 at its unaligned row stride) and edge_attn_bf16
+    against their plain bf16 versions at chip_smoke's bf16 limits, one
+    bf16 launch each and no fp32 launch."""
+    dev = card()
+    G, C = 4, 96
+    rng = np.random.default_rng(K + Ns + Nd)
+    conv = random_conv(Ns, Fs, Fd, G, C, dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = (rng.uniform(size=(Nd, K)) < 0.6).astype(np.float32)
+    mask[::5] = 0.0
+    mask[1::5] = 1.0
+    mask = t(mask)
+    kw = dict(num_gates=G, out_channels=C, precision="bf16")
+    fp32, bf16 = dict(edge_stage.launches), dict(edge_stage.bf16_launches)
+    proj = period_conv.node_projections_plain(conv, xs, xd, "bf16")
+    for o, r in zip(edge_stage.node_proj_cuda(conv, xs, xd, "bf16"), proj):
+        torch.testing.assert_close(o, r, atol=ATOL, rtol=RTOL)
+    out = edge_stage.edge_attn_cuda(conv, xs, xd, nbr, ln, mask, proj, **kw)
+    chip_smoke.close_bf16("edge_attn_bf16", out, period_conv.edge_attn_plain(
+        conv, xs, xd, nbr, ln, mask, proj, **kw))
+    torch.cuda.synchronize()
+    assert edge_stage.launches == fp32
+    assert edge_stage.bf16_launches == {k: v + 1 for k, v in bf16.items()}
+
+
+def test_bf16_kernels_follow_an_in_place_weight_update():
+    """After w.add_() on every packed weight (an optimizer's step) the
+    kernels compute with the new weights: the pack is rebuilt, never used
+    stale."""
+    dev = card()
+    G, C, K, Ns, Nd, Fs, Fd = 4, 96, 3, 1043, 2086, 107, 104
+    rng = np.random.default_rng(5)
+    conv = random_conv(5, Fs, Fd, G, C, dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xs = t(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
+    xd = t(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+    nbr = t(rng.integers(0, Ns, (Nd, K)).astype(np.int32))
+    ln = t(rng.uniform(0, 0.3, (Nd, K)).astype(np.float32))
+    mask = t((rng.uniform(size=(Nd, K)) < 0.7).astype(np.float32))
+    kw = dict(num_gates=G, out_channels=C, precision="bf16")
+    before = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln, mask,
+                                               **kw)
+    pack = edge_stage.pack_bf16(conv)
+    with torch.no_grad():
+        for d in (conv.key, conv.value, conv.query, conv.skip, conv.l2):
+            d.w.add_(0.05)
+    out = edge_stage.apply_period_conv_cuda(conv, xs, xd, nbr, ln, mask, **kw)
+    assert edge_stage.pack_bf16(conv) is not pack
+    ref = period_conv.apply_period_conv_plain(conv, xs, xd, nbr, ln, mask,
+                                              **kw)
+    chip_smoke.close_bf16("bf16 conv after the update", out, ref)
+    assert float((out - before).abs().max()) > 1e-2
+
+
 def test_pallas_span_on_the_card_matches_the_cpu_span(state120):
     """One span of the 120 um fixture with pallas=True on the card against
     the CPU's plain bf16 span (chip_smoke.bf16_span_card_vs_cpu: the span
