@@ -28,6 +28,7 @@ from torch import nn
 
 from ..graph.geometry import wrap_shift
 from ..kernels import edge_stage
+from ..utils import profiling
 from .segment import masked_softmax, segment_softmax, segment_sum
 
 POS_DIM = 3  # (x, y, z) leading feature columns carry node position
@@ -96,6 +97,7 @@ def init_period_conv(conv: PeriodConv, generator: torch.Generator):
     return conv
 
 
+@profiling.span("graingnn.conv")
 def apply_period_conv(conv: PeriodConv, x_src, x_dst, nbr, edge_len,
                       nbr_mask, *, num_gates: int, out_channels: int,
                       kernels: bool, attention: bool = True,

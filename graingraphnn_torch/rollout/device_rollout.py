@@ -15,6 +15,12 @@ Every array keeps a fixed shape with -1 sentinels for dead columns, so the
 loop makes no data-dependent host decision; the capacity flags stay on the
 device and are checked once after the loop (check_capacity).
 
+Each stage is a span of utils.profiling (graingnn.build, .span, .sample,
+.forward, .post with .integrate, .elim, .edit and .finalize, and
+.capacity_read): a flag check while nothing records. In a recorded build
+the capacity read also reads the build's counters (COUNTERS), reduced on
+the device, and files them under the build.
+
 The ELL tables come from a stable sort of the COO lists every span or,
 where the caller asks for them (init_device_state(incremental=True), the
 JAX package's path past 16384 pull columns), from persistent column
@@ -44,6 +50,7 @@ import torch
 from ..graph import schema
 from ..graph.state import GraphSample, round_up
 from ..kernels import editor_fused
+from ..utils import profiling
 from . import topology_jit as tj
 
 TRAIN_FRAMES = 120
@@ -51,6 +58,13 @@ NEG = -1e30
 # destinations a span's edit may touch before finalize_stage takes the
 # column tables' fallback rebuild (maintained_cols's t_max)
 TOUCH_MAX = 256
+# a build's counters, reduced on the device over its stacked aux while a
+# profiling.recording() is in progress (build_counters)
+COUNTERS = ("switches", "eliminations", "extra_events",
+            "elim_saturated_spans", "jj_overflow_spans", "jg_overflow_spans",
+            "ring_high", "pp_headroom")
+_FORWARD = {m: profiling.span("graingnn.forward", model=m)
+            for m in ("regressor", "classifier")}
 
 
 @dataclasses.dataclass
@@ -258,11 +272,14 @@ def _coo_lengths(pos_src, pos_dst, src, dst):
     return torch.sqrt(torch.sum(rel * rel, dim=-1))
 
 
+@profiling.span("graingnn.sample")
 def make_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
     """The padded GraphSample of the forward, its ELL tables read through
-    the state's column tables where it keeps them. Returns (sample,
-    ring_overflow); with column tables the overflow was checked when they
-    were last updated, and this one is False."""
+    the state's column tables where it keeps them. Returns (sample, flags):
+    flags {"ring_overflow", "jg_overflow", "jj_overflow"}, [] bool each, a
+    destination of the pull, push or connect table past its width (its
+    extra edges dropped); a table read through column tables was checked
+    when they were last updated, and its flag is False."""
     xg, xj = state.xg, state.xj
     NG, NJ = xg.shape[0], xj.shape[0]
     if state.pull_cols is not None and state.pull_cols.shape[-1] != ring:
@@ -272,22 +289,28 @@ def make_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
     pos_g, pos_j = xg[:, :2], xj[:, :2]
     pq_len = _coo_lengths(pos_j, pos_g, state.E_pq[0], state.E_pq[1])
     pp_len = _coo_lengths(pos_j, pos_j, state.E_pp[0], state.E_pp[1])
+    checked = None          # the flag of a table read through its columns
+    if any(c is not None for c in (state.pull_cols, state.push_cols,
+                                   state.connect_cols)):
+        checked = torch.zeros((), dtype=torch.bool, device=xg.device)
     if state.push_cols is not None:
         push_nbr, push_len, push_mask = ell_from_cols(
             state.push_cols, state.E_pq[1], pq_len)
+        jg_overflow = checked
     else:
-        push_nbr, push_len, push_mask, _ = build_ell(
+        push_nbr, push_len, push_mask, jg_overflow = build_ell(
             state.E_pq[1], state.E_pq[0], pq_len, NJ, schema.JG_DEGREE)
     if state.connect_cols is not None:
         connect_nbr, connect_len, connect_mask = ell_from_cols(
             state.connect_cols, state.E_pp[0], pp_len)
+        jj_overflow = checked
     else:
-        connect_nbr, connect_len, connect_mask, _ = build_ell(
+        connect_nbr, connect_len, connect_mask, jj_overflow = build_ell(
             state.E_pp[0], state.E_pp[1], pp_len, NJ, schema.JJ_DEGREE)
     if state.pull_cols is not None:
         pull_nbr, pull_len, pull_mask = ell_from_cols(
             state.pull_cols, state.E_pq[0], pq_len)
-        overflow = torch.zeros((), dtype=torch.bool, device=xg.device)
+        overflow = checked
     else:
         pull_nbr, pull_len, pull_mask, overflow = build_ell(
             state.E_pq[0], state.E_pq[1], pq_len, NG, ring)
@@ -305,7 +328,8 @@ def make_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
         jj_len=pp_len * jj_live,
         jj_mask=jj_live,
     )
-    return sample, overflow
+    return sample, {"ring_overflow": overflow, "jg_overflow": jg_overflow,
+                    "jj_overflow": jj_overflow}
 
 
 def _pallas_mode(pallas) -> str:
@@ -322,14 +346,18 @@ def _pallas_mode(pallas) -> str:
 
 def forward_stage(regressor, classifier, state, ring, precision="fp32"):
     """ELL rebuild + model forwards on the hand kernels of `precision`, in
-    inference mode. Returns (sample, y_r, y_c, ring_overflow)."""
-    sample, overflow = make_sample(state, ring)
+    inference mode. Returns (sample, y_r, y_c, flags), flags make_sample's
+    overflow flags."""
+    sample, flags = make_sample(state, ring)
     with torch.inference_mode():
-        y_r = regressor(sample, kernels=True, precision=precision)
-        y_c = classifier(sample, kernels=True, precision=precision)
-    return sample, y_r, y_c, overflow
+        with _FORWARD["regressor"]:
+            y_r = regressor(sample, kernels=True, precision=precision)
+        with _FORWARD["classifier"]:
+            y_c = classifier(sample, kernels=True, precision=precision)
+    return sample, y_r, y_c, flags
 
 
+@profiling.span("graingnn.integrate")
 def integrate_stage(state, pred_j, pred_g, span):
     """Feature integration + z advance, of one lane or of each of B lanes
     (a leading axis), each clamped at its own row 0's z. Returns (xg,
@@ -351,6 +379,7 @@ def integrate_stage(state, pred_j, pred_g, span):
     return xg, xj
 
 
+@profiling.span("graingnn.elim")
 def elim_candidates(state, area, r_threshold, max_elim: int = tj.MAX_ELIM,
                     active_g=None):
     """Live grains under the area threshold, ascending predicted area, of
@@ -368,6 +397,7 @@ def elim_candidates(state, area, r_threshold, max_elim: int = tj.MAX_ELIM,
     return ge[..., :max_elim], n_cand
 
 
+@profiling.span("graingnn.edit")
 def edit_stage(state, xg, xj, pred_j, pred_g, edge_logits, ge, c_threshold,
                max_switch: int = tj.MAX_SWITCH, active_g=None,
                active_j=None):
@@ -496,6 +526,7 @@ def centers_stage(xg, xj, E_pq, ring, pull_cols=None):
     return xg
 
 
+@profiling.span("graingnn.finalize")
 def finalize_stage(E_pp_old, E_pq_old, E_pp_new, E_pq_new, pull_cols,
                    push_cols, connect_cols, xg, xj, *, ring: int):
     """Post-edit finalize, of one lane or of each of B lanes: the column
@@ -528,6 +559,17 @@ def finalize_stage(E_pp_old, E_pq_old, E_pp_new, E_pq_new, pull_cols,
     return E_pp, n_pp, pull_cols, push_cols, connect_cols, xg, overflow
 
 
+def _span_aux(aux, sample, flags):
+    """A span's aux with the sample's push and connect overflow flags, and
+    while recording the span's largest live pull degree (ring_high)."""
+    aux["jg_overflow"] = flags["jg_overflow"]
+    aux["jj_overflow"] = flags["jj_overflow"]
+    if profiling.recorder() is not None:
+        aux["ring_high"] = sample.pull_mask.sum(-1).max()
+    return aux
+
+
+@profiling.span("graingnn.span")
 def device_step(regressor, classifier, state: DeviceRolloutState, *,
                 r_threshold: float = 1e-4, c_threshold: float = 0.6,
                 span: int = 6, ring: int = tj.RING_MAX,
@@ -536,24 +578,28 @@ def device_step(regressor, classifier, state: DeviceRolloutState, *,
                 nuc_rand=None, nuc_angles=None, melt_term=None,
                 melt_left=None, pallas=False):
     """One rollout span. Returns (next_state, aux): aux holds the span's
-    grain events, extra events, switching pairs, message-edge count and
-    capacity flags, all on the device. nuc_density_term > 0 turns on
-    nucleation with this span's draws nuc_rand [NJcap] and nuc_angles
-    [MAX_NUC, 2]; melt_term turns on the moving melt pool at melt_left.
+    grain events, extra events, switching pairs, message-edge count, the
+    editor's append cursor and capacity flags (jg_overflow, jj_overflow:
+    the sample's push and connect tables, kept but not fatal), all on the
+    device. nuc_density_term > 0 turns on nucleation with this span's draws
+    nuc_rand [NJcap] and nuc_angles [MAX_NUC, 2]; melt_term turns on the
+    moving melt pool at melt_left.
     pallas=True (or "bf16") runs the forwards on the bf16 kernels, JAX's
     pallas=True scan (_pallas_mode)."""
-    sample, y_r, y_c, overflow = forward_stage(regressor, classifier, state,
-                                               ring, _pallas_mode(pallas))
+    sample, y_r, y_c, flags = forward_stage(regressor, classifier, state,
+                                            ring, _pallas_mode(pallas))
     message_edges = (sample.push_mask.sum() + sample.pull_mask.sum()
                      + sample.connect_mask.sum())
-    return post_forward_step(
-        state, y_r, y_c, overflow, message_edges, r_threshold=r_threshold,
-        c_threshold=c_threshold, span=span, ring=ring, max_elim=max_elim,
-        max_switch=max_switch, nuc_density_term=nuc_density_term,
-        nuc_rand=nuc_rand, nuc_angles=nuc_angles, melt_term=melt_term,
-        melt_left=melt_left)
+    new_state, aux = post_forward_step(
+        state, y_r, y_c, flags["ring_overflow"], message_edges,
+        r_threshold=r_threshold, c_threshold=c_threshold, span=span,
+        ring=ring, max_elim=max_elim, max_switch=max_switch,
+        nuc_density_term=nuc_density_term, nuc_rand=nuc_rand,
+        nuc_angles=nuc_angles, melt_term=melt_term, melt_left=melt_left)
+    return new_state, _span_aux(aux, sample, flags)
 
 
+@profiling.span("graingnn.post")
 def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
                       message_edges, *, r_threshold: float = 1e-4,
                       c_threshold: float = 0.6, span: int = 6,
@@ -613,6 +659,8 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
         "switching": switching,
         "message_edges": message_edges,
         "ring_overflow": overflow | ov_fin,
+        # the editor's append cursor, against the E_pp capacity
+        "append_ptr": tstate.append_ptr,
         # the editor's appends past the capacity are dropped: fatal
         "pp_overflow": tstate.append_ptr > state.E_pp.shape[-1],
         # candidates past the budget wait for the next span
@@ -623,12 +671,42 @@ def post_forward_step(state: DeviceRolloutState, y_r, y_c, overflow,
     return new_state, aux
 
 
-def check_capacity(aux: Dict[str, torch.Tensor]):
+def build_counters(aux: Dict[str, torch.Tensor], pp_cap: int):
+    """A build's COUNTERS as one int64 vector on the device, from its spans'
+    stacked aux (which holds ring_high, a recorded build): the switches,
+    grain eliminations and extra events made (rows not -1), the spans where
+    a lane's elimination candidates passed the budget or the sample's
+    connect (jj) or push (jg) table dropped an edge, the largest live pull
+    degree of any grain, and the least room left in E_pp (pp_cap less the
+    editor's largest append cursor)."""
+    spans = aux["message_edges"].shape[0]
+
+    def spans_with(flag):
+        return flag.reshape(spans, -1).any(-1).sum()
+
+    return torch.stack([c.to(torch.int64) for c in (
+        (aux["switching"][..., 0] >= 0).sum(),
+        (aux["grain_events"] >= 0).sum(),
+        (aux["extra_events"] >= 0).sum(),
+        spans_with(aux["elim_saturated"]),
+        spans_with(aux["jj_overflow"]),
+        spans_with(aux["jg_overflow"]),
+        aux["ring_high"].max(),
+        pp_cap - aux["append_ptr"].max())])
+
+
+@profiling.span("graingnn.capacity_read")
+def check_capacity(aux: Dict[str, torch.Tensor], counters=None):
     """Raise if any span of a run dropped edges (ring or append capacity)
     or came within a nucleation site of the padded rows' end (never set
     without nucleation): its graph is corrupt. The flags are [n_steps] or,
     for B lanes, [n_steps, B]; the error names the first span (and its
-    lane). One device-to-host read per flag for the whole run."""
+    lane). One device-to-host read per flag for the whole run. counters, a
+    recorded build's build_counters(), are read first, in one transfer, and
+    filed under the build. jg_overflow and jj_overflow are not checked."""
+    rec = profiling.recorder()
+    if counters is not None and rec is not None:
+        rec.count(dict(zip(COUNTERS, counters.tolist())))
     for flag in ("ring_overflow", "pp_overflow", "nuc_overflow"):
         hits = aux[flag].cpu().numpy()
         if hits.any():
@@ -649,7 +727,9 @@ def make_rollout(regressor, classifier, *, n_steps: int, **step_kw):
     capacity flags once after it and raises on a bust. step_kw pallas:
     device_step's (an unknown mode raises here)."""
     _pallas_mode(step_kw.get("pallas", False))
+    ring = step_kw.get("ring", tj.RING_MAX)
 
+    @profiling.span(profiling.BUILD, lanes=1)
     def run(state: DeviceRolloutState, nuc_rand=None, nuc_angles=None,
             melt_lefts=None):
         auxs = []
@@ -661,15 +741,22 @@ def make_rollout(regressor, classifier, *, n_steps: int, **step_kw):
                 melt_left=None if melt_lefts is None else melt_lefts[i],
                 **step_kw)
             auxs.append(aux)
-        return state, _stacked_aux(auxs)
+        return state, _stacked_aux(auxs, state.E_pp.shape[-1], ring)
 
     return run
 
 
-def _stacked_aux(auxs):
-    """The spans' aux on a leading span axis, its capacity flags checked."""
+def _stacked_aux(auxs, pp_cap: int, ring: int):
+    """The spans' aux on a leading span axis, its capacity flags checked;
+    in a recorded build its counters (build_counters) read with them and
+    filed beside the capacities they are read against."""
     aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
-    check_capacity(aux)
+    rec = profiling.recorder()
+    if rec is None:
+        check_capacity(aux)
+    else:
+        rec.count({"ring": ring, "pp_cap": pp_cap})
+        check_capacity(aux, build_counters(aux, pp_cap))
     return aux
 
 
@@ -777,13 +864,16 @@ def pack_states(states) -> DeviceRolloutState:
         pull_cols=pull_cols, push_cols=push_cols, connect_cols=connect_cols)
 
 
+@profiling.span("graingnn.sample")
 def _pack_build_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
     """The forward's sample of a [B, ...] state in the packed id space: the
     lanes' COO lists with node ids offset per lane (b * NG, b * NJ),
     concatenated, and one ELL build per table over all B * NJ or B * NG
     rows (the sort; column tables, where the lanes keep them, give the
-    same slots). Returns (sample, ring_overflow [B] (one flag for all
-    lanes, broadcast, as JAX's), message edges [B])."""
+    same slots). Returns (sample, flags, message edges [B]): flags as
+    make_sample's, "ring_overflow" [B] (one flag for all lanes, broadcast,
+    as JAX's), "jg_overflow" and "jj_overflow" [] (one flag for all
+    lanes)."""
     B, NG = state.xg.shape[:2]
     NJ = state.xj.shape[1]
     dev = state.xg.device
@@ -802,9 +892,9 @@ def _pack_build_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
     pos_g, pos_j = xg[:, :2], xj[:, :2]
     pq_len = _coo_lengths(pos_j, pos_g, pq_src, pq_dst)
     pp_len = _coo_lengths(pos_j, pos_j, pp_a, pp_b)
-    push_nbr, push_len, push_mask, _ = build_ell(
+    push_nbr, push_len, push_mask, jg_overflow = build_ell(
         pq_dst, pq_src, pq_len, B * NJ, schema.JG_DEGREE)
-    connect_nbr, connect_len, connect_mask, _ = build_ell(
+    connect_nbr, connect_len, connect_mask, jj_overflow = build_ell(
         pp_a, pp_b, pp_len, B * NJ, schema.JJ_DEGREE)
     pull_nbr, pull_len, pull_mask, overflow = build_ell(
         pq_src, pq_dst, pq_len, B * NG, ring)
@@ -823,9 +913,12 @@ def _pack_build_sample(state: DeviceRolloutState, ring: int = tj.RING_MAX):
     edges = (push_mask.reshape(B, -1).sum(-1)
              + pull_mask.reshape(B, -1).sum(-1)
              + connect_mask.reshape(B, -1).sum(-1))
-    return sample, overflow.expand(B), edges
+    return sample, {"ring_overflow": overflow.expand(B),
+                    "jg_overflow": jg_overflow,
+                    "jj_overflow": jj_overflow}, edges
 
 
+@profiling.span("graingnn.span")
 def batched_step(regressor, classifier, state: DeviceRolloutState, *,
                  r_threshold: float = 1e-4, c_threshold: float = 0.6,
                  span: int = 6, ring: int = tj.RING_MAX, pallas=False):
@@ -839,17 +932,21 @@ def batched_step(regressor, classifier, state: DeviceRolloutState, *,
     B, NG = state.xg.shape[:2]
     NJ = state.xj.shape[1]
     precision = _pallas_mode(pallas)
-    sample, overflow, edges = _pack_build_sample(state, ring)
+    sample, flags, edges = _pack_build_sample(state, ring)
     with torch.inference_mode():
-        y_r = regressor(sample, kernels=True, precision=precision)
-        y_c = classifier(sample, kernels=True, precision=precision)
+        with _FORWARD["regressor"]:
+            y_r = regressor(sample, kernels=True, precision=precision)
+        with _FORWARD["classifier"]:
+            y_c = classifier(sample, kernels=True, precision=precision)
         y_r = {"joint": y_r["joint"].reshape(B, NJ, -1),
                "grain": y_r["grain"].reshape(B, NG, -1),
                "grain_area": y_r["grain_area"].reshape(B, NG)}
         y_c = {"edge_event": y_c["edge_event"].reshape(B, -1)}
-    return post_forward_step(state, y_r, y_c, overflow, edges,
-                             r_threshold=r_threshold, c_threshold=c_threshold,
-                             span=span, ring=ring)
+    new_state, aux = post_forward_step(
+        state, y_r, y_c, flags["ring_overflow"], edges,
+        r_threshold=r_threshold, c_threshold=c_threshold, span=span,
+        ring=ring)
+    return new_state, _span_aux(aux, sample, flags)
 
 
 def make_rollout_batched(regressor, classifier, *, n_steps: int, **step_kw):
@@ -859,13 +956,18 @@ def make_rollout_batched(regressor, classifier, *, n_steps: int, **step_kw):
     sync; run() reads the capacity flags once after it and raises on a
     bust, naming the span and the lane."""
     _pallas_mode(step_kw.get("pallas", False))
+    ring = step_kw.get("ring", tj.RING_MAX)
 
+    @profiling.span(profiling.BUILD)
     def run(state: DeviceRolloutState):
+        rec = profiling.recorder()
+        if rec is not None:
+            rec.annotate(lanes=int(state.xg.shape[0]))
         auxs = []
         for _ in range(n_steps):
             state, aux = batched_step(regressor, classifier, state, **step_kw)
             auxs.append(aux)
-        return state, _stacked_aux(auxs)
+        return state, _stacked_aux(auxs, state.E_pp.shape[-1], ring)
 
     return run
 

@@ -1,27 +1,33 @@
-"""Profiling and roofline accounting.
+"""Tracing and cost accounting.
 
-  * `trace(logdir)`: a context manager around torch.profiler (CPU, and the
-    card's kernels where there is one) that writes a Chrome trace to
-    logdir/trace.json (chrome://tracing, Perfetto);
+  * `span(name, **attrs)`: a named span at a layer boundary, as a decorator
+    or a context manager. Outside `recording()` a span checks one
+    module-level flag and does nothing else: no record_function, no
+    allocation, no device operation.
+  * `recording(ranges=False)`: keeps every span of the block in memory (a
+    `Recorder`: name, start and end on time.perf_counter_ns, parent,
+    build, attributes) and the counters each build files; with ranges=True
+    each span also opens a torch.profiler.record_function of its name.
+  * `trace(logdir)`: torch.profiler (CPU, and the card's activity where
+    there is one) with recording and ranges on; writes logdir/trace.json
+    (chrome://tracing, Perfetto) and logdir/spans.json (Recorder.to_json).
   * analytic operation and byte counts of the fused periodic conv and of
-    the whole GrainNN forward, the JAX package's arithmetic;
-  * `roofline(time_s, flops, bytes_)`: the achieved share of the compute
-    and bandwidth peaks of a ChipSpec;
-  * `slope_time` and `timeit`: seconds per call, on CUDA events for a
-    card's work (host clock on the CPU).
+    the whole GrainNN forward, the JAX package's arithmetic.
 
-`ChipSpec.h100()` holds the NVIDIA H100 SXM datasheet peaks that
-chip_smoke.py's bounds use; they are datasheet figures, not measurements,
-and a card run below its 700 W limit reaches less.
+H100_PEAK_* are the NVIDIA H100 SXM datasheet peaks that chip_smoke.py's
+bounds use; they are datasheet figures, not measurements, and a card run
+below its 700 W limit reaches less.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
+import functools
+import json
 import os
+import threading
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -31,36 +37,182 @@ H100_PEAK_TF32X3 = 495e12 / 3   # TF32 tensor cores, 3 products per fp32 one
 H100_PEAK_BF16 = 989e12         # bf16 tensor cores, dense, FLOP/s
 H100_PEAK_BYTES = 3.35e12       # HBM3, bytes/s
 
+BUILD = "graingnn.build"   # a build is the request: its spans share its id
 
-@dataclasses.dataclass
-class ChipSpec:
-    name: str
-    peak_flops: float     # FLOP/s at the counted dtype
-    hbm_bw: float         # bytes/s
+_recorder: Optional["Recorder"] = None    # the flag every span checks
 
-    @classmethod
-    def h100(cls, kind: str = "fp32") -> "ChipSpec":
-        """The H100 SXM's datasheet peaks: kind "fp32" (CUDA cores) or
-        "tf32x3" (fp32 products as three TF32 tensor-core products)."""
-        peak = {"fp32": H100_PEAK_FP32, "tf32x3": H100_PEAK_TF32X3}[kind]
-        return cls(f"NVIDIA H100 SXM {kind} (datasheet peak)", peak,
-                   H100_PEAK_BYTES)
+
+class _Thread:
+    """One thread's native id (read once: a system call), its open spans
+    (indices into Recorder.spans) and their record_function ranges."""
+
+    def __init__(self):
+        self.tid = threading.get_native_id()
+        self.open: List[int] = []
+        self.ranges: List = []
+
+
+class Recorder:
+    """The spans and counters of what runs inside `recording()`.
+
+    spans: one dict a span, in the order they opened: name, t0 and t1
+    (time.perf_counter_ns; t1 None if the span was still open when
+    recording ended), parent (an index into spans, -1 for none), build (the
+    id of the enclosing BUILD span, -1 outside every build), tid (the
+    thread's native id, as a profiler's trace gives it) and attrs (the
+    span's own, plus "index": its rank among its parent's children of the
+    same name). counters: {build id: {name: value}}, filed by count() from
+    inside the build.
+
+    anchor pairs one time.perf_counter_ns() reading with time.time_ns(), so
+    a span's times convert to Unix time (unix_ns) and from there to a
+    Chrome trace's clock, on which ts + baseTimeNanoseconds / 1e3 is Unix
+    microseconds."""
+
+    def __init__(self, ranges: bool = False):
+        self.ranges = ranges
+        self.anchor = (time.perf_counter_ns(), time.time_ns())
+        self.spans: List[Dict] = []
+        self.counters: Dict[int, Dict[str, int]] = {}
+        self._threads: Dict[int, _Thread] = {}
+        self._siblings: Dict = {}
+        self._builds = 0
+        self._lock = threading.Lock()
+
+    def _thread(self) -> _Thread:
+        key = threading.get_ident()
+        th = self._threads.get(key)
+        if th is None:
+            th = self._threads[key] = _Thread()
+        return th
+
+    def open(self, name: str, attrs: Dict):
+        th = self._thread()
+        parent = th.open[-1] if th.open else -1
+        with self._lock:
+            index = self._siblings.get((parent, name), 0)
+            self._siblings[(parent, name)] = index + 1
+            if name == BUILD:
+                build = self._builds
+                self._builds += 1
+            else:
+                build = self.spans[parent]["build"] if parent >= 0 else -1
+            th.open.append(len(self.spans))
+            self.spans.append({"name": name, "t0": time.perf_counter_ns(),
+                               "t1": None, "parent": parent, "build": build,
+                               "tid": th.tid,
+                               "attrs": {**attrs, "index": index}})
+        if self.ranges:
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+            th.ranges.append(rf)
+
+    def close(self):
+        th = self._thread()
+        if not th.open:
+            return
+        if self.ranges:
+            th.ranges.pop().__exit__(None, None, None)
+        self.spans[th.open.pop()]["t1"] = time.perf_counter_ns()
+
+    def annotate(self, **attrs):
+        """Adds attrs to the innermost span open on this thread."""
+        th = self._thread()
+        if th.open:
+            self.spans[th.open[-1]]["attrs"].update(attrs)
+
+    def count(self, values: Dict[str, int]):
+        """Files values under the build of the innermost span open on this
+        thread (-1 outside every build)."""
+        th = self._thread()
+        build = self.spans[th.open[-1]]["build"] if th.open else -1
+        self.counters.setdefault(build, {}).update(values)
+
+    def unix_ns(self, t: int) -> int:
+        """A perf_counter_ns reading as Unix nanoseconds."""
+        return self.anchor[1] + (t - self.anchor[0])
+
+    def to_json(self) -> Dict:
+        return {"anchor": {"perf_counter_ns": self.anchor[0],
+                           "time_ns": self.anchor[1]},
+                "spans": self.spans,
+                "counters": {str(b): c for b, c in self.counters.items()}}
+
+
+class span:
+    """A span named `name` with attrs, around a block (`with span(...):`) or
+    around every call of a function (`@span(...)`). Make the object once
+    (at import, for a decorator) and reuse it: while nothing records,
+    entering it checks the module's flag and does nothing else."""
+
+    __slots__ = ("name", "attrs")
+
+    def __init__(self, name: str, **attrs):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        if _recorder is not None:
+            _recorder.open(self.name, self.attrs)
+
+    def __exit__(self, *exc):
+        if _recorder is not None:
+            _recorder.close()
+        return False
+
+    def __call__(self, fn):
+        name, attrs = self.name, self.attrs
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            rec = _recorder
+            if rec is None:
+                return fn(*args, **kwargs)
+            rec.open(name, attrs)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec.close()
+        return spanned
+
+
+def recorder() -> Optional[Recorder]:
+    """The Recorder of the recording() in progress, or None."""
+    return _recorder
+
+
+@contextlib.contextmanager
+def recording(ranges: bool = False):
+    """Record every span of the block; yields the Recorder. One recording
+    at a time in a process."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("a recording is already in progress")
+    rec = Recorder(ranges)
+    _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder = None
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block with torch.profiler (the card's activity too when
-    CUDA is available); on exit write logdir/trace.json. Yields the
-    profiler (key_averages() for a table)."""
+    CUDA is available) and record its spans with ranges; on exit write
+    logdir/trace.json and logdir/spans.json. Yields the profiler
+    (key_averages() for a table)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with recording(ranges=True) as rec, profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump(rec.to_json(), f)
 
 
 def conv_cost(ns: int, nd: int, k: int, f_src: int, f_dst: int,
@@ -103,80 +255,3 @@ def model_forward_cost(ng: int, nj: int, ring: int, f_grain: int, f_joint: int,
             total["flops"] += c["flops"]
             total["bytes"] += c["bytes"]
     return total
-
-
-def roofline(time_s: float, flops: float, bytes_: float,
-             spec: ChipSpec | None = None) -> Dict[str, float]:
-    """Achieved rates and their shares of spec's peaks (default: the
-    H100's fp32 datasheet peaks)."""
-    spec = spec or ChipSpec.h100()
-    return {
-        "chip": spec.name,
-        "achieved_tflops": flops / time_s / 1e12,
-        "compute_fraction": flops / time_s / spec.peak_flops,
-        "achieved_gbps": bytes_ / time_s / 1e9,
-        "bandwidth_fraction": bytes_ / time_s / spec.hbm_bw,
-        "arithmetic_intensity": flops / max(bytes_, 1.0),
-        "ridge_intensity": spec.peak_flops / spec.hbm_bw,
-    }
-
-
-class _Clock:
-    """Elapsed seconds between start() and stop(): CUDA events on a card
-    (the device's time for the work issued between them), the host clock
-    on the CPU."""
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-
-    def start(self):
-        if self.cuda:
-            self.e0, self.e1 = (torch.cuda.Event(enable_timing=True)
-                                for _ in range(2))
-            torch.cuda.synchronize()
-            self.e0.record()
-        else:
-            self.t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        if self.cuda:
-            self.e1.record()
-            self.e1.synchronize()
-            return self.e0.elapsed_time(self.e1) / 1e3
-        return time.perf_counter() - self.t0
-
-
-def slope_time(f, n1: int = 100, n2: int = 900, reps: int = 3,
-               device: str = "cuda") -> float:
-    """Seconds per iteration of `f` (tensor carry -> carry), the slope
-    between runs of n1 and n2 iterations: a fixed cost per run (the
-    launch of the first kernel, the final synchronisation) cancels.
-    Minimum over reps."""
-    clock = _Clock(device)
-    x0 = torch.ones((), device=device)
-
-    def run(n):
-        clock.start()
-        c = x0
-        for _ in range(n):
-            c = f(c)
-        return clock.stop()
-
-    run(n1)
-    ts = []
-    for _ in range(reps):
-        t1 = run(n1)
-        t2 = run(n2)
-        ts.append((t2 - t1) / (n2 - n1))
-    return min(ts)
-
-
-def timeit(fn, *args, iters: int = 50, device: str = "cuda") -> float:
-    """Steady-state seconds per call of fn(*args) after one warm-up call,
-    on CUDA events (or the host clock for device="cpu")."""
-    clock = _Clock(device)
-    fn(*args)
-    clock.start()
-    for _ in range(iters):
-        fn(*args)
-    return clock.stop() / iters

@@ -93,7 +93,9 @@ def test_pack_build_sample_matches_jax(setup):
     edge lengths within 1e-7. The hybrid form offsets a dead slot's 0 fill
     by its lane like a live id, so its node ids are held on live slots."""
     jb = jdr.stack_states(setup[0][False])
-    tsample, tover, tedges = dr._pack_build_sample(port_state(jb))
+    tsample, tflags, tedges = dr._pack_build_sample(port_state(jb))
+    tover = tflags["ring_overflow"]
+    assert not (bool(tflags["jg_overflow"]) or bool(tflags["jj_overflow"]))
     jsample, jover, jedges = jax.jit(
         lambda s: jdr._pack_build_sample(s, 16))(jb)
     jrows, jover_v = jax.jit(lambda s: jax.vmap(jdr.make_sample)(s))(jb)

@@ -70,8 +70,9 @@ def test_init_scaled_state_matches_jax(setup):
 def test_make_sample_matches_jax(setup):
     js0 = setup[0]
     jsample, jover = jax.jit(jdr.make_sample)(js0)
-    tsample, tover = dr.make_sample(port_state(js0))
-    assert bool(tover) == bool(jover) is False
+    tsample, tflags = dr.make_sample(port_state(js0))
+    assert bool(tflags["ring_overflow"]) == bool(jover) is False
+    assert not (bool(tflags["jg_overflow"]) or bool(tflags["jj_overflow"]))
     for k in ("push_nbr", "push_mask", "connect_nbr", "connect_mask",
               "pull_nbr", "pull_mask", "jj_src", "jj_dst", "jj_mask"):
         np.testing.assert_array_equal(getattr(tsample, k).numpy(),

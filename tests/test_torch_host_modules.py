@@ -1,7 +1,7 @@
 """The port's host-side modules against the JAX package's on the CPU:
 graph/state.build_ell_device (slot-equal to JAX's and to the host
-build_ell), utils/profiling (the cost models exactly equal; the trace,
-roofline and timers), data/torch_bridge (state_dicts key- and value-equal
+build_ell), utils/profiling (the cost models exactly equal; the peaks, the
+trace and its spans), data/torch_bridge (state_dicts key- and value-equal
 to JAX's for the same weights, and the round trip through `.pt`),
 viz/volume.GrainVisual.reconstruct (the same VTK bytes as JAX's on a
 small synthetic PF file), viz/paraview_batch (the same call log on
@@ -89,27 +89,35 @@ def test_model_forward_cost_equals_jax(args):
 
 
 def test_roofline_chip_spec_and_timers(tmp_path):
-    """The H100 datasheet peaks are chip_smoke's; roofline's arithmetic
-    is JAX's with that spec; trace writes a Chrome trace; the timers
-    return positive seconds on the CPU."""
+    """The H100 datasheet peaks are chip_smoke's; trace(logdir) writes a Chrome trace holding a range of each
+    span opened inside it, and spans.json with the spans, the clock anchor
+    and the counters filed."""
+    import json
+
     import chip_smoke
 
-    fp32, tc = tprof.ChipSpec.h100(), tprof.ChipSpec.h100("tf32x3")
-    assert (fp32.peak_flops, tc.peak_flops, fp32.hbm_bw) == (
-        chip_smoke.PEAK_FP32, chip_smoke.PEAK_TF32X3, chip_smoke.PEAK_BYTES)
-    assert "datasheet" in fp32.name
-    spec = jprof.ChipSpec("x", fp32.peak_flops, fp32.hbm_bw)
-    ours = tprof.roofline(1e-3, 2e9, 3e6)
-    theirs = jprof.roofline(1e-3, 2e9, 3e6, spec)
-    assert {k: v for k, v in ours.items() if k != "chip"} == {
-        k: v for k, v in theirs.items() if k != "chip"}
+    assert (tprof.H100_PEAK_FP32, tprof.H100_PEAK_TF32X3,
+            tprof.H100_PEAK_BF16, tprof.H100_PEAK_BYTES) == (
+        chip_smoke.PEAK_FP32, chip_smoke.PEAK_TF32X3, chip_smoke.PEAK_BF16,
+        chip_smoke.PEAK_BYTES)
     with tprof.trace(str(tmp_path / "tr")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+        with tprof.span(tprof.BUILD, lanes=1):
+            with tprof.span("graingnn.product"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+            tprof.recorder().count({"events": 3})
+    assert tprof.recorder() is None
     assert any("mm" in e.key for e in prof.key_averages())
-    assert tprof.slope_time(lambda c: c * 1.0001, 5, 25, device="cpu") > 0
-    assert tprof.timeit(lambda: torch.ones(8) + 1, iters=5,
-                        device="cpu") > 0
+    with open(tmp_path / "tr" / "trace.json") as f:
+        ranges = [e["name"] for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "user_annotation"]
+    assert ranges.count(tprof.BUILD) == ranges.count("graingnn.product") == 1
+    with open(tmp_path / "tr" / "spans.json") as f:
+        saved = json.load(f)
+    assert [(s["name"], s["parent"], s["build"]) for s in saved["spans"]] \
+        == [(tprof.BUILD, -1, 0), ("graingnn.product", 0, 0)]
+    assert saved["spans"][0]["attrs"] == {"lanes": 1, "index": 0}
+    assert saved["counters"] == {"0": {"events": 3}}
+    assert set(saved["anchor"]) == {"perf_counter_ns", "time_ns"}
 
 
 def test_new_modules_import_no_jax():
