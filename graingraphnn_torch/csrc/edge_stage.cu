@@ -19,18 +19,40 @@
 // correction. Two kernels per conv:
 //
 // node_proj: the four node projections (K, V over sources, Q, skip over
-//   destinations) as ONE grouped launch; the block index picks the product
-//   and its 64 x 128 output tile. Bound: bytes (the [N, 2 GC] outputs) at
-//   the tensor cores' rate. The tile's x rows and W columns over the whole
-//   depth (F zero-padded to a multiple of 8) come into shared memory by
-//   cp.async, with row strides that make every fragment load
-//   conflict-free; 4 warps each take a 32 x 64 sub-tile on mma.sync
-//   m16n8k8 in 3xTF32 (csrc/mma_tf32.cuh): each operand is split into
-//   hi + lo TF32 parts at the fragment load, and lo*hi + hi*lo + hi*hi go
-//   into fp32 accumulators, which keeps near-fp32 error. The tile goes out
-//   through shared memory in rows of 16-byte stores. ~101 KB of shared
-//   memory per block leaves two blocks per SM, whose loads and products
-//   overlap.
+//   destinations) as ONE grouped launch, in 3xTF32: each operand split
+//   into hi + lo TF32 parts, and lo*hi + hi*lo + hi*hi summed into fp32
+//   accumulators, which keeps near-fp32 error. Bound: about evenly the
+//   [N, 2 GC] fp32 outputs at the memory's rate and the three products at
+//   the tensor cores' TF32 rate. The weights come pre-split (kernels/
+//   edge_stage.py pack_tf32x3, built once per weight version, so no kernel
+//   splits a weight): per product and 128-column slice a hi and a lo plane
+//   as wgmma's K-major B operand without swizzle (depth the wider F padded
+//   to 8; per k8 step 4096 contiguous bytes of 8 x 4 core matrices,
+//   csrc/wgmma_tf32.cuh). A block owns one (product, slice): its two
+//   planes (up to 2 x 64 KB) arrive by one bulk copy each and stay
+//   resident while the block walks its row tiles of 64 on up to three
+//   warpgroups, tile i on warpgroup i % WG, through a ring of one stage a
+//   warpgroup on mbarriers (hopper_async.cuh; two stages a warpgroup do
+//   not fit beside the planes, and three warpgroups on one stage each
+//   measured faster than two on two). 64 rows of x are one contiguous run
+//   of 64 F floats, brought in by one bulk copy of its 16-byte aligned
+//   middle, the 0-3 values before and after it copied by the issuing
+//   thread, so neither F nor x's base need be aligned. Each thread splits
+//   its A fragments into hi and lo straight from the fp32 tile, two
+//   k-steps at a time into two register sets, and issues wgmma m64n128k8
+//   (A from registers, B from the resident planes) three times a k-step,
+//   one group of products in flight while the next set is split. Once the
+//   warpgroup has read its stage, its first thread issues the copy of its
+//   next tile, in flight while this tile's last products and stores and
+//   the other warpgroups' tiles run. The epilogue adds the bias and stores
+//   straight from the accumulators: lane pairs swap halves so that each
+//   group of 4 lanes stores 64 contiguous bytes of a row (16 rows of 32
+//   bytes a store measured 16 % slower; staging the tile through shared
+//   memory, whose bandwidth the products' B reads already load, no faster).
+//   The grid follows the shapes: one wave of a tile a warpgroup on the
+//   fewest warpgroups a block that fit it (the one-lane, halo and
+//   partitioned convs); past that, persistent blocks of three warpgroups,
+//   one wave, each a run of consecutive tiles.
 //
 // edge_attn: the gathers, the softmax and the value MLP's second layer.
 //   Bound: bytes. Each input is read once from device memory, but the
@@ -61,7 +83,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_async.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -72,20 +96,18 @@ constexpr int MAX_K = 64;       // neighbor slots per row: two ballots of 32
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
 
-// node_proj tiling
-constexpr int NP_BM = 64;                 // rows of a block tile
-constexpr int NP_BN = 128;                // columns of a block tile
-constexpr int NP_THREADS = 128;           // 4 warps in 2 x 2, each a quarter tile
-constexpr int NP_MI = NP_BM / 2 / 16;     // m16 products per warp
-constexpr int NP_NI = NP_BN / 2 / 8;      // n8 products per warp
-constexpr int NP_XS = MAX_F + 4;          // x row stride: fragment rows 4 banks apart
-constexpr int NP_WS = NP_BN + 8;          // W row stride: fragment k rows 8 banks apart
-constexpr int NP_SMEM = (NP_BM * NP_XS + MAX_F * NP_WS) * (int)sizeof(float);
-constexpr int NP_BLOCKS = 232448 / (NP_SMEM + 1024);   // blocks an SM holds
-static_assert(NP_BN <= NP_XS && NP_BLOCKS >= 1, "node_proj tiles");
+// node_proj tiling: warpgroups on 64 x 128 tiles, wgmma m64n128k8
+constexpr int NP_BM = 64;                 // rows of a tile
+constexpr int NP_BN = 128;                // columns of a block's slice
+constexpr int NP_WG_MAX = 3;              // warpgroups a block
+constexpr int NP_KSTEP_BYTES = NP_BN * 8 * 4;   // a k8 step of a W plane
+constexpr int NP_SMEM_MAX = 232448;       // a block's shared memory on sm_90
+constexpr int NP_KC = 2;                  // k-steps split into one register set
+constexpr int NP_KSTEPS = MAX_F / 8;
+static_assert(NP_KSTEPS % NP_KC == 0, "node_proj k chunks");
 
 // A build with -DNODE_PROJ_PART=1 leaves out node_proj's products, and one
-// with 2 its device-memory loads and stores; they exist to time the parts
+// with 2 its loads of x and its stores; they exist to time the parts
 // (scripts/torch_kernel_probe.py) and compute nothing of use.
 #ifndef NODE_PROJ_PART
 #define NODE_PROJ_PART 0
@@ -116,128 +138,192 @@ static_assert(EA_R % 16 == 0 && EA_R % EA_WARPS == 0 && EA_WARPS % EA_MT == 0,
 constexpr bool EA_PRODUCT = EDGE_ATTN_PART != 1;
 constexpr bool EA_GATHER = EDGE_ATTN_PART != 2;
 
-struct Proj {                             // y [N, GC] = x [N, F] w [F, GC] + b
-  const float* x; const float* w; const float* b; float* y; int N, F;
+// the pack's layout (kernels/edge_stage.py builds it): the planes' depth
+// (the wider F padded to 8), their column count, a plane's bytes
+__host__ __device__ inline int np_fp(int Fs, int Fd) {
+  return ((Fs > Fd ? Fs : Fd) + 7) & ~7;
+}
+__host__ __device__ inline int np_gcp(int GC) {
+  return (GC + NP_BN - 1) / NP_BN * NP_BN;
+}
+__host__ __device__ inline int np_plane_bytes(int Fs, int Fd) {
+  return np_fp(Fs, Fd) / 8 * NP_KSTEP_BYTES;
+}
+
+// Shared memory of a node_proj block of WG warpgroups: the hi and lo
+// planes, the bias slice [NP_BN], a stage of NP_BM rows of x a warpgroup at
+// the wider F (4 floats more, so a tile lands at x's offset from a 16-byte
+// boundary), 1 + WG mbarriers (the planes, then each stage).
+__host__ __device__ inline int np_stage_floats(int Fs, int Fd) {
+  return NP_BM * (Fs > Fd ? Fs : Fd) + 4;
+}
+__host__ __device__ inline int np_smem(int Fs, int Fd, int WG) {
+  return 2 * np_plane_bytes(Fs, Fd) + (NP_BN + WG * np_stage_floats(Fs, Fd)) * 4 +
+         (1 + WG) * 8;
+}
+
+struct ProjSet {        // y_p [N, GC] = x [N, F] w_p [F, GC] + b_p, p = k, v, q, sk
+  const float* x[2];    // x_src (k, v), x_dst (q, sk)
+  int N[2], F[2];
+  const uint32_t* w;    // the pack: per (p, slice) the hi, then the lo plane
+  const float* b[4];
+  float* y[4];
+  int GC, T;            // gate width G*C, tiles a block
+  int blocks[4];        // blocks of each product
 };
-struct ProjSet {
-  Proj p[4];
-  int tiles[4];                           // block tiles of each product
-  int GC;
-};
 
-// One NP_BM x NP_BN tile of one of the grouped products, in 3xTF32.
-__global__ void __launch_bounds__(NP_THREADS, NP_BLOCKS) node_proj(ProjSet P) {
-  extern __shared__ __align__(16) float np_smem[];
-  float* xs = np_smem;                    // [NP_BM][NP_XS]
-  float* ws = np_smem + NP_BM * NP_XS;    // [MAX_F][NP_WS]
-  int t = blockIdx.x, pi = 0;
-  while (pi < 3 && t >= P.tiles[pi]) t -= P.tiles[pi++];
-  const Proj pr = P.p[pi];
-  const int GC = P.GC, F = pr.F, Fp = (F + 7) & ~7;
-  const int ncol = (GC + NP_BN - 1) / NP_BN;
-  const int row0 = (t / ncol) * NP_BM, col0 = (t % ncol) * NP_BN;
-  const int nrows = min(NP_BM, pr.N - row0), ncols = min(NP_BN, GC - col0);
+// n floats from src to dst (dst at src's offset from a 16-byte boundary)
+// on bar: the 16-byte blocks by the copy engine, the 0-3 floats before and
+// after them here; the arrival comes last, so the phase completes when
+// all have landed.
+__device__ __forceinline__ void copy_floats(float* dst, const float* src, int n,
+                                            uint64_t* bar) {
+  const int lead = (16 - (int)(reinterpret_cast<uintptr_t>(src) & 15)) & 15;
+  const int head = min(n, lead / 4), bulk = (n - head) & ~3;
+  mbar_expect_tx(bar, bulk * 4);
+  if (bulk > 0) bulk_copy_g2s(dst + head, src + head, bulk * 4, bar);
+  for (int u = 0; u < head; ++u) dst[u] = src[u];
+  for (int u = head + bulk; u < n; ++u) dst[u] = src[u];
+  mbar_arrive(bar);
+}
 
-  // x rows [row0, row0 + NP_BM) and W columns [col0, col0 + NP_BN) over the
-  // depth Fp, zero-padded; 16-byte copies where the rows allow them
-  const bool xvec = F % 4 == 0 && (reinterpret_cast<uintptr_t>(pr.x) & 15) == 0;
-  const bool wvec = GC % 4 == 0 && (reinterpret_cast<uintptr_t>(pr.w) & 15) == 0;
-  for (int i = threadIdx.x; i < NP_BM * (Fp / 4); i += NP_THREADS) {
-    const int r = i / (Fp / 4), f = (i % (Fp / 4)) * 4;
-    float* dst = xs + r * NP_XS + f;
-    const float* src = pr.x + (size_t)(row0 + r) * F + f;
-    if (NP_MEMORY && xvec && r < nrows && f < F) {
-      cp_async16(dst, src);
+// One 128-column slice of one of the grouped products over T consecutive
+// row tiles of 64: tile i of the block in stage i % WG, on warpgroup i % WG.
+__global__ void __launch_bounds__(NP_WG_MAX * 128, 1) node_proj(ProjSet P) {
+  extern __shared__ __align__(128) uint32_t np_smem_u[];
+  int bi = blockIdx.x, p = 0;
+  while (p < 3 && bi >= P.blocks[p]) bi -= P.blocks[p++];
+  const int GC = P.GC, slices = np_gcp(GC) / NP_BN;
+  const int s = bi % slices, t0 = (bi / slices) * P.T;
+  const int xi = p >> 1, N = P.N[xi], F = P.F[xi];
+  const float* x = P.x[xi];
+  const int nt = min(P.T, (N + NP_BM - 1) / NP_BM - t0);
+  const int WG = blockDim.x / 128;
+  const int plane = np_plane_bytes(P.F[0], P.F[1]);
+  const int stage = np_stage_floats(P.F[0], P.F[1]);
+  const int col0 = s * NP_BN, ncols = min(NP_BN, GC - col0);
+  unsigned char* whi = reinterpret_cast<unsigned char*>(np_smem_u);
+  unsigned char* wlo = whi + plane;
+  float* sb = reinterpret_cast<float*>(wlo + plane);       // [NP_BN] bias
+  float* xs = sb + NP_BN;                                  // [WG][stage]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xs + WG * stage);
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  // floats from x's base to the 16-byte boundary below it: every tile
+  // (64 F floats) starts as far from one
+  const int mis = (int)(reinterpret_cast<uintptr_t>(x) & 15) / 4;
+
+  // tile i of the block into its stage
+  auto issue = [&](int i) {
+    const int t = t0 + i;
+    uint64_t* b = &bar[1 + i % WG];
+    if (NP_MEMORY) {
+      copy_floats(xs + (i % WG) * stage + mis, x + (size_t)t * NP_BM * F,
+                  min(NP_BM, N - t * NP_BM) * F, b);
     } else {
-      for (int u = 0; u < 4; ++u) {
-        if (NP_MEMORY && r < nrows && f + u < F) cp_async4(dst + u, src + u);
-        else dst[u] = 0.f;
+      mbar_arrive(b);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= WG; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+    const uint32_t* w = P.w + (size_t)(p * slices + s) * 2 * (plane / 4);
+    mbar_expect_tx(&bar[0], 2 * plane);
+    bulk_copy_g2s(whi, w, plane, &bar[0]);
+    bulk_copy_g2s(wlo, w + plane / 4, plane, &bar[0]);
+    mbar_arrive(&bar[0]);
+    for (int i = 0; i < WG && i < nt; ++i) issue(i);
+  }
+  for (int i = tid; i < NP_BN; i += blockDim.x)
+    sb[i] = i < ncols ? P.b[p][col0 + i] : 0.f;
+
+  const int warp = wt / 32, lane = wt % 32;
+  const int g = lane >> 2, tq = lane & 3, r = warp * 16 + g;   // rows r, r + 8
+  const int KS = (F + 7) / 8;                                   // k-steps
+  float* y = P.y[p];
+  const bool yvec = GC % 4 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  __syncthreads();                        // the mbarriers and the bias
+
+  for (int i = wg, j = 0; i < nt; i += WG, ++j) {
+    const int row0 = (t0 + i) * NP_BM;
+    mbar_wait(&bar[1 + wg], j & 1);
+    if (j == 0) mbar_wait(&bar[0], 0);
+    const float* xt = xs + wg * stage + mis;
+    auto at = [&](int row, int k) { return k < F ? xt[row * F + k] : 0.f; };
+
+    // per chunk of NP_KC k-steps: this thread's A fragments split into hi
+    // and lo (zeros past F; rows past the tile's end are never stored),
+    // then three products a k-step, lo*hi + hi*lo + hi*hi; a chunk's
+    // products run while the next chunk is split into the other set
+    float acc[64];
+    if (!NP_PRODUCTS)
+      for (int u = 0; u < 64; ++u) acc[u] = 0.f;
+    uint32_t ah[2][NP_KC][4], al[2][NP_KC][4];
+#pragma unroll
+    for (int c = 0; c < NP_KSTEPS / NP_KC; ++c) {
+      if (c * NP_KC >= KS) break;
+      const int set = c & 1;
+#pragma unroll
+      for (int kk = 0; kk < NP_KC; ++kk) {
+        const int k = (c * NP_KC + kk) * 8 + tq;
+        split_tf32(at(r, k), ah[set][kk][0], al[set][kk][0]);
+        split_tf32(at(r + 8, k), ah[set][kk][1], al[set][kk][1]);
+        split_tf32(at(r, k + 4), ah[set][kk][2], al[set][kk][2]);
+        split_tf32(at(r + 8, k + 4), ah[set][kk][3], al[set][kk][3]);
+      }
+      if ((c + 1) * NP_KC >= KS) {        // the stage is read: refill it
+        wg_sync(wg);
+        if (wt == 0 && i + WG < nt) issue(i + WG);
+      }
+      if (NP_PRODUCTS) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NP_KC; ++kk) {
+          const int ks = c * NP_KC + kk;
+          if (ks < KS) {
+            const uint64_t dh = wgmma_desc(whi + ks * NP_KSTEP_BYTES, 128, 256);
+            const uint64_t dl = wgmma_desc(wlo + ks * NP_KSTEP_BYTES, 128, 256);
+            wgmma_m64n128k8_tf32(acc, al[set][kk], dh, ks > 0);
+            wgmma_m64n128k8_tf32(acc, ah[set][kk], dl, 1);
+            wgmma_m64n128k8_tf32(acc, ah[set][kk], dh, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait1();
       }
     }
-  }
-  for (int i = threadIdx.x; i < Fp * (NP_BN / 4); i += NP_THREADS) {
-    const int f = i / (NP_BN / 4), c = (i % (NP_BN / 4)) * 4;
-    float* dst = ws + f * NP_WS + c;
-    const float* src = pr.w + (size_t)f * GC + col0 + c;
-    if (NP_MEMORY && wvec && f < F && c + 4 <= ncols) {
-      cp_async16(dst, src);
-    } else {
-      for (int u = 0; u < 4; ++u) {
-        if (NP_MEMORY && f < F && c + u < ncols) cp_async4(dst + u, src + u);
-        else dst[u] = 0.f;
+    if (NP_PRODUCTS) wgmma_wait0();
+
+    // the bias, then rows out, 16 columns (two n8 blocks) at a time: lane
+    // pairs swap halves so that the 4 lanes of a row group hold 16
+    // consecutive columns of row r, then of row r + 8, 4 a lane (64
+    // contiguous bytes of a row from each group of 4 lanes a store)
+    const bool odd = tq & 1;
+    const int n0 = 2 * tq + (odd ? 6 : 0);
+#pragma unroll
+    for (int m = 0; m < NP_BN / 16; ++m) {
+      const float* d = acc + 8 * m;       // n8 blocks 2m (d[0..3]), 2m + 1 (d[4..7])
+      const float p0 = __shfl_xor_sync(FULL, odd ? d[0] : d[4], 1);
+      const float p1 = __shfl_xor_sync(FULL, odd ? d[1] : d[5], 1);
+      const float p2 = __shfl_xor_sync(FULL, odd ? d[2] : d[6], 1);
+      const float p3 = __shfl_xor_sync(FULL, odd ? d[3] : d[7], 1);
+      const int n = 16 * m + n0;
+      const float4 b = *reinterpret_cast<const float4*>(sb + n);
+      const float v[2][4] = {
+          {odd ? p0 : d[0], odd ? p1 : d[1], odd ? d[4] : p0, odd ? d[5] : p1},
+          {odd ? p2 : d[2], odd ? p3 : d[3], odd ? d[6] : p2, odd ? d[7] : p3}};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r + 8 * h;
+        const float o[4] = {v[h][0] + b.x, v[h][1] + b.y, v[h][2] + b.z, v[h][3] + b.w};
+        float* yr = y + (size_t)row * GC + col0 + n;
+        if (!NP_MEMORY) {                 // keep the products
+          if (o[0] == 12345.f) yr[0] = o[1] + o[2] + o[3];
+        } else if (row < N && yvec && n < ncols) {
+          *reinterpret_cast<float4*>(yr) = make_float4(o[0], o[1], o[2], o[3]);
+        } else if (row < N) {
+          for (int u = 0; u < 4 && n + u < ncols; ++u) yr[u] = o[u];
+        }
       }
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wr = (warp >> 1) * (NP_BM / 2), wc = (warp & 1) * (NP_BN / 2);
-  const bool idle = wr >= nrows || wc >= ncols;   // sub-tile all padding
-  float acc[NP_MI][NP_NI][4];
-#pragma unroll
-  for (int mi = 0; mi < NP_MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NP_NI; ++ni)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[mi][ni][u] = 0.f;
-
-  for (int k0 = 0; NP_PRODUCTS && k0 < Fp && !idle; k0 += 8) {
-    uint32_t ah[NP_MI][4], al[NP_MI][4];
-#pragma unroll
-    for (int mi = 0; mi < NP_MI; ++mi) {
-      const float* xa = xs + (wr + mi * 16 + g) * NP_XS + k0 + tq;
-      split_tf32(xa[0], ah[mi][0], al[mi][0]);
-      split_tf32(xa[8 * NP_XS], ah[mi][1], al[mi][1]);
-      split_tf32(xa[4], ah[mi][2], al[mi][2]);
-      split_tf32(xa[8 * NP_XS + 4], ah[mi][3], al[mi][3]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < NP_NI; ++ni) {
-      const float* wb = ws + (k0 + tq) * NP_WS + wc + ni * 8 + g;
-      uint32_t bh[2], bl[2];
-      split_tf32(wb[0], bh[0], bl[0]);
-      split_tf32(wb[4 * NP_WS], bh[1], bl[1]);
-#pragma unroll
-      for (int mi = 0; mi < NP_MI; ++mi) {
-        mma_tf32(acc[mi][ni], al[mi], bh);
-        mma_tf32(acc[mi][ni], ah[mi], bl);
-        mma_tf32(acc[mi][ni], ah[mi], bh);
-      }
-    }
-  }
-
-  // epilogue: the tile through shared memory (in place of x), then its
-  // rows out with the bias, 16 bytes a thread where aligned
-  __syncthreads();
-  float* os = xs;
-  if (!idle) {
-#pragma unroll
-    for (int mi = 0; mi < NP_MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NP_NI; ++ni)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          os[(wr + mi * 16 + g + (u >> 1) * 8) * NP_XS + wc + ni * 8 + 2 * tq + (u & 1)] =
-              acc[mi][ni][u];
-  }
-  __syncthreads();
-  const bool yvec = GC % 4 == 0 && ((reinterpret_cast<uintptr_t>(pr.y) |
-                                     reinterpret_cast<uintptr_t>(pr.b)) & 15) == 0;
-  for (int i = threadIdx.x; i < NP_BM * (NP_BN / 4); i += NP_THREADS) {
-    const int r = i / (NP_BN / 4), c = (i % (NP_BN / 4)) * 4;
-    if (r >= nrows || c >= ncols) continue;
-    if (!NP_MEMORY && acc[0][0][0] != 12345.f) continue;   // keep the products
-    const float* o = os + r * NP_XS + c;
-    const float* b = pr.b + col0 + c;
-    float* y = pr.y + (size_t)(row0 + r) * GC + col0 + c;
-    if (yvec && c + 4 <= ncols) {
-      const float4 bb = *reinterpret_cast<const float4*>(b);
-      *reinterpret_cast<float4*>(y) =
-          make_float4(o[0] + bb.x, o[1] + bb.y, o[2] + bb.z, o[3] + bb.w);
-    } else {
-      for (int u = 0; u < 4 && c + u < ncols; ++u) y[u] = o[u] + b[u];
     }
   }
 }
@@ -532,29 +618,101 @@ __global__ void __launch_bounds__(EA_THREADS, CH == 3 && CPL <= 3 ? 1024 / EA_TH
   }
 }
 
-int launch_node_proj(const float* x_src, int Ns, int Fs, const float* x_dst,
-                     int Nd, int Fd, const float* wq, const float* bq,
-                     const float* wk, const float* bk, const float* wv,
-                     const float* bv, const float* wsk, const float* bsk,
-                     int GC, float* kn, float* vn, float* q, float* sk,
-                     cudaStream_t s) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        node_proj, cudaFuncAttributeMaxDynamicSharedMemorySize, NP_SMEM);
+// node_proj's grid at these shapes: warpgroups a block, tiles a block,
+// blocks of each product. One wave of a tile a warpgroup, on the fewest
+// warpgroups a block that fit it in one wave (so a small conv spreads over
+// as many SMs as it can: a block's warpgroups share one SM's tensor cores),
+// returning 0 in branch; else persistent blocks of the most warpgroups
+// whose stages fit in shared memory (NP_WG_MAX at the rollout's widths),
+// one wave of them, each a run of T consecutive tiles of one product and
+// slice, T the least that keeps the blocks within the wave (1 in branch).
+struct NpPlan {
+  int WG, T, blocks[4], total;
+};
+
+// blocks of WG warpgroups at these widths an SM holds (the last answer
+// for each WG kept)
+int np_per_sm(int WG, int Fs, int Fd, int* per_sm) {
+  static int smem_of[NP_WG_MAX + 1], per_sm_of[NP_WG_MAX + 1];
+  const int smem = np_smem(Fs, Fd, WG);
+  if (smem != smem_of[WG]) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm_of[WG], node_proj, WG * 128, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
+    smem_of[WG] = smem;
   }
-  ProjSet P{{{x_src, wk, bk, kn, Ns, Fs}, {x_src, wv, bv, vn, Ns, Fs},
-             {x_dst, wq, bq, q, Nd, Fd}, {x_dst, wsk, bsk, sk, Nd, Fd}},
-            {0, 0, 0, 0}, GC};
-  const int ncol = (GC + NP_BN - 1) / NP_BN;
-  int total = 0;
+  *per_sm = per_sm_of[WG] > 0 ? per_sm_of[WG] : 1;
+  return 0;
+}
+
+int np_plan(int Ns, int Nd, int Fs, int Fd, int GC, NpPlan* plan, int* branch) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(node_proj, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 NP_SMEM_MAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int slices = np_gcp(GC) / NP_BN, N[2] = {Ns, Nd};
+  int tiles[4], most = 0, all = 0;
   for (int i = 0; i < 4; ++i) {
-    P.tiles[i] = (P.p[i].N + NP_BM - 1) / NP_BM * ncol;
-    total += P.tiles[i];
+    tiles[i] = (N[i >> 1] + NP_BM - 1) / NP_BM;
+    most = tiles[i] > most ? tiles[i] : most;
+    all += slices * tiles[i];
   }
-  if (total > 0) node_proj<<<total, NP_THREADS, NP_SMEM, s>>>(P);
+  auto blocks = [&](int T) {
+    int n = 0;
+    for (int i = 0; i < 4; ++i) n += slices * ((tiles[i] + T - 1) / T);
+    return n;
+  };
+  int WG = 1, per_sm = 1, T = 0;
+  for (; WG <= NP_WG_MAX && np_smem(Fs, Fd, WG) <= NP_SMEM_MAX; ++WG) {
+    const int err = np_per_sm(WG, Fs, Fd, &per_sm);
+    if (err) return err;
+    if (blocks(WG) <= per_sm * sms) {
+      T = WG;
+      break;
+    }
+  }
+  *branch = 0;
+  if (T == 0) {                          // persistent, on the widest blocks
+    --WG;
+    const int err = np_per_sm(WG, Fs, Fd, &per_sm);
+    if (err) return err;
+    const int wave = per_sm * sms;
+    T = (all + wave - 1) / wave;
+    while (T < most && blocks(T) > wave) ++T;
+    *branch = 1;
+  }
+  *plan = {WG, T, {0, 0, 0, 0}, 0};
+  for (int i = 0; i < 4; ++i) {
+    plan->blocks[i] = slices * ((tiles[i] + T - 1) / T);
+    plan->total += plan->blocks[i];
+  }
+  return 0;
+}
+
+int launch_node_proj(const float* x_src, int Ns, int Fs, const float* x_dst,
+                     int Nd, int Fd, const uint32_t* wpack, const float* bq,
+                     const float* bk, const float* bv, const float* bsk,
+                     int GC, float* kn, float* vn, float* q, float* sk,
+                     cudaStream_t s, int* branch) {
+  int taken = -1;
+  if (branch) *branch = taken;
+  if ((reinterpret_cast<uintptr_t>(wpack) & 15) != 0) return cudaErrorMisalignedAddress;
+  NpPlan plan;
+  const int err = np_plan(Ns, Nd, Fs, Fd, GC, &plan, &taken);
+  if (err) return err;
+  if (plan.total == 0) return 0;
+  ProjSet P{{x_src, x_dst}, {Ns, Nd}, {Fs, Fd}, wpack, {bk, bv, bq, bsk},
+            {kn, vn, q, sk}, GC, plan.T,
+            {plan.blocks[0], plan.blocks[1], plan.blocks[2], plan.blocks[3]}};
+  node_proj<<<plan.total, plan.WG * 128, np_smem(Fs, Fd, plan.WG), s>>>(P);
+  if (branch) *branch = taken;
   return 0;
 }
 
@@ -614,20 +772,23 @@ const char* ggnn_error_string(int err) {
 
 // Fused conv forward: node_proj then edge_attn, two launches. kn/vn
 // [Ns, GC] and q/sk [Nd, GC] are scratch the caller allocates; out
-// [Nd, GC]. Weights in the JAX package's layout: w [F, GC], b [GC],
-// wl2 [G, C, C], bl2 [G, C], we [GC].
+// [Nd, GC]. wpack: the projections' TF32 hi and lo planes
+// (kernels/edge_stage.py pack_tf32x3, 16-byte aligned); the biases, wk and
+// wv (their position rows), wl2 [G, C, C], bl2 [G, C] and we [GC] in the
+// JAX package's layout. branch, where not null, gets node_proj's grid: 0
+// one wave, 1 persistent, -1 no launch.
 int edge_stage_forward(
     const float* x_src, int Ns, int Fs, const float* x_dst, int Nd, int Fd,
     const int* nbr, const float* elen, const float* nmask, int K,
-    const float* wq, const float* bq, const float* wk, const float* bk,
-    const float* wv, const float* bv, const float* wsk, const float* bsk,
-    const float* wl2, const float* bl2, const float* we, int G, int C,
-    float* kn, float* vn, float* q, float* sk, float* out, void* stream) {
+    const uint32_t* wpack, const float* bq, const float* bk, const float* bv,
+    const float* bsk, const float* wk, const float* wv, const float* wl2,
+    const float* bl2, const float* we, int G, int C, float* kn, float* vn,
+    float* q, float* sk, float* out, void* stream, int* branch) {
   if (!takes(Fs, Fd, G, C, K)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();   // clear any stale error
-  int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wq, bq, wk, bk, wv,
-                             bv, wsk, bsk, G * C, kn, vn, q, sk, s);
+  int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wpack, bq, bk, bv,
+                             bsk, G * C, kn, vn, q, sk, s, branch);
   if (err) return err;
   err = launch_edge_attn({x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn,
                           vn, q, sk, wk, wv, wl2, bl2, we, G, C, out}, s);
@@ -636,17 +797,18 @@ int edge_stage_forward(
 }
 
 // The node projections alone (one node_proj launch): kn = x_src wk + bk,
-// vn = x_src wv + bv, q = x_dst wq + bq, sk = x_dst wsk + bsk.
+// vn = x_src wv + bv, q = x_dst wq + bq, sk = x_dst wsk + bsk, the
+// weights as wpack holds them; branch as above.
 int edge_node_proj(
     const float* x_src, int Ns, int Fs, const float* x_dst, int Nd, int Fd,
-    const float* wq, const float* bq, const float* wk, const float* bk,
-    const float* wv, const float* bv, const float* wsk, const float* bsk,
-    int GC, float* kn, float* vn, float* q, float* sk, void* stream) {
+    const uint32_t* wpack, const float* bq, const float* bk, const float* bv,
+    const float* bsk, int GC, float* kn, float* vn, float* q, float* sk,
+    void* stream, int* branch) {
   if (!takes_proj(Fs, Fd)) return cudaErrorInvalidValue;
   cudaGetLastError();
-  const int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wq, bq, wk,
-                                   bk, wv, bv, wsk, bsk, GC, kn, vn, q, sk,
-                                   static_cast<cudaStream_t>(stream));
+  const int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wpack, bq,
+                                   bk, bv, bsk, GC, kn, vn, q, sk,
+                                   static_cast<cudaStream_t>(stream), branch);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

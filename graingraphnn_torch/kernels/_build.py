@@ -94,7 +94,8 @@ def _build(specs):
             "seconds": time.perf_counter() - t0,
             "ptxas": [ln.strip() for ln in text.splitlines()
                       if ("ptxas" in ln and ("registers" in ln
-                                             or "Compiling" in ln))
+                                             or "Compiling" in ln
+                                             or "warning" in ln))
                       or "spill stores" in ln],
         }
         if proc.returncode != 0:

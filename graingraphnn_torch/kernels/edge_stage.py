@@ -3,7 +3,9 @@
 for CUDA tensors when its caller asks for the kernels (forwards without
 autograd: the kernels have no backward, and the wrappers raise when grad
 mode is on and an input requires grad), one grouped `node_proj` launch (the four node
-projections, 3xTF32 tensor cores) then one `edge_attn` launch (a block
+projections on wgmma in 3xTF32, the weights as `pack_tf32x3` splits and
+lays them out, built once per weight version and cached per conv like
+`pack_bf16` below) then one `edge_attn` launch (a block
 per tile of destination rows and gate, the l2 product once per row on
 3xTF32 tensor cores). Its plain version is
 ops.period_conv.apply_period_conv_plain. `node_proj_cuda` and
@@ -38,12 +40,17 @@ from . import _build
 
 # kernel launches since the caller last called reset_counts(): by kernel,
 # fp32 (launches) and bf16 (bf16_launches); by (kernel, F_src, F_dst), the
-# bf16 kernels named node_proj_bf16 and edge_attn_bf16; and, for the fp32
-# edge_attn, by its ring width K
+# bf16 kernels named node_proj_bf16 and edge_attn_bf16; for the fp32
+# edge_attn, by its ring width K; and the fp32 node_proj's launches by the
+# grid its launcher chose (csrc/edge_stage.cu np_plan: one wave of a tile
+# a warpgroup, or persistent blocks), counted by launch and
+# launch_node_proj, whatever build of the source they call
 launches = {"node_proj": 0, "edge_attn": 0}
 bf16_launches = {"node_proj": 0, "edge_attn": 0}
 shape_launches: dict = {}
 ring_launches: dict = {}
+node_proj_branches = {"one_wave": 0, "persistent": 0}
+BRANCHES = tuple(node_proj_branches)      # the C entries' branch codes 0, 1
 
 SOURCE = "edge_stage"
 SOURCE_BF16 = "edge_stage_bf16"
@@ -59,13 +66,17 @@ ENTRIES = {
 }
 MAX_F, MAX_G, MAX_C, MAX_K = 128, 8, 128, 64    # limits of csrc/edge_stage.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# the fp32 entries: the TF32 pack in place of the projections' weight
+# matrices (wk and wv still go in whole: edge_attn reads their position
+# rows), and last the address of an int that gets node_proj's branch
 _ARGTYPES = (
     [_P, _I, _I] * 2                   # x_src, x_dst
     + [_P] * 3 + [_I]                  # nbr, len, mask, K
-    + [_P] * 11 + [_I] * 2             # weights, G, C
+    + [_P] * 10 + [_I] * 2             # pack, biases, wk, wv, l2, We, G, C
     + [_P] * 6                         # scratch, out, stream
+    + [_P]                             # branch
 )
-_PROJ_ARGTYPES = [_P, _I, _I] * 2 + [_P] * 8 + [_I] + [_P] * 5
+_PROJ_ARGTYPES = [_P, _I, _I] * 2 + [_P] * 5 + [_I] + [_P] * 5 + [_P]
 _ATTN_ARGTYPES = ([_P, _I, _I] * 2 + [_P] * 3 + [_I] + [_P] * 9 + [_I] * 2
                   + [_P] * 2)
 # the bf16 entries: the pack in place of the fp32 weight matrices (the
@@ -79,12 +90,13 @@ ARGTYPES = {            # edge_attn's lists match: the pack takes wk's place
     "bf16": {"conv": _BF16_ARGTYPES, "node_proj": _BF16_PROJ_ARGTYPES,
              "edge_attn": _ATTN_ARGTYPES},
 }
-PACK_COLS = 128          # the projections' column slice (NB_BN)
+PACK_COLS = 128          # the projections' column slice (NB_BN, NP_BN)
 _packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_packs_tf32x3: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def reset_counts():
-    for counts in (launches, bf16_launches):
+    for counts in (launches, bf16_launches, node_proj_branches):
         for k in counts:
             counts[k] = 0
     shape_launches.clear()
@@ -163,6 +175,22 @@ def _build_pack(conv):
     return torch.cat([proj.reshape(-1), l2.reshape(-1)])
 
 
+def _cached(cache, conv, ws, build):
+    """build(conv), cached in `cache` per conv under a key of each weight
+    of ws: its data_ptr, version and device."""
+    key = None
+    if not any(w.is_inference() for w in ws):
+        key = tuple((w.data_ptr(), w._version, str(w.device)) for w in ws)
+        hit = cache.get(conv)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+    with torch.no_grad():
+        pack = build(conv)
+    if key is not None:
+        cache[conv] = (key, pack)
+    return pack
+
+
 def pack_bf16(conv):
     """The bf16 weights of `conv` as csrc/edge_stage_bf16.cu reads them, one
     int32 tensor on the weights' device: the projections Wk and Wv (their
@@ -180,17 +208,72 @@ def pack_bf16(conv):
     (`w.copy_(v)`, as load_state_dict and the optimizers do) or assign
     a new tensor."""
     ws = (conv.key.w, conv.value.w, conv.query.w, conv.skip.w, conv.l2.w)
-    key = None
-    if not any(w.is_inference() for w in ws):
-        key = tuple((w.data_ptr(), w._version, str(w.device)) for w in ws)
-        hit = _packs.get(conv)
-        if hit is not None and hit[0] == key:
-            return hit[1]
-    with torch.no_grad():
-        pack = _build_pack(conv)
-    if key is not None:
-        _packs[conv] = (key, pack)
-    return pack
+    return _cached(_packs, conv, ws, _build_pack)
+
+
+def tf32_round(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does (to nearest, ties away
+    from zero, the 13 low mantissa bits cleared; infinities and NaNs keep
+    their exponent), as fp32."""
+    u = x.contiguous().view(torch.int32)
+    finite = (u & 0x7F800000) != 0x7F800000
+    return (torch.where(finite, u + 0x1000, u) & -0x2000).view(torch.float32)
+
+
+def split_tf32(w):
+    """(hi, lo) with hi = tf32_round(w) and lo = tf32_round(w - hi), as
+    csrc/mma_tf32.cuh's split_tf32 makes them: hi*hi + hi*lo + lo*hi keeps
+    about 2^-21 of w's products."""
+    hi = tf32_round(w)
+    return hi, tf32_round(w - hi)
+
+
+def pack_layout_tf32x3(Fs, Fd, G, C):
+    """Shape of pack_tf32x3 in fp32 values: [4 products, GCp / 128 slices,
+    2 planes (hi, lo), depth / 8 k-steps, 16 groups of 8 columns, 2 halves
+    of 4 k, 8 columns, 4 k], depth the wider F padded to 8 (csrc/
+    edge_stage.cu's np_fp, np_gcp)."""
+    GCp = (G * C + PACK_COLS - 1) // PACK_COLS * PACK_COLS
+    depth = (max(Fs, Fd) + 7) // 8 * 8
+    return (4, GCp // PACK_COLS, 2, depth // 8, 16, 2, 8, 4)
+
+
+def _tf32_planes(w, depth, cols):
+    """w [k, n] split (split_tf32) into its hi and lo planes, each as
+    wgmma's K-major TF32 B operand without swizzle, per block of 128
+    columns: [slices][2 planes][depth / 8 k-steps][16 groups of 8 columns]
+    [2 halves of 4 k][8 columns][4 k], so a k-step is 4096 contiguous bytes
+    of 8 x 4 core matrices (16 bytes a column), the two k halves 128 bytes
+    apart and the column groups 256 (the lbo and sbo of the descriptor);
+    zero past w."""
+    planes = torch.zeros((2, depth, cols), dtype=torch.float32, device=w.device)
+    hi, lo = split_tf32(w)
+    planes[0, :w.shape[0], :w.shape[1]] = hi
+    planes[1, :w.shape[0], :w.shape[1]] = lo
+    b = planes.view(2, depth // 8, 2, 4, cols // PACK_COLS, 16, 8)  # p ks h e s j r
+    return b.permute(4, 0, 1, 5, 2, 6, 3)
+
+
+def _build_pack_tf32x3(conv):
+    G, C = conv.num_gates, conv.out_channels
+    Fs, Fd = conv.key.w.shape[0], conv.query.w.shape[0]
+    _, slices, _, steps, *_ = pack_layout_tf32x3(Fs, Fd, G, C)
+    proj = torch.stack([_tf32_planes(w, 8 * steps, slices * PACK_COLS)
+                        for w in (conv.key.w, conv.value.w, conv.query.w,
+                                  conv.skip.w)])
+    return proj.reshape(-1).view(torch.int32)
+
+
+def pack_tf32x3(conv):
+    """The fp32 node_proj's weights of `conv` (csrc/edge_stage.cu), one
+    int32 tensor of fp32 bit patterns on the weights' device: Wk, Wv, Wq
+    and Wskip whole, each split once into TF32 hi and lo planes
+    (split_tf32, bit for bit the kernels' split_tf32) laid out as wgmma's B
+    operand (_tf32_planes: G*C padded to 128 columns, depth max(F) padded
+    to 8, pack_layout_tf32x3). Cached per conv as pack_bf16 is, under a
+    key of the four weights, with the same rules for rebuilding it."""
+    ws = (conv.key.w, conv.value.w, conv.query.w, conv.skip.w)
+    return _cached(_packs_tf32x3, conv, ws, _build_pack_tf32x3)
 
 
 def _check(x_src, tensors):
@@ -322,12 +405,24 @@ def _empty(n, GC, like):
 
 def _proj_args(conv, x_src, x_dst, precision):
     (Ns, Fs), (Nd, Fd) = x_src.shape, x_dst.shape
-    w = [conv.query.w, conv.query.b, conv.key.w, conv.key.b, conv.value.w,
-         conv.value.b, conv.skip.w, conv.skip.b]
-    if precision == "bf16":
-        w = [pack_bf16(conv)] + w[1::2]
+    pack = pack_bf16(conv) if precision == "bf16" else pack_tf32x3(conv)
+    w = [pack, conv.query.b, conv.key.b, conv.value.b, conv.skip.b]
     return [x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
             *[t.data_ptr() for t in w]]
+
+
+def _branch_arg(precision):
+    """(the fp32 entries' last argument, a function that counts the branch
+    it got); nothing at bf16."""
+    if precision == "bf16":
+        return [], lambda: None
+    branch = ctypes.c_int(-1)
+
+    def count():
+        if branch.value >= 0:
+            node_proj_branches[BRANCHES[branch.value]] += 1
+
+    return [ctypes.addressof(branch)], count
 
 
 def _attn_weights(conv, precision):
@@ -352,16 +447,18 @@ def launch(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C,
         w = [pack_bf16(conv), conv.query.b, conv.key.b, conv.value.b,
              conv.skip.b, conv.key.w, conv.value.w, conv.l2.b, conv.edge.w]
     else:
-        w = [conv.query.w, conv.query.b, conv.key.w, conv.key.b,
-             conv.value.w, conv.value.b, conv.skip.w, conv.skip.b,
-             conv.l2.w, conv.l2.b, conv.edge.w]
+        w = [pack_tf32x3(conv), conv.query.b, conv.key.b, conv.value.b,
+             conv.skip.b, conv.key.w, conv.value.w, conv.l2.w, conv.l2.b,
+             conv.edge.w]
+    branch, count = _branch_arg(precision)
     fn(
         x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
         nbr.data_ptr(), edge_len.data_ptr(), nbr_mask.data_ptr(), K,
         *[t.data_ptr() for t in w],
         G, C, kn.data_ptr(), vn.data_ptr(), q.data_ptr(), sk.data_ptr(),
-        out.data_ptr(), stream,
+        out.data_ptr(), stream, *branch,
     )
+    count()
     return out
 
 
@@ -371,8 +468,10 @@ def launch_node_proj(fn, stream, conv, x_src, x_dst, precision="fp32"):
     Ns, Nd = x_src.shape[0], x_dst.shape[0]
     outs = (_empty(Ns, GC, x_src), _empty(Ns, GC, x_src),
             _empty(Nd, GC, x_src), _empty(Nd, GC, x_src))
+    branch, count = _branch_arg(precision)
     fn(*_proj_args(conv, x_src, x_dst, precision), GC,
-       *[t.data_ptr() for t in outs], stream)
+       *[t.data_ptr() for t in outs], stream, *branch)
+    count()
     return outs
 
 

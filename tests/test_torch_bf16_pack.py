@@ -1,8 +1,10 @@
 """kernels/edge_stage.pack_bf16, the bf16 weights of a conv in the layouts
-of csrc/edge_stage_bf16.cu's products, on the CPU: each packed value is
-period_conv.bf16_round of its weight, at the place the kernels read it
-(zeros elsewhere); the pack is cached per conv and rebuilt exactly when a
-weight changes."""
+of csrc/edge_stage_bf16.cu's products, and pack_tf32x3, the fp32
+node_proj's TF32 hi and lo planes (csrc/edge_stage.cu), on the CPU: each
+packed value is period_conv.bf16_round of its weight, or the split of
+csrc/mma_tf32.cuh's split_tf32 (computed here another way), at the place
+the kernels read it (zeros elsewhere); each pack is cached per conv and
+rebuilt exactly when one of its weights changes."""
 
 import numpy as np
 import pytest
@@ -20,6 +22,20 @@ def _conv(Fs, Fd, G, C, seed=0):
             p.copy_(torch.from_numpy(rng.normal(0, 0.3, p.shape)
                                      .astype(np.float32)))
     return conv
+
+
+PACKS = {"bf16": edge_stage.pack_bf16, "tf32x3": edge_stage.pack_tf32x3}
+
+
+def _cases(kinds, values):
+    """Each value for each pack kind; the bf16 cases keep their ids."""
+    out = []
+    for kind in kinds:
+        for v in values:
+            vid = "-".join(map(str, v)) if isinstance(v, tuple) else str(v)
+            out.append(pytest.param(kind, *(v if isinstance(v, tuple) else (v,)),
+                                    id=vid if kind == "bf16" else f"{kind}-{vid}"))
+    return out
 
 
 def _unpack(pack, Fs, Fd, G, C):
@@ -41,15 +57,59 @@ def _unpack(pack, Fs, Fd, G, C):
     return proj, l2[..., :-8]
 
 
-@pytest.mark.parametrize("Fs,Fd,G,C", [(107, 104, 4, 96), (104, 107, 4, 96),
-                                       (11, 9, 1, 30), (19, 8, 2, 128)])
-def test_pack_holds_the_rounded_weights_in_the_kernels_layout(Fs, Fd, G, C):
-    """Projections p = Wk, Wv, Wq, Wskip: W_p[k, n] at its place among
+def _unpack_tf32x3(pack, Fs, Fd, G, C):
+    """[4, 2, GCp, depth] fp32, value (p, plane, n, k) the hi (plane 0) or
+    lo (1) part of W_p[k, n]: the core matrices put back in place."""
+    shape = edge_stage.pack_layout_tf32x3(Fs, Fd, G, C)
+    assert pack.dtype == torch.int32 and pack.shape == (int(np.prod(shape)),)
+    P, slices, planes, steps = shape[:4]
+    # [p, s, plane, ks, j, h, r, e] -> [p, plane, s, j, r, ks, h, e]
+    return (pack.view(torch.float32).view(shape)
+            .permute(0, 2, 1, 4, 6, 3, 5, 7)
+            .reshape(P, planes, slices * 128, steps * 8))
+
+
+def _tf32_ref(w):
+    """w rounded to 11 significant bits, ties away from zero, by frexp in
+    float64 (cvt.rna.tf32.f32 on finite normal values)."""
+    m, e = np.frexp(w.astype(np.float64))
+    return np.sign(m) * np.ldexp(np.floor(np.abs(m) * 2.0**11 + 0.5), e - 11)
+
+
+def _check_tf32x3(conv, Fs, Fd, G, C):
+    """Planes p = Wk, Wv, Wq, Wskip (whole: the fp32 edge kernel adds the
+    position rows per edge from the same projections): hi = tf32(w), lo =
+    tf32(w - hi) of W_p[k, n] at its place among 8 x 4 core matrices (n,
+    k), depth max(F) padded to 8, G*C padded to 128 columns."""
+    planes = _unpack_tf32x3(edge_stage.pack_tf32x3(conv), Fs, Fd, G, C)
+    for p, w in enumerate((conv.key.w, conv.value.w, conv.query.w,
+                           conv.skip.w)):
+        w = w.detach().numpy()
+        hi = _tf32_ref(w)
+        lo = _tf32_ref(w.astype(np.float64) - hi)
+        for plane, part in enumerate((hi, lo)):
+            want = torch.zeros_like(planes[p, plane])
+            want[:G * C, :w.shape[0]] = torch.from_numpy(part.T.astype(np.float32))
+            assert torch.equal(planes[p, plane], want), (p, plane)
+
+
+@pytest.mark.parametrize("kind,Fs,Fd,G,C", _cases(
+    PACKS, [(107, 104, 4, 96), (104, 107, 4, 96), (11, 9, 1, 30),
+            (19, 8, 2, 128)]))
+def test_pack_holds_the_rounded_weights_in_the_kernels_layout(kind, Fs, Fd,
+                                                              G, C):
+    """bf16: projections p = Wk, Wv, Wq, Wskip: W_p[k, n] at its place among
     8 x 8 core matrices (n, k), depth max(F) padded to 16, G*C padded to
     128 columns; Wk's and Wv's position rows 0..2 zero (x_src's lanes 0..2
     go in per edge). Wl2[g]: column n of the [C, C] block as one row of k
-    pairs, C padded to 16."""
+    pairs, C padded to 16. tf32x3: _check_tf32x3, with weights at the
+    ties of TF32 rounding among them."""
     conv = _conv(Fs, Fd, G, C, seed=Fs + C)
+    if kind == "tf32x3":
+        with torch.no_grad():
+            conv.query.w[0, :4] = torch.tensor([1 + 2**-11, -(1 + 2**-11),
+                                                3 * 2**-12, 1 + 3 * 2**-11])
+        return _check_tf32x3(conv, Fs, Fd, G, C)
     proj, l2 = _unpack(edge_stage.pack_bf16(conv), Fs, Fd, G, C)
     r = period_conv.bf16_round
     GC = G * C
@@ -64,18 +124,24 @@ def test_pack_holds_the_rounded_weights_in_the_kernels_layout(Fs, Fd, G, C):
         assert torch.equal(l2[g], want), g
 
 
-@pytest.mark.parametrize("name", ["key", "value", "query", "skip", "l2"])
-def test_pack_is_rebuilt_after_an_in_place_update(name):
+@pytest.mark.parametrize("kind,name", _cases(
+    PACKS, ["key", "value", "query", "skip", "l2"]))
+def test_pack_is_rebuilt_after_an_in_place_update(kind, name):
     """An in-place update of any packed weight (as an optimizer step makes)
-    gives a new pack holding the new values; the stale one is not used."""
+    gives a new pack holding the new values; the stale one is not used.
+    Wl2 is not in the tf32x3 pack: its update leaves that pack as it is."""
     Fs, Fd, G, C = 107, 104, 4, 96
+    pack = PACKS[kind]
     conv = _conv(Fs, Fd, G, C, seed=1)
-    before = edge_stage.pack_bf16(conv)
+    before = pack(conv)
     with torch.no_grad():
         getattr(conv, name).w.add_(0.25)
-    after = edge_stage.pack_bf16(conv)
+    after = pack(conv)
+    if kind == "tf32x3" and name == "l2":
+        assert after is before
+        return
     assert after is not before and not torch.equal(after, before)
-    assert torch.equal(after, edge_stage.pack_bf16(_clone(conv)))
+    assert torch.equal(after, pack(_clone(conv)))
 
 
 def _clone(conv):
@@ -87,39 +153,43 @@ def _clone(conv):
 
 def test_pack_is_rebuilt_for_a_replaced_weight():
     """A weight given new storage (a new parameter, or .data replaced)
-    gives a new pack."""
-    conv = _conv(19, 8, 2, 16, seed=2)
-    before = edge_stage.pack_bf16(conv)
-    conv.query.w.data = conv.query.w.data * 2
-    after = edge_stage.pack_bf16(conv)
-    assert after is not before
-    assert torch.equal(after, edge_stage.pack_bf16(_clone(conv)))
+    gives a new pack, of either kind."""
+    for pack in PACKS.values():
+        conv = _conv(19, 8, 2, 16, seed=2)
+        before = pack(conv)
+        conv.query.w.data = conv.query.w.data * 2
+        after = pack(conv)
+        assert after is not before
+        assert torch.equal(after, pack(_clone(conv)))
 
 
 def test_pack_is_not_rebuilt_for_unchanged_weights():
     """Unchanged weights give the cached pack, the same tensor, whatever
-    else changes (biases and We are not packed), and each conv has its
-    own."""
-    conv = _conv(107, 104, 4, 96, seed=3)
-    pack = edge_stage.pack_bf16(conv)
-    with torch.no_grad():
-        conv.key.b.add_(1.0)
-        conv.edge.w.add_(1.0)
-    assert edge_stage.pack_bf16(conv) is pack
-    other = _conv(107, 104, 4, 96, seed=3)
-    assert edge_stage.pack_bf16(other) is not pack
-    assert torch.equal(edge_stage.pack_bf16(other), pack)
+    else changes (biases and We are in neither pack), and each conv has its
+    own; both kinds of one conv are cached side by side."""
+    for kind, make in PACKS.items():
+        conv = _conv(107, 104, 4, 96, seed=3)
+        pack = make(conv)
+        other_kind = PACKS["tf32x3" if kind == "bf16" else "bf16"](conv)
+        with torch.no_grad():
+            conv.key.b.add_(1.0)
+            conv.edge.w.add_(1.0)
+        assert make(conv) is pack, kind
+        assert PACKS["tf32x3" if kind == "bf16" else "bf16"](conv) is other_kind
+        other = _conv(107, 104, 4, 96, seed=3)
+        assert make(other) is not pack
+        assert torch.equal(make(other), pack)
 
 
 def test_pack_of_inference_weights_is_built_at_every_call():
     """Weights made under inference mode carry no version counter, so a
     change could not be seen: their pack is never cached."""
-    with torch.inference_mode():
-        conv = _conv(11, 9, 1, 30, seed=4)
-        first = edge_stage.pack_bf16(conv)
-        second = edge_stage.pack_bf16(conv)
-    assert first is not second and torch.equal(first, second)
-
+    for make in PACKS.values():
+        with torch.inference_mode():
+            conv = _conv(11, 9, 1, 30, seed=4)
+            first = make(conv)
+            second = make(conv)
+        assert first is not second and torch.equal(first, second)
 
 
 def test_bf16_bounds_count_the_packed_weights_at_two_bytes():

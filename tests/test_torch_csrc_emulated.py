@@ -62,6 +62,7 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline thread_local std::barrier<>* emu_warp_bar = nullptr;
+inline thread_local std::barrier<>* emu_wg_bar = nullptr;   // of 128 threads
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_bar = nullptr;
 inline std::vector<int64_t>* emu_x = nullptr;
@@ -78,6 +79,8 @@ inline unsigned char* emu_dyn_smem = nullptr;
 typedef void* cudaStream_t;
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct int2 { int x, y; };
 inline int2 make_int2(int x, int y) { return {x, y}; }
 struct int4 { int x, y, z, w; };
@@ -95,6 +98,12 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+// the emulated SM holds one block of any size
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
   return cudaSuccess;
 }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
@@ -167,9 +176,11 @@ void emu_launch(F kernel, dim3 grid, dim3 block, size_t smem, A... args) {
   blockDim = block;
   for (unsigned b = 0; b < grid.x * grid.y; ++b) {
     std::barrier<> bar(block.x);
-    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars, wg_bars;
     for (unsigned w = 0; w < block.x; w += 32)
       warp_bars.emplace_back(new std::barrier<>(std::min(32u, block.x - w)));
+    for (unsigned w = 0; w < block.x; w += 128)
+      wg_bars.emplace_back(new std::barrier<>(std::min(128u, block.x - w)));
     std::vector<int64_t> x(block.x);
     std::vector<uint32_t> frag(6 * block.x);
     std::vector<double> dyn(smem / sizeof(double) + 2);
@@ -183,6 +194,7 @@ void emu_launch(F kernel, dim3 grid, dim3 block, size_t smem, A... args) {
         threadIdx = dim3(t);
         blockIdx = dim3(b % grid.x, b / grid.x);
         emu_warp_bar = warp_bars[t / 32].get();
+        emu_wg_bar = wg_bars[t / 128].get();
         kernel(args...);
       });
     for (auto& th : ts) th.join();
@@ -290,7 +302,8 @@ inline void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
 
 
 # csrc/hopper_async.cuh for the emulation. A bulk copy is a memcpy when
-# issued, its bytes counted off the mbarrier at once; an
+# issued (stopping the process where the PTX's alignment rule is broken),
+# its bytes counted off the mbarrier at once; an
 # mbarrier is a phase bit, the arrivals still due and the bytes still
 # expected (which may run below zero until announced), kept in a table
 # under one lock and keyed by its shared-memory address.
@@ -341,8 +354,14 @@ inline void mbar_wait(uint64_t* bar, unsigned parity) {
     std::this_thread::yield();
   }
 }
+// the PTX's rule: both ends 16-byte aligned, a multiple of 16 bytes
 inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
                           uint64_t* bar) {
+  if ((((uintptr_t)dst | (uintptr_t)src | bytes) & 15u) != 0) {
+    fprintf(stderr, "bulk_copy_g2s: %p <- %p, %u bytes, not 16-byte aligned\n",
+            dst, src, bytes);
+    abort();
+  }
   memcpy(dst, src, bytes);
   std::lock_guard<std::mutex> l(emu_mbar_mu);
   EmuMbar& b = emu_mbars.at(bar);
@@ -409,6 +428,57 @@ inline void wgmma_m64n128k16(float* d, const uint32_t* a, uint64_t desc,
 """
 
 
+# csrc/wgmma_tf32.cuh for the emulation, over the emulated wgmma_bf16.cuh
+# (its descriptor, fences and waits). The product reads B from the
+# descriptor's offset by the PTX's K-major layout without swizzle (element
+# (k, n) in the core matrix (n / 8, k / 4), sbo and lbo bytes apart, at
+# byte 16 (n % 8) + 4 (k % 4) of it) and A from the warpgroup's four warps'
+# fragments (each register a TF32 value's fp32 bits), exchanged through
+# memory between two barriers of the warpgroup, so a block may hold
+# several warpgroups that run apart; the named barrier of a warpgroup is
+# that barrier.
+EMU_WGMMA_TF32_H = r"""
+#pragma once
+#include "emu.h"
+#include "wgmma_bf16.cuh"
+inline void wgmma_wait1() {}
+inline void wg_sync(int) { emu_wg_bar->arrive_and_wait(); }
+inline void wgmma_m64n128k8_tf32(float* d, const uint32_t* a, uint64_t desc,
+                                 int accumulate) {
+  const int wt = threadIdx.x % 128, w0 = threadIdx.x - wt;
+  uint32_t* mine = &(*emu_frag)[6 * threadIdx.x];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  emu_wg_bar->arrive_and_wait();
+  const unsigned char* base = emu_dyn_smem + ((desc & 0x3FFFu) << 4);
+  const unsigned lbo = ((desc >> 16) & 0x3FFFu) << 4, sbo = ((desc >> 32) & 0x3FFFu) << 4;
+  auto B = [&](int k, int n) {
+    float v;
+    memcpy(&v, base + (n / 8) * sbo + (k / 4) * lbo + (n % 8) * 16 + (k % 4) * 4, 4);
+    return v;
+  };
+  auto A = [&](int row, int k) {
+    const int r = row % 16, lane = 4 * (r & 7) + (k & 3);
+    const uint32_t w = (*emu_frag)[6 * (w0 + 32 * (row / 16) + lane) + (r >= 8) + 2 * (k >= 4)];
+    float v;
+    memcpy(&v, &w, 4);
+    return v;
+  };
+  const int warp = wt / 32, lane = wt % 32;
+  const int g = lane >> 2, t = lane & 3;
+  float out[64];
+  for (int i = 0; i < 16; ++i)
+    for (int u = 0; u < 4; ++u) {
+      const int row = 16 * warp + g + 8 * (u >> 1), col = 8 * i + 2 * t + (u & 1);
+      float s = 0.f;
+      for (int k = 0; k < 8; ++k) s += A(row, k) * B(k, col);
+      out[4 * i + u] = (accumulate ? d[4 * i + u] : 0.f) + s;
+    }
+  emu_wg_bar->arrive_and_wait();
+  for (int i = 0; i < 64; ++i) d[i] = out[i];
+}
+"""
+
+
 def _translate(src: str) -> str:
     """`k<<<grid, block, smem, stream>>>(args)`, k a name or `name<args>`,
     -> `emu_launch(k, grid, block, smem, args)`; `extern __shared__ T
@@ -456,6 +526,7 @@ def emulated(tmp_path_factory):
     (d / "mma_bf16.cuh").write_text(EMU_MMA_BF16_H)
     (d / "hopper_async.cuh").write_text(EMU_ASYNC_H)
     (d / "wgmma_bf16.cuh").write_text(EMU_WGMMA_H)
+    (d / "wgmma_tf32.cuh").write_text(EMU_WGMMA_TF32_H)
     libs = {}
 
     def build(source, symbol, argtypes, defines=()):
@@ -552,20 +623,54 @@ def _random_conv(seed, Fs, Fd, G, C):
     return conv, rng
 
 
-@pytest.mark.parametrize("G,C,Ns,Nd,Fs,Fd", [
-    (4, 96, 70, 131, 107, 104),    # the rollout's widths, ragged row tiles
-    (4, 32, 1, 65, 104, 107),      # one source row
-    (1, 30, 37, 1, 19, 8),         # G*C not a multiple of 4, one dest row
+def _node_proj_case(G, C, Ns, Nd, Fs, Fd, branch, lead=0):
+    return pytest.param(G, C, Ns, Nd, Fs, Fd, branch, lead,
+                        id="-".join(map(str, (G, C, Ns, Nd, Fs, Fd)))
+                        + (f"-lead{lead}" if lead else ""))
+
+
+@pytest.mark.parametrize("G,C,Ns,Nd,Fs,Fd,branch,lead", [
+    # the rollout's widths, ragged row tiles, 2-3 tiles a block
+    _node_proj_case(4, 96, 70, 131, 107, 104, "persistent"),
+    _node_proj_case(4, 32, 1, 65, 104, 107, "one_wave"),   # one source row
+    # G*C not a multiple of 4, one dest row
+    _node_proj_case(1, 30, 37, 1, 19, 8, "one_wave"),
+    # F of 8 and 11: rows of 32 and 44 bytes; 2-3 tiles a warpgroup, so
+    # each stage is refilled and its mbarrier goes round its phases
+    _node_proj_case(4, 96, 200, 330, 8, 11, "persistent"),
+    _node_proj_case(4, 96, 330, 200, 11, 8, "persistent"),
+    _node_proj_case(2, 16, 50, 20, 11, 104, "one_wave"),
+    # one wave on blocks of two and of three warpgroups
+    _node_proj_case(4, 32, 100, 150, 107, 104, "one_wave"),
+    _node_proj_case(4, 32, 300, 290, 104, 104, "one_wave"),
+    _node_proj_case(4, 96, 300, 130, 107, 104, "persistent"),
+    # x's base 4 and 8 bytes past a 16-byte boundary
+    _node_proj_case(4, 96, 70, 131, 107, 104, "persistent", lead=1),
+    _node_proj_case(2, 16, 50, 20, 11, 104, "one_wave", lead=2),
 ])
-def test_node_proj_source_matches_plain(emulated, G, C, Ns, Nd, Fs, Fd):
+def test_node_proj_source_matches_plain(emulated, G, C, Ns, Nd, Fs, Fd,
+                                        branch, lead):
     """The grouped 3xTF32 node projections against their plain version:
-    F not a multiple of 8, N not a multiple of the 64-row tile."""
+    F not a multiple of 8 (nor of 4: rows not 16-byte aligned), N not a
+    multiple of the 64-row tile, Ns != Nd, x at any 4-byte offset; each
+    case on the grid the launcher picks for the emulated 8-SM card (one
+    wave of a tile a warpgroup, on blocks of one, two or three warpgroups,
+    or persistent blocks of three), asserted through edge_stage's branch
+    counter."""
     fn = emulated(edge_stage.SOURCE, "edge_node_proj",
                   edge_stage._PROJ_ARGTYPES)
     conv, rng = _random_conv(Ns + Nd, Fs, Fd, G, C)
-    xs = torch.from_numpy(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32))
-    xd = torch.from_numpy(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32))
+
+    def rows(n, f):
+        a = torch.from_numpy(rng.uniform(0, 1, n * f + 4).astype(np.float32))
+        return a[lead:lead + n * f].view(n, f)
+
+    xs, xd = rows(Ns, Fs), rows(Nd, Fd)
+    assert xs.data_ptr() % 16 == 4 * lead
+    edge_stage.reset_counts()
     out = edge_stage.launch_node_proj(fn, 0, conv, xs, xd)
+    assert edge_stage.node_proj_branches == {
+        b: int(b == branch) for b in edge_stage.BRANCHES}
     ref = period_conv.node_projections_plain(conv, xs, xd)
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, r, atol=1e-4, rtol=1e-4)

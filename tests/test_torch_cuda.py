@@ -41,10 +41,17 @@ def random_conv(seed, Fs, Fd, G, C, dev):
     return conv.requires_grad_(False).to(dev)
 
 
+# the decoder convs push, connect and pull of the benchmark's 64 lanes of
+# 120 um (~1040 grains and ~2080 junctions a lane), at its pull ring of 32
+BENCH_SHAPES = [(3, 66560, 133120, 107, 104), (3, 133120, 133120, 104, 104),
+                (32, 133120, 66560, 104, 107)]
+
+
 @pytest.mark.parametrize("K,Ns,Nd,Fs,Fd", [(3, 1043, 2086, 107, 104),
                                            (3, 2086, 2086, 104, 104),
                                            (16, 2086, 1043, 104, 107),
-                                           (5, 77, 131, 19, 8)])
+                                           (5, 77, 131, 19, 8)]
+                         + BENCH_SHAPES)
 def test_edge_stage_kernel_matches_plain(K, Ns, Nd, Fs, Fd):
     dev = card()
     G, C = 4, 96
@@ -106,13 +113,23 @@ def test_edge_attn_kernel_matches_plain_on_scattered_masks(K, Ns, Nd, Fs, Fd):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("Ns,Nd,Fs,Fd", [(1043, 2086, 107, 104),
-                                         (2086, 2086, 104, 104),
-                                         (2086, 1043, 104, 107),
-                                         (1, 65, 19, 8)])
-def test_node_proj_kernel_matches_plain(Ns, Nd, Fs, Fd):
+def _np_case(Ns, Nd, Fs, Fd, branch):
+    return pytest.param(Ns, Nd, Fs, Fd, branch,
+                        id="-".join(map(str, (Ns, Nd, Fs, Fd))))
+
+
+@pytest.mark.parametrize("Ns,Nd,Fs,Fd,branch", [
+    _np_case(1043, 2086, 107, 104, "one_wave"),
+    _np_case(2086, 2086, 104, 104, "one_wave"),
+    _np_case(2086, 1043, 104, 107, "one_wave"),
+    _np_case(1, 65, 19, 8, "one_wave"),
+    *[_np_case(Ns, Nd, Fs, Fd, "persistent")
+      for _, Ns, Nd, Fs, Fd in BENCH_SHAPES]])
+def test_node_proj_kernel_matches_plain(Ns, Nd, Fs, Fd, branch):
     """The grouped 3xTF32 node projections at the rollout's three conv
-    shapes (and a ragged one), one launch for all four products."""
+    shapes (and a ragged one), one wave of a tile a warpgroup, and at the
+    benchmark's 64 x 120 um shapes, persistent blocks; one launch for all
+    four products."""
     dev = card()
     G, C = 4, 96
     rng = np.random.default_rng(Ns + Fs)
@@ -120,9 +137,12 @@ def test_node_proj_kernel_matches_plain(Ns, Nd, Fs, Fd):
     xs = torch.from_numpy(rng.uniform(0, 1, (Ns, Fs)).astype(np.float32)).to(dev)
     xd = torch.from_numpy(rng.uniform(0, 1, (Nd, Fd)).astype(np.float32)).to(dev)
     before = edge_stage.launches["node_proj"]
+    branches = dict(edge_stage.node_proj_branches)
     out = edge_stage.node_proj_cuda(conv, xs, xd)
     torch.cuda.synchronize()
     assert edge_stage.launches["node_proj"] == before + 1
+    branches[branch] += 1
+    assert edge_stage.node_proj_branches == branches
     for o, r in zip(out, period_conv.node_projections_plain(conv, xs, xd)):
         torch.testing.assert_close(o, r, atol=ATOL, rtol=RTOL)
 
