@@ -62,23 +62,41 @@
 //     sum_k alpha_k (relu(pre_v_k) Wl2 + bl2 + len_k We)
 //       = (sum_k alpha_k relu(pre_v_k)) Wl2 + bl2 sum_k alpha_k + We sum_k alpha_k len_k
 //   and the l2 product runs once per destination ROW, not once per edge.
-//   Every gate is independent, so the grid is (row tiles, gates) and a
-//   block holds only its gate's Wl2[g] (C x C, <= 68 KB), staged into
-//   shared memory by cp.async while the rows are gathered. First a thread
-//   per slot of the tile writes a slot table to shared memory: the source
-//   row of a live slot (-1 where masked) and d = (shift - x_i[:3], len).
-//   Then a warp per destination row: a ballot over each 32 slots of the
-//   row's table gives the live slots (in ascending order, anywhere in the
-//   row); the K and V row slices of up to 8 live slots are all loaded
-//   before any is used,
-//   lane l owning gate columns l, l + 32, ...; the logit is q . K[j]
-//   reduced by shuffles plus d . (Wk[:3] q, We q), whose four sums are
-//   taken once per row; the softmax runs online over those chunks in
-//   registers; and the row's alpha-weighted relu(pre_v), split into TF32
-//   hi and lo parts once, sum alpha len and sum alpha go to shared memory.
-//   Masked slots cost nothing. Then the tile's rows times Wl2[g] on
-//   mma.sync m16n8k8 in 3xTF32, and the epilogue (+ bl2 sum alpha + We
-//   sum alpha len + skip) through shared memory in rows of 16-byte stores.
+//   What held the one-block-a-(tile, gate) design back (PERF.md): four
+//   blocks built each tile's slot table, each block staged its gate's Wl2
+//   for 32 rows, and each ran table, rows, product and epilogue in turn
+//   behind block barriers, at two blocks an SM. Design: a block an SM,
+//   walking row tiles of 16 (tiles b, b + blocks, ..., so the blocks at work
+//   hold neighbouring tiles, whose sources share L2) for a group of gates
+//   whose Wl2 lands once by one bulk copy (kernels/edge_stage.py pack_l2
+//   orders it as mma.sync's B fragments) and stays resident for the launch,
+//   in three warp roles on mbarrier rings (hopper_async.cuh), so that the
+//   next tiles' tables and gathers are in flight while a tile's product
+//   and epilogue run:
+//   - EA_TW table warps build each tile's slot table once for all the
+//     block's gates, EA_ST tiles ahead (the source row of a live slot, -1
+//     where masked, and d = (shift - x_i[:3], len)), and ask L2 for the
+//     tile's q and skip rows;
+//   - EA_GW gather warps, a warp a (row, gate): a ballot over each 32 slots
+//     of the row's table gives the live slots (in ascending order,
+//     anywhere in the row); q and the K and V row slices of up to CH live
+//     slots are loaded together before any is used, lane l owning gate
+//     columns l, l + 32, ...; the logit is q . K[j] plus d . (Wk[:3] q, We
+//     q), all of a chunk's sums and q's four reduced over the warp at once
+//     (warp_sums); the softmax runs online over the chunks in registers;
+//     the row's alpha-weighted relu(pre_v), sum alpha len and sum alpha go
+//     to one of EA_SA stages. Masked slots cost nothing;
+//   - EA_PW product warps multiply a stage's 16 rows by Wl2[g] on mma.sync
+//     m16n8k8 in 3xTF32 (splits of four instructions, split_tf32_finite;
+//     each k-step's products in three waves of independent ones) and store
+//     out (+ bl2 sum alpha + We sum alpha len + skip) from the
+//     accumulators.
+//   The grid follows the shapes: a conv whose (tile, gate) pairs fill at
+//   most EA_SMALL waves (one lane, halo stripes, partitioned blocks, the
+//   host engine) takes one gate a block, spread over the SMs; a larger one
+//   the widest gate group that fits (all four at the rollout's widths). A
+//   block of a single tile has all its gather and product warps gather,
+//   then multiply.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,20 +133,35 @@ static_assert(NP_KSTEPS % NP_KC == 0, "node_proj k chunks");
 constexpr bool NP_PRODUCTS = NODE_PROJ_PART != 1;
 constexpr bool NP_MEMORY = NODE_PROJ_PART != 2;
 
-// edge_attn tiling: EA_ROWS destination rows per block, EA_WARPS warps
-#ifndef EA_ROWS
-#define EA_ROWS 32
+// edge_attn: persistent blocks of EA_GW gather warps, EA_PW product warps
+// and EA_TW table warps, on row tiles of EA_R; -DEA_GW and -DEA_PW build
+// variants (scripts/torch_kernel_probe.py)
+constexpr int EA_R = 16;                  // rows of a tile: one m16 tile
+#ifndef EA_GW
+#define EA_GW 16
 #endif
-#ifndef EA_WARPS
-#define EA_WARPS 16
+#ifndef EA_PW
+#define EA_PW 8
 #endif
-constexpr int EA_R = EA_ROWS;
-constexpr int EA_THREADS = EA_WARPS * 32;
-constexpr int EA_MT = EA_R / 16;                          // m16 tiles
-constexpr int EA_WPM = EA_WARPS / EA_MT;                  // warps per m16 tile
-constexpr int EA_NT = (MAX_C / 8 + EA_WPM - 1) / EA_WPM;  // n8 tiles per warp
-static_assert(EA_R % 16 == 0 && EA_R % EA_WARPS == 0 && EA_WARPS % EA_MT == 0,
-              "edge_attn tiles");
+constexpr int EA_TW = 2;
+// EA_STAMP(i, on) marks point i of an edge_attn block where `on` holds
+// (scripts/edge_attn_phase_trace.py builds a copy of this source with it
+// defined to record the time on lane 0); in the kernels' own build it is
+// empty
+#ifndef EA_STAMP
+#define EA_STAMP(i, on)
+#endif
+constexpr int EA_THREADS = (EA_GW + EA_PW + EA_TW) * 32;
+constexpr int EA_CH = 4;                  // live slots gathered together at K > 3
+                                          // (8 spilled at 72 registers)
+constexpr int EA_NTW = 6;                 // n8 column tiles of a product unit
+constexpr int EA_SMALL = 8;               // waves of one-gate blocks a small conv fills
+constexpr int EA_TB = 4;                  // slots a table lane has in flight
+constexpr int EA_ST = 2, EA_SA = 2;       // stages of the tables and the sums
+constexpr int EA_TFULL = 0, EA_TEMPTY = EA_ST, EA_AFULL = 2 * EA_ST,
+              EA_AEMPTY = 2 * EA_ST + EA_SA, EA_WREADY = 2 * EA_ST + 2 * EA_SA,
+              EA_BARS = EA_WREADY + 1;    // the mbarriers
+constexpr int EA_SMEM_MAX = NP_SMEM_MAX;
 
 // Likewise -DEDGE_ATTN_PART=1 leaves out edge_attn's l2 product, and 2
 // everything but Wl2's staging and the product.
@@ -338,137 +371,226 @@ struct Attn {                             // edge_attn's inputs and output
   float* out;
 };
 
-// Shared memory of an edge_attn block at gate width C and K slots: Wl2[g]
-// over Cp x Cp (C padded to a multiple of 8) with row stride ea_ws, so the
-// B fragment rows k, k+1, k+2, k+3 lie 8 or 24 banks apart; the tile's
-// rows (below); sum alpha len
-// and sum alpha per row; Wk[:3] and We of the gate, zero-padded to Cp;
-// the slot table (shift - x_i[:3], len) as float4 and the source row (-1
-// where masked). The rows are kept split into
-// their TF32 hi and lo parts, each with stride Cp + 4 (A fragment rows 4
-// banks apart).
-__host__ __device__ inline int ea_cp(int C) { return (C + 7) & ~7; }
-__host__ __device__ inline int ea_ws(int Cp) { return Cp % 16 ? Cp : Cp + 8; }
-__host__ __device__ inline int ea_smem(int C, int K) {
-  const int Cp = ea_cp(C);
-  return (Cp * ea_ws(Cp) + 2 * EA_R * (Cp + 4) + 2 * EA_R + 4 * Cp + 5 * EA_R * K) *
-         (int)sizeof(float);
+// edge_attn's grid: GB gates a block, `groups` = ceil(G / GB) gate groups,
+// `tiles` row tiles; block b takes gate group b % groups and the row tiles
+// b / groups + i * (gridDim.x / groups), i = 0, 1, ... (so the blocks at
+// work at any time hold neighbouring tiles, whose sources share L2).
+struct EaGrid {
+  int GB, groups, tiles;
+};
+
+// Shared memory of an edge_attn block of GB gates at gate width C and K
+// slots, as byte offsets: the slot tables, EA_ST stages of (shift -
+// x_i[:3], len) as float4 and the source row (-1 where masked); Wl2 of the
+// block's gates in mma.sync's B fragment order, [gate][k-step][n8 tile]
+// [lane][2] over C padded to Cp, a multiple of 8 (a lane's two values
+// adjacent: one conflict-free 8-byte load a fragment); Wk[:3] and We of
+// those gates, [4][GB Cp]; the rows' alpha-weighted sums, EA_SA stages of
+// [EA_R][GB Cp + 4] (A fragment rows 4 banks apart); sum alpha len and sum
+// alpha per stage, row and gate; the mbarriers.
+struct EaLayout {
+  int GB, Cp, AS, td, tj, wl2, wq, a, ls, bar, bytes;
+};
+__host__ __device__ inline EaLayout ea_layout(int GB, int C, int K) {
+  EaLayout L;
+  L.GB = GB;
+  L.Cp = (C + 7) & ~7;
+  L.AS = GB * L.Cp + 4;
+  int o = 0;
+  L.td = o;  o += EA_ST * EA_R * K * 16;
+  L.wl2 = o; o += GB * L.Cp * L.Cp * 4;
+  L.wq = o;  o += 4 * GB * L.Cp * 4;
+  L.a = o;   o += EA_SA * EA_R * L.AS * 4;
+  L.ls = o;  o += EA_SA * EA_R * GB * 2 * 4;
+  L.tj = o;  o += EA_ST * EA_R * K * 4;
+  L.bar = (o + 7) & ~7;
+  L.bytes = L.bar + EA_BARS * 8;
+  return L;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// v[0..N-1] summed over the warp, each total in every lane, N a power of
+// two up to 32: a transposed reduction (at each step lanes keep half of
+// their values and add their partner's other half: N - 1 shuffles, then
+// 5 - log2 N to finish) and N broadcasts, against 5 N for N butterflies;
+// the shuffles of a step are independent, so they overlap.
+template <int N>
+__device__ __forceinline__ void warp_sums(float v[N]) {
+  const int lane = threadIdx.x & 31;
+  float w[N];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+  for (int i = 0; i < N; ++i) w[i] = v[i];
+  int mask = 16;
+#pragma unroll
+  for (int n = N; n > 1; n /= 2, mask /= 2) {
+    const bool up = lane & mask;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i)
+      w[i] = (up ? w[i + n / 2] : w[i]) +
+             __shfl_xor_sync(FULL, up ? w[i] : w[i + n / 2], mask);
+  }
+  for (; mask > 0; mask /= 2) w[0] += __shfl_xor_sync(FULL, w[0], mask);
+  // lane l holds the total of the index whose bits, high to low, are l's
+  // bits 4, 3, ... (one a halving step)
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    int src = 0;
+#pragma unroll
+    for (int k = 1, m = 16; k < N; k *= 2, m /= 2)
+      if (i & (N / 2 / k)) src |= m;
+    v[i] = __shfl_sync(FULL, w[0], src);
+  }
 }
 
-// EA_R destination rows and gate blockIdx.y. CPL = ceil(C / 32) columns
-// per lane; CH live slots gathered together; NSEG ballots of 32 slots
-// cover K <= 32 * NSEG. K = 3 at C <= 96 fits 64 registers, so 1024
-// threads share an SM.
-template <int CPL, int CH, int NSEG>
-__global__ void __launch_bounds__(EA_THREADS, CH == 3 && CPL <= 3 ? 1024 / EA_THREADS : 1)
-    edge_attn(Attn A) {
-  extern __shared__ __align__(16) float ea_smem_f[];
-  const int C = A.C, GC = A.G * C, g = blockIdx.y, K = A.K;
-  const int Cp = ea_cp(C), WS = ea_ws(Cp), AS = Cp + 4;
-  float* ws = ea_smem_f;                  // [Cp][WS] Wl2[g], zero-padded
-  float* as = ws + Cp * WS;               // [EA_R][AS] the product
-  uint32_t* ah_s = reinterpret_cast<uint32_t*>(as);       // [EA_R][AS] rows, hi
-  uint32_t* al_s = ah_s + EA_R * AS;                      // [EA_R][AS] rows, lo
-  float* s_len = as + 2 * EA_R * AS;      // [EA_R] sum alpha len
-  float* s_sum = s_len + EA_R;            // [EA_R] sum alpha
-  float* s_wq = s_sum + EA_R;             // [4][Cp] Wk[:3] and We of the gate
-  float4* s_d = reinterpret_cast<float4*>(s_wq + 4 * Cp);  // [EA_R * K]
-  int* s_j = reinterpret_cast<int*>(s_d + EA_R * K);       // [EA_R * K]
-  const int row0 = blockIdx.x * EA_R;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// the least power of two >= n
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
 
-  // Wl2[g] into shared memory; the copies land while the rows are gathered
-  const float* w2 = A.wl2 + (size_t)g * C * C;
-  const bool wvec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(A.wl2) & 15) == 0;
-  for (int i = tid; i < Cp * (Cp / 4); i += EA_THREADS) {
-    const int k = i / (Cp / 4), n = (i % (Cp / 4)) * 4;
-    float* dst = ws + k * WS + n;
-    const float* src = w2 + (size_t)k * C + n;
-    if (wvec && k < C && n + 4 <= C) {
-      cp_async16(dst, src);
-    } else {
-      for (int u = 0; u < 4; ++u) {
-        if (k < C && n + u < C) cp_async4(dst + u, src + u);
-        else dst[u] = 0.f;
-      }
-    }
+// This warp's arrival on bar: its lanes' shared-memory writes ordered
+// before lane 0's arrive, which releases them (one arrival a warp)
+__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// x split into TF32 hi and lo parts as split_tf32 does for a finite x
+// (cvt.rna's carry into the kept bits, without its checks for infinities
+// and NaNs, which the weights and sums never are), each part as mma.sync
+// reads it: the 13 bits below TF32, which it ignores, left as they fall.
+// Four instructions, against nine.
+__device__ __forceinline__ void split_tf32_finite(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
+}
+
+// Where a block's roles meet: its gate group, its tiles tf, tf + ts, ...
+// (nt of them), and its shared memory.
+struct EaBlock {
+  int g0, ng, tf, ts, nt;
+  unsigned char* sm;
+  EaLayout L;
+  uint64_t* bar;
+};
+
+// A table warp, tw of EA_TW: Wk[:3] and We of the block's gates once, then
+// each tile's slot table into stage i % EA_ST, a lane a slot, EA_TB slots
+// a lane in flight (their mask, length and source row, then both ends'
+// positions): the source row of a live slot and (shift - x_i[:3], len),
+// with which x_j' Wk = K[j] + d Wk[:3].
+__device__ __forceinline__ void ea_table(const Attn& A, const EaBlock& B, int tw, int lane) {
+  const int C = A.C, GC = A.G * C, K = A.K, Cp = B.L.Cp, W = B.L.GB * Cp;
+  float* s_wq = reinterpret_cast<float*>(B.sm + B.L.wq);
+  for (int e = tw * 32 + lane; e < 4 * W; e += EA_TW * 32) {
+    const int d = e / W, gl = (e % W) / Cp, c = e % Cp, g = B.g0 + gl;
+    if (gl >= B.ng || c >= C)
+      s_wq[e] = 0.f;
+    else
+      cp_async4(s_wq + e, d < 3 ? A.wk + (size_t)d * GC + g * C + c : A.we + g * C + c);
   }
-
-  // the tile's slot table, a thread per slot: the source row of a live
-  // slot and (shift - x_i[:3], len), with which x_j' Wk = K[j] + d Wk[:3]
-  for (int e = tid; EA_GATHER && e < EA_R * K; e += EA_THREADS) {
-    const int i = row0 + e / K;
-    const size_t at = (size_t)row0 * K + e;
-    int j = -1;
-    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < A.Nd) {
-      const float m = A.nmask[at], len = A.elen[at];
-      const int jj = A.nbr[at];
-      if (m > 0.f) {
-        j = jj < 0 || jj >= A.Ns ? 0 : jj;
+  for (int i = 0; i < B.nt; ++i) {
+    const int s = i % EA_ST;
+    if (i >= EA_ST) mbar_wait(&B.bar[EA_TEMPTY + s], (i / EA_ST - 1) & 1);
+    const int row0 = (B.tf + i * B.ts) * EA_R;
+    const size_t at0 = (size_t)row0 * K;
+    float4* sd = reinterpret_cast<float4*>(B.sm + B.L.td) + s * EA_R * K;
+    int* sj = reinterpret_cast<int*>(B.sm + B.L.tj) + s * EA_R * K;
+    for (int e0 = tw * 32 * EA_TB; EA_GATHER && e0 < EA_R * K; e0 += EA_TW * 32 * EA_TB) {
+      int j[EA_TB];
+      float m[EA_TB], len[EA_TB];
+#pragma unroll
+      for (int b = 0; b < EA_TB; ++b) {
+        const int e = e0 + 32 * b + lane;
+        const bool ok = e < EA_R * K && row0 + e / K < A.Nd;
+        m[b] = ok ? A.nmask[at0 + e] : 0.f;
+        len[b] = ok ? A.elen[at0 + e] : 0.f;
+        j[b] = ok ? A.nbr[at0 + e] : 0;
+      }
+      float xs[EA_TB][3], xd[EA_TB][3];
+#pragma unroll
+      for (int b = 0; b < EA_TB; ++b) {
+        const int e = e0 + 32 * b + lane, r = row0 + e / K;
+        j[b] = m[b] > 0.f ? (j[b] < 0 || j[b] >= A.Ns ? 0 : j[b]) : -1;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          xs[b][c] = j[b] >= 0 ? A.x_src[(size_t)j[b] * A.Fs + c] : 0.f;
+          xd[b][c] = j[b] >= 0 ? A.x_dst[(size_t)r * A.Fd + c] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < EA_TB; ++b) {
+        const int e = e0 + 32 * b + lane;
+        if (e >= EA_R * K) break;
         float dd[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const float xi = A.x_dst[(size_t)i * A.Fd + c];
-          const float rel = A.x_src[(size_t)j * A.Fs + c] - xi;
-          dd[c] = (rel < -0.5f ? 1.f : 0.f) - (rel > 0.5f ? 1.f : 0.f) - xi;
+          const float rel = xs[b][c] - xd[b][c];
+          dd[c] = (rel < -0.5f ? 1.f : 0.f) - (rel > 0.5f ? 1.f : 0.f) - xd[b][c];
         }
-        d = make_float4(dd[0], dd[1], dd[2], len);
+        sj[e] = j[b];
+        sd[e] = j[b] >= 0 ? make_float4(dd[0], dd[1], dd[2], len[b])
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
-    s_j[e] = j;
-    s_d[e] = d;
+    // the tile's q and skip rows into L2 (0-4 % off the benchmark's K = 3
+    // convs, PERF.md)
+    const int lines = (B.ng * C * 4 + 127) / 128 + 1, rows = min(EA_R, A.Nd - row0);
+    for (int e = tw * 32 + lane; e < 2 * rows * lines; e += EA_TW * 32) {
+      const int r = (e / lines) % rows, l = e % lines;
+      const float* base = (e < rows * lines ? A.q : A.sk) + (size_t)(row0 + r) * GC + B.g0 * C;
+      prefetch_l2(reinterpret_cast<const char*>(base) + min(128 * l, B.ng * C * 4 - 4));
+    }
+    if (i == 0) cp_async_wait_all();     // Wk[:3] and We landed
+    EA_STAMP(1, tw == 0 && i == 0);
+    warp_arrive(&B.bar[EA_TFULL + s], lane);
   }
-  for (int e = tid; e < 4 * Cp; e += EA_THREADS) {
-    const int d = e / Cp, c = e % Cp;
-    s_wq[e] = c >= C ? 0.f : d < 3 ? A.wk[(size_t)d * GC + g * C + c] : A.we[g * C + c];
-  }
+}
 
-  // Wv[:3] at this lane's gate columns c = lane + 32 u
-  float wv0[CPL], wv1[CPL], wv2[CPL];
-#pragma unroll
-  for (int u = 0; u < CPL; ++u) {
-    const int c = lane + 32 * u, col = g * C + c;
-    const bool ok = c < C;
-    wv0[u] = ok ? A.wv[col] : 0.f;
-    wv1[u] = ok ? A.wv[GC + col] : 0.f;
-    wv2[u] = ok ? A.wv[2 * GC + col] : 0.f;
-  }
+// Worker w of nw's items of a tile, (row, gate) pairs w, w + nw, ... over
+// the tile's rows and the block's gates; a warp an item over its live
+// slots only, the sums into stage sa. CPL = ceil(C / 32) columns a lane
+// (lane l owns l, l + 32, ...); CH live slots gathered together; NSEG
+// ballots of 32 slots cover K <= 32 NSEG. The logit of slot k is (q . K[j]
+// + d_k . (Wk[:3] q, We q)) / sqrt(C): the four sums over q are taken once
+// an item, reduced with its first chunk's dot products, after those
+// gathers are issued, so that q and those rows are fetched together; all
+// of a chunk's sums are reduced over the warp at once. One item at a time:
+// two a warp spilled at 72 registers and lost (PERF.md).
+template <int CPL, int CH, int NSEG>
+__device__ __forceinline__ void ea_items(const Attn& A, const EaBlock& B, int s, int sa,
+                                         int row0, int w, int nw, int lane,
+                                         float (&wv)[3][CPL], int& gate) {
+  const int C = A.C, GC = A.G * C, K = A.K, Cp = B.L.Cp, GB = B.L.GB;
+  const float* s_wq = reinterpret_cast<const float*>(B.sm + B.L.wq);
   const float inv_sqrt_c = 1.f / sqrtf((float)C);
-  __syncthreads();
-
-  // a warp per destination row, over its live slots only. The logit of
-  // slot k is (q . K[j] + d_k . (Wk[:3] q, We q)) / sqrt(C), d_k = (shift
-  // - x_i[:3], len): the four sums over q are taken once per row.
-  for (int r = warp; EA_GATHER && r < EA_R; r += EA_WARPS) {
-    const int i = row0 + r;
-    const int* sj = s_j + r * K;
-    const float4* sd = s_d + r * K;
-    float qv[CPL], a[CPL], qw[4] = {0.f, 0.f, 0.f, 0.f};
+  constexpr int NR = pow2_at_least(CH + 4);        // sums reduced together
+  for (int it = w; EA_GATHER && it < EA_R * B.ng; it += nw) {
+    const int r = it / B.ng, gl = it % B.ng, g = B.g0 + gl, row = row0 + r;
+    if (g != gate) {
+      gate = g;
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) {
+        const int c = lane + 32 * u, col = g * C + c;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) wv[d][u] = c < C ? A.wv[(size_t)d * GC + col] : 0.f;
+      }
+    }
+    const int* sj = reinterpret_cast<const int*>(B.sm + B.L.tj) + (s * EA_R + r) * K;
+    const float4* sd = reinterpret_cast<const float4*>(B.sm + B.L.td) + (s * EA_R + r) * K;
+    float qv[CPL], a[CPL], qw[4];
 #pragma unroll
     for (int u = 0; u < CPL; ++u) {
       const int c = lane + 32 * u;
-      qv[u] = i < A.Nd && c < C ? A.q[(size_t)i * GC + g * C + c] : 0.f;
+      qv[u] = row < A.Nd && c < C ? A.q[(size_t)row * GC + g * C + c] : 0.f;
       a[u] = 0.f;
-      if (c < Cp)
-#pragma unroll
-        for (int d = 0; d < 4; ++d) qw[d] += qv[u] * s_wq[d * Cp + c];
     }
-#pragma unroll
-    for (int d = 0; d < 4; ++d) qw[d] = warp_sum(qw[d]);
+    bool have_qw = false;
 
     // online softmax over chunks of CH live slots, in ascending slot order:
     // slots s0 .. s0 + 31 of each ballot, the state carried across ballots
     float mx = NEG, den = 0.f, sl = 0.f;
     for (int s0 = 0; s0 < 32 * NSEG; s0 += 32) {
-      const unsigned live = __ballot_sync(FULL, s0 + lane < K && sj[s0 + lane] >= 0);
-      for (unsigned rem = live; rem;) {
+      unsigned rem = __ballot_sync(FULL, s0 + lane < K && sj[s0 + lane] >= 0);
+      while (rem) {                       // the same for the whole warp
         int ks[CH];
         bool on[CH];
 #pragma unroll
@@ -491,22 +613,41 @@ __global__ void __launch_bounds__(EA_THREADS, CH == 3 && CPL <= 3 ? 1024 / EA_TH
             }
           }
         }
-        float lg[CH], lc[CH], cm = NEG;
+        // each slot's q . K[j] and, on the first chunk, q's four sums with
+        // Wk[:3] and We, reduced over the warp together
+        float red[NR];
 #pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          lg[c] = NEG;
-          lc[c] = 0.f;
-          if (!on[c]) continue;               // the same for the whole warp
-          const float4 d = sd[ks[c]];
-          float part = 0.f;
+        for (int v = 0; v < NR; ++v) red[v] = 0.f;
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+#pragma unroll
+          for (int u = 0; u < CPL; ++u) red[c] += qv[u] * kv[c][u];
+        if (!have_qw) {
 #pragma unroll
           for (int u = 0; u < CPL; ++u) {
-            part += qv[u] * kv[c][u];
-            vv[c][u] = fmaxf(vv[c][u] + d.x * wv0[u] + d.y * wv1[u] + d.z * wv2[u], 0.f);
+            const int c = lane + 32 * u;
+            if (c >= Cp) continue;
+#pragma unroll
+            for (int d = 0; d < 4; ++d) red[CH + d] += qv[u] * s_wq[(d * GB + gl) * Cp + c];
           }
-          lg[c] = (warp_sum(part) + d.x * qw[0] + d.y * qw[1] + d.z * qw[2] + d.w * qw[3])
-              * inv_sqrt_c;
-          lc[c] = d.w;
+        }
+        warp_sums<NR>(red);
+        if (!have_qw) {
+          have_qw = true;
+#pragma unroll
+          for (int d = 0; d < 4; ++d) qw[d] = red[CH + d];
+        }
+        float lg[CH], ln[CH], cm = NEG;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          const float4 d = sd[ks[c]];
+#pragma unroll
+          for (int u = 0; u < CPL; ++u)
+            vv[c][u] = fmaxf(vv[c][u] + d.x * wv[0][u] + d.y * wv[1][u] + d.z * wv[2][u], 0.f);
+          lg[c] = on[c] ? (red[c] + d.x * qw[0] + d.y * qw[1] + d.z * qw[2] + d.w * qw[3]) *
+                              inv_sqrt_c
+                        : NEG;
+          ln[c] = d.w;
           cm = fmaxf(cm, lg[c]);
         }
         const float mnew = fmaxf(mx, cm), scale = expf(mx - mnew);
@@ -519,7 +660,7 @@ __global__ void __launch_bounds__(EA_THREADS, CH == 3 && CPL <= 3 ? 1024 / EA_TH
           if (!on[c]) continue;
           const float e = expf(lg[c] - mnew);
           den += e;
-          sl += e * lc[c];
+          sl += e * ln[c];
 #pragma unroll
           for (int u = 0; u < CPL; ++u) a[u] += e * vv[c][u];
         }
@@ -527,94 +668,211 @@ __global__ void __launch_bounds__(EA_THREADS, CH == 3 && CPL <= 3 ? 1024 / EA_TH
       }
     }
 
-    // the row's sum alpha relu(pre_v) (zero past C, and on a row with no
-    // live slot, whose output is its skip), split once for the product;
-    // sum alpha len and sum alpha
+    // the item's sum alpha relu(pre_v) (zero past C, and on a row with no
+    // live slot, whose output is its skip), sum alpha len and sum alpha
+    float* ar = reinterpret_cast<float*>(B.sm + B.L.a) + (sa * EA_R + r) * B.L.AS + gl * Cp;
 #pragma unroll
     for (int u = 0; u < CPL; ++u) {
-      const int cc = lane + 32 * u;
-      uint32_t hi, lo;
-      split_tf32(den > 0.f ? a[u] / den : 0.f, hi, lo);
-      if (cc < Cp) {
-        ah_s[r * AS + cc] = hi;
-        al_s[r * AS + cc] = lo;
-      }
+      const int c = lane + 32 * u;
+      if (c < Cp) ar[c] = den > 0.f ? a[u] / den : 0.f;
     }
     if (lane == 0) {
-      s_len[r] = den > 0.f ? sl / den : 0.f;
-      s_sum[r] = den > 0.f ? 1.f : 0.f;
+      float* ls = reinterpret_cast<float*>(B.sm + B.L.ls) + ((sa * EA_R + r) * GB + gl) * 2;
+      ls[0] = den > 0.f ? sl / den : 0.f;
+      ls[1] = den > 0.f ? 1.f : 0.f;
     }
   }
-  if (!EA_GATHER) {
-    for (int i = tid; i < EA_R * (2 * AS + 2); i += EA_THREADS) as[i] = 0.f;
-  }
-  cp_async_wait_all();
-  __syncthreads();
+}
 
-  // the tile's rows times Wl2[g] in 3xTF32: warp w takes m16 tile
-  // w % EA_MT and its n8 column tiles w / EA_MT + EA_WPM t
-  const int gr = lane >> 2, tq = lane & 3, n8 = Cp / 8;
-  const int mt = warp % EA_MT, wn = warp / EA_MT;
-  float acc[EA_NT][4];
-#pragma unroll
-  for (int t = 0; t < EA_NT; ++t)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[t][u] = 0.f;
-  for (int k0 = 0; EA_PRODUCT && wn < n8 && k0 < Cp; k0 += 8) {
-    const int at = (mt * 16 + gr) * AS + k0 + tq;
-    const uint32_t ah[4] = {ah_s[at], ah_s[at + 8 * AS], ah_s[at + 4], ah_s[at + 8 * AS + 4]};
-    const uint32_t al[4] = {al_s[at], al_s[at + 8 * AS], al_s[at + 4], al_s[at + 8 * AS + 4]};
-#pragma unroll
-    for (int t = 0; t < EA_NT; ++t) {
-      const int nt = wn + t * EA_WPM;
-      if (nt >= n8) break;
-      const float* wb = ws + (k0 + tq) * WS + nt * 8 + gr;
-      uint32_t bh[2], bl[2];
-      split_tf32(wb[0], bh[0], bl[0]);
-      split_tf32(wb[4 * WS], bh[1], bl[1]);
-      mma_tf32(acc[t], al, bh);
-      mma_tf32(acc[t], ah, bl);
-      mma_tf32(acc[t], ah, bh);
-    }
-  }
-  __syncthreads();                        // every warp has read the rows
-  if (EA_PRODUCT) {
-#pragma unroll
-    for (int t = 0; t < EA_NT; ++t) {
-      const int nt = wn + t * EA_WPM;
-      if (nt >= n8) break;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        as[(mt * 16 + gr + (u >> 1) * 8) * AS + nt * 8 + 2 * tq + (u & 1)] = acc[t][u];
-    }
-  }
-  __syncthreads();
+// Gather worker w of nw on tile i of the block: its items (ea_items).
+template <int CPL, int CH, int NSEG>
+__device__ __forceinline__ void ea_gather(const Attn& A, const EaBlock& B, int i, int w,
+                                          int nw, int lane, float (&wv)[3][CPL], int& gate) {
+  const int s = i % EA_ST, sa = i % EA_SA;
+  mbar_wait(&B.bar[EA_TFULL + s], (i / EA_ST) & 1);
+  if (i >= EA_SA) mbar_wait(&B.bar[EA_AEMPTY + sa], (i / EA_SA - 1) & 1);
+  const int row0 = (B.tf + i * B.ts) * EA_R;
+  ea_items<CPL, CH, NSEG>(A, B, s, sa, row0, w, nw, lane, wv, gate);
+  EA_STAMP(5, w == 0 && i == 0);
+  if (w < EA_GW) warp_arrive(&B.bar[EA_TEMPTY + s], lane);
+  warp_arrive(&B.bar[EA_AFULL + sa], lane);
+}
 
-  // out = product + bl2 sum alpha + We sum alpha len + skip, in rows of
-  // 16-byte stores where aligned
-  const int nrows = min(EA_R, A.Nd - row0), cq = (C + 3) / 4;
+// NT n8 column tiles n0, n0 + 1, ... of gate gl (of the block's) for a
+// stage's 16 rows: the rows times Wl2[g] on mma.sync m16n8k8 in 3xTF32
+// (each A and B fragment split into TF32 hi and lo as it is loaded; a
+// k-step's B fragments first, then its products in three waves of NT
+// independent ones: each mma_tf32 is its own asm statement, issued in
+// program order), then out = product + bl2 sum alpha + We sum alpha len +
+// skip, straight from the accumulators (two adjacent columns a lane, 32
+// contiguous bytes of a row from each group of 4 lanes).
+template <int CPL, int NT>
+__device__ __forceinline__ void ea_unit(const Attn& A, const EaBlock& B, const float* at,
+                                        const float* ls, int row0, int gl, int n0,
+                                        int lane, bool vec) {
+  const int C = A.C, GC = A.G * C, Cp = B.L.Cp, KS = Cp / 8, GB = B.L.GB, AS = B.L.AS;
+  const int gr = lane >> 2, tq = lane & 3, g = B.g0 + gl;
+  const float2* wb0 = reinterpret_cast<const float2*>(B.sm + B.L.wl2) +
+                      (gl * KS * KS + n0) * 32 + lane;
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[t][v] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 4 * CPL; ++ks) {          // Cp <= 32 CPL
+    if (!EA_PRODUCT || ks >= KS) break;
+    const float* ar = at + gr * AS + gl * Cp + ks * 8 + tq;
+    uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+    split_tf32_finite(ar[0], ah[0], al[0]);
+    split_tf32_finite(ar[8 * AS], ah[1], al[1]);
+    split_tf32_finite(ar[4], ah[2], al[2]);
+    split_tf32_finite(ar[8 * AS + 4], ah[3], al[3]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float2 b = wb0[(ks * KS + t) * 32];
+      split_tf32_finite(b.x, bh[t][0], bl[t][0]);
+      split_tf32_finite(b.y, bh[t][1], bl[t][1]);
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) mma_tf32(acc[t], al, bh[t]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) mma_tf32(acc[t], ah, bl[t]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) mma_tf32(acc[t], ah, bh[t]);
+  }
   const float* b2 = A.bl2 + g * C;
-  const float* wg = A.we + g * C;
-  const bool vec = C % 4 == 0 &&
-      ((reinterpret_cast<uintptr_t>(A.out) | reinterpret_cast<uintptr_t>(A.sk) |
-        reinterpret_cast<uintptr_t>(A.bl2) | reinterpret_cast<uintptr_t>(A.we)) & 15) == 0;
-  for (int i = tid; i < nrows * cq; i += EA_THREADS) {
-    if (!EA_GATHER && acc[0][0] != 12345.f) continue;   // keep the products
-    const int r = i / cq, c = (i % cq) * 4;
-    const float* o = as + r * AS + c;
-    const float sl = s_len[r], sa = s_sum[r];
-    const size_t at = (size_t)(row0 + r) * GC + g * C + c;
-    if (vec) {
-      const float4 s = *reinterpret_cast<const float4*>(A.sk + at);
-      const float4 b = *reinterpret_cast<const float4*>(b2 + c);
-      const float4 e = *reinterpret_cast<const float4*>(wg + c);
-      *reinterpret_cast<float4*>(A.out + at) = make_float4(
-          o[0] + b.x * sa + e.x * sl + s.x, o[1] + b.y * sa + e.y * sl + s.y,
-          o[2] + b.z * sa + e.z * sl + s.z, o[3] + b.w * sa + e.w * sl + s.w);
-    } else {
-      for (int u = 0; u < 4 && c + u < C; ++u)
-        A.out[at + u] = o[u] + b2[c + u] * sa + wg[c + u] * sl + A.sk[at + u];
+  const float* e2 = A.we + g * C;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = gr + 8 * h, row = row0 + r;
+    if (row >= A.Nd) continue;
+    const float sl = ls[(r * GB + gl) * 2], sum = ls[(r * GB + gl) * 2 + 1];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int c = (n0 + t) * 8 + 2 * tq;
+      const size_t o = (size_t)row * GC + g * C + c;
+      const float v0 = acc[t][2 * h], v1 = acc[t][2 * h + 1];
+      if (!EA_GATHER) {                   // keep the products
+        if (v0 == 12345.f) A.out[o] = v1;
+      } else if (vec && c + 2 <= C) {
+        const float2 s2 = *reinterpret_cast<const float2*>(A.sk + o);
+        const float2 bb = *reinterpret_cast<const float2*>(b2 + c);
+        const float2 ee = *reinterpret_cast<const float2*>(e2 + c);
+        *reinterpret_cast<float2*>(A.out + o) =
+            make_float2(v0 + bb.x * sum + ee.x * sl + s2.x,
+                        v1 + bb.y * sum + ee.y * sl + s2.y);
+      } else {
+        if (c < C) A.out[o] = v0 + b2[c] * sum + e2[c] * sl + A.sk[o];
+        if (c + 1 < C) A.out[o + 1] = v1 + b2[c + 1] * sum + e2[c + 1] * sl + A.sk[o + 1];
+      }
     }
+  }
+}
+
+// Product worker p of np's units of NT n8 column tiles of one gate, units
+// p, p + np, ... (a gate's last unit may be narrower: it goes a tile at a
+// time).
+template <int CPL, int NT>
+__device__ __forceinline__ void ea_units(const Attn& A, const EaBlock& B, const float* at,
+                                         const float* ls, int row0, int p, int np, int lane,
+                                         bool vec) {
+  const int KS = B.L.Cp / 8, nch = (KS + NT - 1) / NT;
+  for (int u = p; u < B.ng * nch; u += np) {
+    const int gl = u / nch, n0 = (u % nch) * NT;
+    if (n0 + NT <= KS) {
+      ea_unit<CPL, NT>(A, B, at, ls, row0, gl, n0, lane, vec);
+    } else {
+      for (int n = n0; n < KS; ++n) ea_unit<CPL, 1>(A, B, at, ls, row0, gl, n, lane, vec);
+    }
+  }
+}
+
+// Product worker p of np on tile i of the block: once its sums (and, the
+// first time, the block's gates of Wl2) are in, its units (ea_units), as
+// narrow as leave no worker with two (a small conv's few gates), else
+// EA_NTW n8 tiles wide.
+template <int CPL>
+__device__ __forceinline__ void ea_product(const Attn& A, const EaBlock& B, int i, int p,
+                                           int np, int lane) {
+  const int C = A.C, KS = B.L.Cp / 8, GB = B.L.GB, AS = B.L.AS, sa = i % EA_SA;
+  const bool vec = C % 2 == 0 &&
+      ((reinterpret_cast<uintptr_t>(A.out) | reinterpret_cast<uintptr_t>(A.sk) |
+        reinterpret_cast<uintptr_t>(A.bl2) | reinterpret_cast<uintptr_t>(A.we)) & 7) == 0;
+  if (i == 0) {
+    mbar_wait(&B.bar[EA_WREADY], 0);
+    EA_STAMP(2, p == EA_GW % np);
+  }
+  mbar_wait(&B.bar[EA_AFULL + sa], (i / EA_SA) & 1);
+  EA_STAMP(3, p == EA_GW % np && i == 0);
+  const int row0 = (B.tf + i * B.ts) * EA_R;
+  const float* at = reinterpret_cast<const float*>(B.sm + B.L.a) + sa * EA_R * AS;
+  const float* ls = reinterpret_cast<const float*>(B.sm + B.L.ls) + sa * EA_R * GB * 2;
+  if (B.ng * KS <= np)
+    ea_units<CPL, 1>(A, B, at, ls, row0, p, np, lane, vec);
+  else if (B.ng * ((KS + 1) / 2) <= np)
+    ea_units<CPL, 2>(A, B, at, ls, row0, p, np, lane, vec);
+  else if (B.ng * ((KS + 3) / 4) <= np)
+    ea_units<CPL, 4>(A, B, at, ls, row0, p, np, lane, vec);
+  else
+    ea_units<CPL, EA_NTW>(A, B, at, ls, row0, p, np, lane, vec);
+  EA_STAMP(4, p == EA_GW % np && i == 0);
+  EA_STAMP(6, p == EA_GW % np && i == B.nt - 1);
+  warp_arrive(&B.bar[EA_AEMPTY + sa], lane);
+}
+
+// Persistent blocks of EA_GW gather warps, EA_PW product warps and EA_TW
+// table warps (csrc note above); the grid and gate groups as EaGrid says.
+template <int CPL, int CH, int NSEG>
+__global__ void __launch_bounds__(EA_THREADS, 1) edge_attn(Attn A, EaGrid P) {
+  extern __shared__ __align__(16) float ea_smem_f[];
+  EaBlock B;
+  B.sm = reinterpret_cast<unsigned char*>(ea_smem_f);
+  B.L = ea_layout(P.GB, A.C, A.K);
+  B.bar = reinterpret_cast<uint64_t*>(B.sm + B.L.bar);
+  const int grp = blockIdx.x % P.groups, per = gridDim.x / P.groups;
+  B.g0 = grp * P.GB;
+  B.ng = min(P.GB, A.G - B.g0);
+  const int t0 = blockIdx.x / P.groups;
+  B.tf = t0;
+  B.ts = per;
+  B.nt = (P.tiles - t0 + per - 1) / per;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool lone = B.nt == 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < EA_ST; ++s) {
+      mbar_init(&B.bar[EA_TFULL + s], EA_TW);
+      mbar_init(&B.bar[EA_TEMPTY + s], EA_GW);
+    }
+    for (int s = 0; s < EA_SA; ++s) {
+      mbar_init(&B.bar[EA_AFULL + s], lone ? EA_GW + EA_PW : EA_GW);
+      mbar_init(&B.bar[EA_AEMPTY + s], lone ? EA_GW + EA_PW : EA_PW);
+    }
+    mbar_init(&B.bar[EA_WREADY], 1);
+    mbar_fence_init();
+    // the block's gates of the Wl2 pack, one bulk copy
+    const unsigned bytes = B.ng * B.L.Cp * B.L.Cp * 4;
+    mbar_expect_tx(&B.bar[EA_WREADY], bytes);
+    bulk_copy_g2s(B.sm + B.L.wl2, A.wl2 + (size_t)B.g0 * B.L.Cp * B.L.Cp, bytes,
+                  &B.bar[EA_WREADY]);
+    mbar_arrive(&B.bar[EA_WREADY]);
+  }
+  __syncthreads();
+  EA_STAMP(0, threadIdx.x < 32);
+  if (warp < EA_GW + EA_PW) {
+    // each warp its role, tile after tile; a block of a single tile has
+    // every gather and product warp gather, then multiply
+    const int nw = lone ? EA_GW + EA_PW : EA_GW, np = lone ? nw : EA_PW;
+    if (warp < EA_GW || lone) {
+      float wv[3][CPL];                   // Wv[:3] at the lane's columns
+      int gate = -1;
+      for (int i = 0; i < B.nt; ++i) ea_gather<CPL, CH, NSEG>(A, B, i, warp, nw, lane, wv, gate);
+    }
+    if (warp >= EA_GW || lone) {
+      for (int i = 0; i < B.nt; ++i) ea_product<CPL>(A, B, i, lone ? warp : warp - EA_GW, np, lane);
+    }
+  } else {
+    ea_table(A, B, warp - EA_GW - EA_PW, lane);
   }
 }
 
@@ -716,39 +974,72 @@ int launch_node_proj(const float* x_src, int Ns, int Fs, const float* x_dst,
   return 0;
 }
 
-template <int CPL, int CH, int NSEG>
-int launch_attn(const Attn& A, cudaStream_t s) {
-  // the attribute covers the widest C of this CPL at the largest K any call
-  // has asked for (16 at least), and is raised when a call asks for more
-  static int k_set = 0;
-  if (A.K > k_set) {
-    const int k = A.K > 16 ? A.K : 16;
-    const cudaError_t err = cudaFuncSetAttribute(
-        edge_attn<CPL, CH, NSEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        ea_smem(32 * CPL, k));
+// edge_attn's grid at these shapes (EaGrid), its blocks and branch. A
+// small conv, whose (tile, gate) pairs fill at most EA_SMALL waves of
+// blocks, takes one gate a block, so that it spreads over the SMs and
+// each block stages one gate of Wl2; a larger one takes the widest gate
+// group whose block fits in shared memory (all G at the rollout's widths),
+// so that each slot table serves every gate. A block an SM; branch 0 when
+// every block has one (tile, gate group), one wave, else 1, persistent.
+int ea_plan(const Attn& A, EaGrid* P, int* blocks, int* branch) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    k_set = k;
   }
-  edge_attn<CPL, CH, NSEG><<<dim3((A.Nd + EA_R - 1) / EA_R, A.G), EA_THREADS,
-                              ea_smem(A.C, A.K), s>>>(A);
+  const int tiles = (A.Nd + EA_R - 1) / EA_R;
+  int gb = A.G;
+  while (gb > 0 && ea_layout(gb, A.C, A.K).bytes > EA_SMEM_MAX) --gb;
+  if (gb == 0) return cudaErrorInvalidValue;
+  if (tiles * A.G <= EA_SMALL * sms) gb = 1;
+  const int groups = (A.G + gb - 1) / gb, units = tiles * groups;
+  *P = {(A.G + groups - 1) / groups, groups, tiles};
+  *blocks = units <= sms ? units : sms >= groups ? sms / groups * groups : groups;
+  *branch = units <= *blocks ? 0 : 1;
   return 0;
 }
 
-// K = 3: one chunk of 3; K <= 32: chunks of 8 under one ballot; else two
-template <int CPL>
-int launch_cpl(const Attn& A, cudaStream_t s) {
-  if (A.K <= 3) return launch_attn<CPL, 3, 1>(A, s);
-  if (A.K <= 32) return launch_attn<CPL, 8, 1>(A, s);
-  return launch_attn<CPL, 8, 2>(A, s);
+template <int CPL, int CH, int NSEG>
+int launch_attn(const Attn& A, cudaStream_t s, int* branch) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        edge_attn<CPL, CH, NSEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        EA_SMEM_MAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr = true;
+  }
+  EaGrid P;
+  int blocks = 0, taken = -1;
+  const int err = ea_plan(A, &P, &blocks, &taken);
+  if (err) return err;
+  edge_attn<CPL, CH, NSEG><<<blocks, EA_THREADS, ea_layout(P.GB, A.C, A.K).bytes, s>>>(A, P);
+  if (branch) *branch = taken;
+  return 0;
 }
 
-int launch_edge_attn(const Attn& A, cudaStream_t s) {
+// K = 3: one chunk of 3; K <= 32: chunks of EA_CH under one ballot; else
+// two
+template <int CPL>
+int launch_cpl(const Attn& A, cudaStream_t s, int* branch) {
+  if (A.K <= 3) return launch_attn<CPL, 3, 1>(A, s, branch);
+  if (A.K <= 32) return launch_attn<CPL, EA_CH, 1>(A, s, branch);
+  return launch_attn<CPL, EA_CH, 2>(A, s, branch);
+}
+
+// branch, where not null, gets edge_attn's grid: 0 one wave, 1
+// persistent, left as it is when there are no rows
+int launch_edge_attn(const Attn& A, cudaStream_t s, int* branch) {
   if (A.Nd <= 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(A.wl2) & 15) != 0) return cudaErrorMisalignedAddress;
   switch ((A.C + 31) / 32) {
-    case 1: return launch_cpl<1>(A, s);
-    case 2: return launch_cpl<2>(A, s);
-    case 3: return launch_cpl<3>(A, s);
-    case 4: return launch_cpl<4>(A, s);
+    case 1: return launch_cpl<1>(A, s, branch);
+    case 2: return launch_cpl<2>(A, s, branch);
+    case 3: return launch_cpl<3>(A, s, branch);
+    case 4: return launch_cpl<4>(A, s, branch);
   }
   return cudaErrorInvalidValue;
 }
@@ -773,25 +1064,30 @@ const char* ggnn_error_string(int err) {
 // Fused conv forward: node_proj then edge_attn, two launches. kn/vn
 // [Ns, GC] and q/sk [Nd, GC] are scratch the caller allocates; out
 // [Nd, GC]. wpack: the projections' TF32 hi and lo planes
-// (kernels/edge_stage.py pack_tf32x3, 16-byte aligned); the biases, wk and
-// wv (their position rows), wl2 [G, C, C], bl2 [G, C] and we [GC] in the
-// JAX package's layout. branch, where not null, gets node_proj's grid: 0
-// one wave, 1 persistent, -1 no launch.
+// (kernels/edge_stage.py pack_tf32x3, 16-byte aligned); wl2: Wl2 in B
+// fragment order (pack_l2, 16-byte aligned); the biases, wk and wv (their
+// position rows), bl2 [G, C] and we [GC] in the JAX package's layout.
+// branch and attn_branch, where not null, get
+// node_proj's and edge_attn's grids: 0 one wave, 1 persistent, -1 no
+// launch.
 int edge_stage_forward(
     const float* x_src, int Ns, int Fs, const float* x_dst, int Nd, int Fd,
     const int* nbr, const float* elen, const float* nmask, int K,
     const uint32_t* wpack, const float* bq, const float* bk, const float* bv,
     const float* bsk, const float* wk, const float* wv, const float* wl2,
     const float* bl2, const float* we, int G, int C, float* kn, float* vn,
-    float* q, float* sk, float* out, void* stream, int* branch) {
+    float* q, float* sk, float* out, void* stream, int* branch,
+    int* attn_branch) {
   if (!takes(Fs, Fd, G, C, K)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();   // clear any stale error
   int err = launch_node_proj(x_src, Ns, Fs, x_dst, Nd, Fd, wpack, bq, bk, bv,
                              bsk, G * C, kn, vn, q, sk, s, branch);
   if (err) return err;
+  if (attn_branch) *attn_branch = -1;
   err = launch_edge_attn({x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn,
-                          vn, q, sk, wk, wv, wl2, bl2, we, G, C, out}, s);
+                          vn, q, sk, wk, wv, wl2, bl2, we, G, C, out}, s,
+                         attn_branch);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
@@ -813,19 +1109,21 @@ int edge_node_proj(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The edge kernel alone (one edge_attn launch) on given projections.
+// The edge kernel alone (one edge_attn launch) on given projections, wl2
+// as above; branch as attn_branch above.
 int edge_attn_forward(
     const float* x_src, int Ns, int Fs, const float* x_dst, int Nd, int Fd,
     const int* nbr, const float* elen, const float* nmask, int K,
     const float* kn, const float* vn, const float* q, const float* sk,
     const float* wk, const float* wv, const float* wl2, const float* bl2,
-    const float* we, int G, int C, float* out, void* stream) {
+    const float* we, int G, int C, float* out, void* stream, int* branch) {
+  if (branch) *branch = -1;
   if (!takes(Fs, Fd, G, C, K)) return cudaErrorInvalidValue;
   cudaGetLastError();
   const int err = launch_edge_attn(
       {x_src, Ns, Fs, x_dst, Nd, Fd, nbr, elen, nmask, K, kn, vn, q, sk, wk,
        wv, wl2, bl2, we, G, C, out},
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), branch);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
-// The asynchronous copies the bf16 edge stage uses, each behind one
-// __device__ helper: bulk copies from device to shared memory (the TMA's
+// The asynchronous copies the edge stages use, each behind one __device__
+// helper: bulk copies from device to shared memory (the TMA's
 // one-dimensional form, no tensor map) that complete on an mbarrier, the
-// mbarrier's init, expected bytes, arrival and phase wait (cp.async stays
-// in csrc/mma_tf32.cuh). tests/test_torch_csrc_emulated.py supplies a C++
-// header of the same name (a copy is a copy, an mbarrier a barrier with
-// its phase), so the kernels that include this file also run on the CPU.
+// mbarrier's init, expected bytes, arrival and phase wait, and a prefetch
+// into L2 (cp.async stays in csrc/mma_tf32.cuh).
+// tests/test_torch_csrc_emulated.py supplies a C++ header of the same name
+// (a copy is a copy, an mbarrier a barrier with its phase), so the kernels
+// that include this file also run on the CPU.
 
 #pragma once
 
@@ -61,4 +62,10 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
       "r"(smem_u32(bar)) : "memory");
+}
+
+// Ask L2 for the line that holds p, without waiting for it or taking it
+// into the SM.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }

@@ -5,9 +5,10 @@ autograd: the kernels have no backward, and the wrappers raise when grad
 mode is on and an input requires grad), one grouped `node_proj` launch (the four node
 projections on wgmma in 3xTF32, the weights as `pack_tf32x3` splits and
 lays them out, built once per weight version and cached per conv like
-`pack_bf16` below) then one `edge_attn` launch (a block
-per tile of destination rows and gate, the l2 product once per row on
-3xTF32 tensor cores). Its plain version is
+`pack_bf16` below) then one `edge_attn` launch (persistent blocks that walk
+tiles of destination rows for a group of gates, the l2 product once per
+row on 3xTF32 tensor cores, Wl2 as `pack_l2` orders it). Its plain
+version is
 ops.period_conv.apply_period_conv_plain. `node_proj_cuda` and
 `edge_attn_cuda` launch each kernel alone (plain versions:
 period_conv.node_projections_plain and period_conv.edge_attn_plain).
@@ -41,15 +42,17 @@ from . import _build
 # kernel launches since the caller last called reset_counts(): by kernel,
 # fp32 (launches) and bf16 (bf16_launches); by (kernel, F_src, F_dst), the
 # bf16 kernels named node_proj_bf16 and edge_attn_bf16; for the fp32
-# edge_attn, by its ring width K; and the fp32 node_proj's launches by the
-# grid its launcher chose (csrc/edge_stage.cu np_plan: one wave of a tile
-# a warpgroup, or persistent blocks), counted by launch and
-# launch_node_proj, whatever build of the source they call
+# edge_attn, by its ring width K; and the fp32 node_proj's and edge_attn's
+# launches by the grid their launchers chose (csrc/edge_stage.cu np_plan,
+# ea_plan: one wave, or persistent blocks), counted by launch,
+# launch_node_proj and launch_edge_attn, whatever build of the source they
+# call
 launches = {"node_proj": 0, "edge_attn": 0}
 bf16_launches = {"node_proj": 0, "edge_attn": 0}
 shape_launches: dict = {}
 ring_launches: dict = {}
 node_proj_branches = {"one_wave": 0, "persistent": 0}
+edge_attn_branches = {"one_wave": 0, "persistent": 0}
 BRANCHES = tuple(node_proj_branches)      # the C entries' branch codes 0, 1
 
 SOURCE = "edge_stage"
@@ -68,35 +71,40 @@ MAX_F, MAX_G, MAX_C, MAX_K = 128, 8, 128, 64    # limits of csrc/edge_stage.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the fp32 entries: the TF32 pack in place of the projections' weight
 # matrices (wk and wv still go in whole: edge_attn reads their position
-# rows), and last the address of an int that gets node_proj's branch
+# rows), and last the addresses of ints that get node_proj's and
+# edge_attn's branches
 _ARGTYPES = (
     [_P, _I, _I] * 2                   # x_src, x_dst
     + [_P] * 3 + [_I]                  # nbr, len, mask, K
     + [_P] * 10 + [_I] * 2             # pack, biases, wk, wv, l2, We, G, C
     + [_P] * 6                         # scratch, out, stream
-    + [_P]                             # branch
+    + [_P] * 2                         # branches
 )
 _PROJ_ARGTYPES = [_P, _I, _I] * 2 + [_P] * 5 + [_I] + [_P] * 5 + [_P]
 _ATTN_ARGTYPES = ([_P, _I, _I] * 2 + [_P] * 3 + [_I] + [_P] * 9 + [_I] * 2
-                  + [_P] * 2)
+                  + [_P] * 3)
 # the bf16 entries: the pack in place of the fp32 weight matrices (the
 # biases, We and the position rows of Wk and Wv stay fp32)
 _BF16_ARGTYPES = ([_P, _I, _I] * 2 + [_P] * 3 + [_I] + [_P] * 9 + [_I] * 2
                   + [_P] * 6)
 _BF16_PROJ_ARGTYPES = [_P, _I, _I] * 2 + [_P] * 5 + [_I] + [_P] * 5
-ARGTYPES = {            # edge_attn's lists match: the pack takes wk's place
+# the fp32 list less the branch: the pack takes wk's place
+_BF16_ATTN_ARGTYPES = _ATTN_ARGTYPES[:-1]
+ARGTYPES = {
     "fp32": {"conv": _ARGTYPES, "node_proj": _PROJ_ARGTYPES,
              "edge_attn": _ATTN_ARGTYPES},
     "bf16": {"conv": _BF16_ARGTYPES, "node_proj": _BF16_PROJ_ARGTYPES,
-             "edge_attn": _ATTN_ARGTYPES},
+             "edge_attn": _BF16_ATTN_ARGTYPES},
 }
 PACK_COLS = 128          # the projections' column slice (NB_BN, NP_BN)
 _packs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _packs_tf32x3: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_packs_l2: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def reset_counts():
-    for counts in (launches, bf16_launches, node_proj_branches):
+    for counts in (launches, bf16_launches, node_proj_branches,
+                   edge_attn_branches):
         for k in counts:
             counts[k] = 0
     shape_launches.clear()
@@ -276,6 +284,34 @@ def pack_tf32x3(conv):
     return _cached(_packs_tf32x3, conv, ws, _build_pack_tf32x3)
 
 
+def _l2_fragments(w, cp):
+    """w [k, n] zero-padded to [cp, cp] in mma.sync m16n8k8's B fragment
+    order: [cp / 8 k-steps][cp / 8 n8 tiles][8 columns][4 k][2 halves of the
+    k-step], so lane 4 c + k of a warp finds its two values (k and k + 4 of
+    column c) side by side."""
+    b = torch.zeros((cp, cp), dtype=torch.float32, device=w.device)
+    b[:w.shape[0], :w.shape[1]] = w
+    steps = cp // 8
+    return b.view(steps, 2, 4, steps, 8).permute(0, 3, 4, 2, 1)
+
+
+def _build_pack_l2(conv):
+    G, C = conv.num_gates, conv.out_channels
+    cp = (C + 7) // 8 * 8
+    return torch.stack([_l2_fragments(conv.l2.w[g], cp)
+                        for g in range(G)]).reshape(-1).contiguous()
+
+
+def pack_l2(conv):
+    """The fp32 edge_attn's Wl2 of `conv` (csrc/edge_stage.cu), one fp32
+    tensor on the weights' device: each gate's [C, C] block in mma.sync's B
+    fragment order (_l2_fragments, C padded to a multiple of 8), the gates
+    one after the other, so that a block brings its gates' part in with
+    one bulk copy. Cached per conv as pack_bf16 is, under a key of Wl2,
+    with the same rules for rebuilding it."""
+    return _cached(_packs_l2, conv, (conv.l2.w,), _build_pack_l2)
+
+
 def _check(x_src, tensors):
     # the kernels have no backward: their outputs would carry no grad_fn and
     # the weights would silently get no gradient
@@ -411,16 +447,16 @@ def _proj_args(conv, x_src, x_dst, precision):
             *[t.data_ptr() for t in w]]
 
 
-def _branch_arg(precision):
-    """(the fp32 entries' last argument, a function that counts the branch
-    it got); nothing at bf16."""
+def _branch_arg(precision, counts):
+    """(an fp32 entry's argument that gets a kernel's grid, a function that
+    counts that branch in `counts`); nothing at bf16."""
     if precision == "bf16":
         return [], lambda: None
     branch = ctypes.c_int(-1)
 
     def count():
         if branch.value >= 0:
-            node_proj_branches[BRANCHES[branch.value]] += 1
+            counts[BRANCHES[branch.value]] += 1
 
     return [ctypes.addressof(branch)], count
 
@@ -430,7 +466,7 @@ def _attn_weights(conv, precision):
         w = [pack_bf16(conv), conv.key.w, conv.value.w, conv.l2.b,
              conv.edge.w]
     else:
-        w = [conv.key.w, conv.value.w, conv.l2.w, conv.l2.b, conv.edge.w]
+        w = [conv.key.w, conv.value.w, pack_l2(conv), conv.l2.b, conv.edge.w]
     return [t.data_ptr() for t in w]
 
 
@@ -448,17 +484,19 @@ def launch(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask, G, C,
              conv.skip.b, conv.key.w, conv.value.w, conv.l2.b, conv.edge.w]
     else:
         w = [pack_tf32x3(conv), conv.query.b, conv.key.b, conv.value.b,
-             conv.skip.b, conv.key.w, conv.value.w, conv.l2.w, conv.l2.b,
+             conv.skip.b, conv.key.w, conv.value.w, pack_l2(conv), conv.l2.b,
              conv.edge.w]
-    branch, count = _branch_arg(precision)
+    branch, count = _branch_arg(precision, node_proj_branches)
+    attn_branch, attn_count = _branch_arg(precision, edge_attn_branches)
     fn(
         x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
         nbr.data_ptr(), edge_len.data_ptr(), nbr_mask.data_ptr(), K,
         *[t.data_ptr() for t in w],
         G, C, kn.data_ptr(), vn.data_ptr(), q.data_ptr(), sk.data_ptr(),
-        out.data_ptr(), stream, *branch,
+        out.data_ptr(), stream, *branch, *attn_branch,
     )
     count()
+    attn_count()
     return out
 
 
@@ -468,7 +506,7 @@ def launch_node_proj(fn, stream, conv, x_src, x_dst, precision="fp32"):
     Ns, Nd = x_src.shape[0], x_dst.shape[0]
     outs = (_empty(Ns, GC, x_src), _empty(Ns, GC, x_src),
             _empty(Nd, GC, x_src), _empty(Nd, GC, x_src))
-    branch, count = _branch_arg(precision)
+    branch, count = _branch_arg(precision, node_proj_branches)
     fn(*_proj_args(conv, x_src, x_dst, precision), GC,
        *[t.data_ptr() for t in outs], stream, *branch)
     count()
@@ -480,8 +518,10 @@ def launch_edge_attn(fn, stream, conv, x_src, x_dst, nbr, edge_len, nbr_mask,
     """Call the C entry `fn` of edge_attn on the projections `proj`."""
     (Ns, Fs), (Nd, Fd), K = x_src.shape, x_dst.shape, nbr.shape[1]
     out = _empty(Nd, G * C, x_src)
+    branch, count = _branch_arg(precision, edge_attn_branches)
     fn(x_src.data_ptr(), Ns, Fs, x_dst.data_ptr(), Nd, Fd,
        nbr.data_ptr(), edge_len.data_ptr(), nbr_mask.data_ptr(), K,
        *[t.data_ptr() for t in proj], *_attn_weights(conv, precision),
-       G, C, out.data_ptr(), stream)
+       G, C, out.data_ptr(), stream, *branch)
+    count()
     return out

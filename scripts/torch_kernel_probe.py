@@ -3,8 +3,8 @@ chip_smoke.py reports: the node projections at the connect shape split
 into their parts, by timing builds of csrc/edge_stage.cu with a part left
 out (-DNODE_PROJ_PART: 1 without the products, 2 without the tile loads
 and stores); the edge kernel at the 120 um rollout's three conv shapes
-(first span, real masks) by rows and warps per block (-DEA_ROWS,
--DEA_WARPS) and by part (-DEDGE_ATTN_PART: 1 without the l2 product, 2
+(first span, real masks) by gather and product warps per block (-DEA_GW,
+-DEA_PW) and by part (-DEDGE_ATTN_PART: 1 without the l2 product, 2
 the staging of Wl2 and the product alone); and the topology editor's
 device time on the first span's inputs as a function of max_switch (the
 number of switches it runs), for three thread counts per block.
@@ -36,8 +36,8 @@ from graingraphnn_torch.train import checkpoint  # noqa: E402
 NODE_PROJ_PARTS = {"full": 0, "no_products": 1, "products_only": 2}
 EDGE_ATTN_VARIANTS = {
     "default": (),
-    **{f"rows{r}_warps{w}": (f"-DEA_ROWS={r}", f"-DEA_WARPS={w}")
-       for r, w in ((16, 16), (32, 8), (64, 16), (64, 32))},
+    **{f"gather{g}_product{p}": (f"-DEA_GW={g}", f"-DEA_PW={p}")
+       for g, p in ((12, 8), (20, 8), (16, 4), (22, 8))},
     "no_product": ("-DEDGE_ATTN_PART=1",),
     "product_only": ("-DEDGE_ATTN_PART=2",),
 }

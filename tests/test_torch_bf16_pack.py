@@ -1,8 +1,9 @@
 """kernels/edge_stage.pack_bf16, the bf16 weights of a conv in the layouts
-of csrc/edge_stage_bf16.cu's products, and pack_tf32x3, the fp32
-node_proj's TF32 hi and lo planes (csrc/edge_stage.cu), on the CPU: each
-packed value is period_conv.bf16_round of its weight, or the split of
-csrc/mma_tf32.cuh's split_tf32 (computed here another way), at the place
+of csrc/edge_stage_bf16.cu's products, pack_tf32x3, the fp32 node_proj's
+TF32 hi and lo planes, and pack_l2, the fp32 edge_attn's Wl2 in B fragment
+order (csrc/edge_stage.cu), on the CPU: each packed value is
+period_conv.bf16_round of its weight, the split of csrc/mma_tf32.cuh's
+split_tf32 (computed here another way), or the weight itself, at the place
 the kernels read it (zeros elsewhere); each pack is cached per conv and
 rebuilt exactly when one of its weights changes."""
 
@@ -24,7 +25,11 @@ def _conv(Fs, Fd, G, C, seed=0):
     return conv
 
 
-PACKS = {"bf16": edge_stage.pack_bf16, "tf32x3": edge_stage.pack_tf32x3}
+PACKS = {"bf16": edge_stage.pack_bf16, "tf32x3": edge_stage.pack_tf32x3,
+         "l2": edge_stage.pack_l2}
+# the weights each pack holds
+HOLDS = {"bf16": ("key", "value", "query", "skip", "l2"),
+         "tf32x3": ("key", "value", "query", "skip"), "l2": ("l2",)}
 
 
 def _cases(kinds, values):
@@ -93,6 +98,22 @@ def _check_tf32x3(conv, Fs, Fd, G, C):
             assert torch.equal(planes[p, plane], want), (p, plane)
 
 
+def _check_l2(conv, G, C):
+    """Wl2[g] zero-padded to C padded to 8, in mma.sync m16n8k8's B fragment
+    order: [g][k-step][n8 tile][lane 4 c + t][h] = W[g][8 ks + 4 h + t][8
+    nt + c], the value itself."""
+    cp = (C + 7) // 8 * 8
+    pack = edge_stage.pack_l2(conv)
+    assert pack.dtype == torch.float32 and pack.shape == (G * cp * cp,)
+    frag = pack.view(G, cp // 8, cp // 8, 8, 4, 2)
+    w = torch.zeros((G, cp, cp))
+    w[:, :C, :C] = conv.l2.w.detach()
+    for g, ks, nt, c, t, h in ((g, ks, nt, c, t, h) for g in range(G)
+                               for ks in range(cp // 8) for nt in range(cp // 8)
+                               for c in range(8) for t in range(4) for h in range(2)):
+        assert frag[g, ks, nt, c, t, h] == w[g, 8 * ks + 4 * h + t, 8 * nt + c]
+
+
 @pytest.mark.parametrize("kind,Fs,Fd,G,C", _cases(
     PACKS, [(107, 104, 4, 96), (104, 107, 4, 96), (11, 9, 1, 30),
             (19, 8, 2, 128)]))
@@ -103,8 +124,10 @@ def test_pack_holds_the_rounded_weights_in_the_kernels_layout(kind, Fs, Fd,
     128 columns; Wk's and Wv's position rows 0..2 zero (x_src's lanes 0..2
     go in per edge). Wl2[g]: column n of the [C, C] block as one row of k
     pairs, C padded to 16. tf32x3: _check_tf32x3, with weights at the
-    ties of TF32 rounding among them."""
+    ties of TF32 rounding among them. l2: _check_l2."""
     conv = _conv(Fs, Fd, G, C, seed=Fs + C)
+    if kind == "l2":
+        return _check_l2(conv, G, C)
     if kind == "tf32x3":
         with torch.no_grad():
             conv.query.w[0, :4] = torch.tensor([1 + 2**-11, -(1 + 2**-11),
@@ -129,7 +152,7 @@ def test_pack_holds_the_rounded_weights_in_the_kernels_layout(kind, Fs, Fd,
 def test_pack_is_rebuilt_after_an_in_place_update(kind, name):
     """An in-place update of any packed weight (as an optimizer step makes)
     gives a new pack holding the new values; the stale one is not used.
-    Wl2 is not in the tf32x3 pack: its update leaves that pack as it is."""
+    An update of a weight that a pack does not hold leaves it as it is."""
     Fs, Fd, G, C = 107, 104, 4, 96
     pack = PACKS[kind]
     conv = _conv(Fs, Fd, G, C, seed=1)
@@ -137,7 +160,7 @@ def test_pack_is_rebuilt_after_an_in_place_update(kind, name):
     with torch.no_grad():
         getattr(conv, name).w.add_(0.25)
     after = pack(conv)
-    if kind == "tf32x3" and name == "l2":
+    if name not in HOLDS[kind]:
         assert after is before
         return
     assert after is not before and not torch.equal(after, before)
@@ -153,11 +176,12 @@ def _clone(conv):
 
 def test_pack_is_rebuilt_for_a_replaced_weight():
     """A weight given new storage (a new parameter, or .data replaced)
-    gives a new pack, of either kind."""
-    for pack in PACKS.values():
+    gives a new pack, of every kind."""
+    for kind, pack in PACKS.items():
         conv = _conv(19, 8, 2, 16, seed=2)
         before = pack(conv)
-        conv.query.w.data = conv.query.w.data * 2
+        w = getattr(conv, HOLDS[kind][-1]).w
+        w.data = w.data * 2
         after = pack(conv)
         assert after is not before
         assert torch.equal(after, pack(_clone(conv)))
@@ -165,8 +189,8 @@ def test_pack_is_rebuilt_for_a_replaced_weight():
 
 def test_pack_is_not_rebuilt_for_unchanged_weights():
     """Unchanged weights give the cached pack, the same tensor, whatever
-    else changes (biases and We are in neither pack), and each conv has its
-    own; both kinds of one conv are cached side by side."""
+    else changes (biases and We are in no pack), and each conv has its
+    own; the kinds of one conv are cached side by side."""
     for kind, make in PACKS.items():
         conv = _conv(107, 104, 4, 96, seed=3)
         pack = make(conv)

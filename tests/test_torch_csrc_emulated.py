@@ -140,6 +140,16 @@ inline unsigned __ballot_sync(unsigned, int p) {
   return r;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
 // bf16 as cuda_bf16.h has it: __float2bfloat16_rn rounds to nearest, ties
 // to even (a NaN stays a quiet NaN)
 struct __nv_bfloat16 { uint16_t x; };
@@ -202,7 +212,8 @@ void emu_launch(F kernel, dim3 grid, dim3 block, size_t smem, A... args) {
 }
 """
 
-# csrc/mma_tf32.cuh for the emulation: the same helpers in C++.
+# csrc/mma_tf32.cuh for the emulation: the same helpers in C++; the product
+# reads the TF32 bits of its operands, as the tensor cores do.
 EMU_MMA_H = r"""
 #pragma once
 #include "emu.h"
@@ -232,7 +243,10 @@ inline void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
   mine[4] = b[0];
   mine[5] = b[1];
   emu_warp_bar->arrive_and_wait();
-  auto frag = [&](int l, int reg) { return emu_f((*emu_frag)[6 * (w0 + l) + reg]); };
+  // the tensor cores read each operand's TF32 bits: the 13 below ignored
+  auto frag = [&](int l, int reg) {
+    return emu_f((*emu_frag)[6 * (w0 + l) + reg] & 0xffffe000u);
+  };
   auto A = [&](int r, int k) { return frag(4 * (r & 7) + (k & 3), (r >= 8) + 2 * (k >= 4)); };
   auto B = [&](int k, int n) { return frag(4 * n + (k & 3), 4 + (k >= 4)); };
   const int g = lane >> 2, t = lane & 3;
@@ -306,27 +320,39 @@ inline void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
 # its bytes counted off the mbarrier at once; an
 # mbarrier is a phase bit, the arrivals still due and the bytes still
 # expected (which may run below zero until announced), kept in a table
-# under one lock and keyed by its shared-memory address.
+# under one lock and keyed by its shared-memory address. A wait sleeps on
+# the mbarrier's condition variable, which each completed phase wakes, so
+# that the threads waiting on a ring's stages leave the cores to those at
+# work.
 EMU_ASYNC_H = r"""
 #pragma once
 #include <stdio.h>
 #include <stdlib.h>
 #include <chrono>
+#include <condition_variable>
 #include <map>
 #include <mutex>
 #include "emu.h"
-struct EmuMbar { unsigned count, due, phase; long tx; };
+struct EmuMbar {
+  unsigned count, due, phase;
+  long tx;
+  std::condition_variable done;
+};
 inline std::mutex emu_mbar_mu;
 inline std::map<const void*, EmuMbar> emu_mbars;
 inline void emu_mbar_settle(EmuMbar& b) {
   if (b.due == 0 && b.tx == 0) {
     b.phase ^= 1u;
     b.due = b.count;
+    b.done.notify_all();
   }
 }
 inline void mbar_init(uint64_t* bar, unsigned count) {
   std::lock_guard<std::mutex> l(emu_mbar_mu);
-  emu_mbars[bar] = {count, count, 0u, 0};
+  EmuMbar& b = emu_mbars[bar];
+  b.count = b.due = count;
+  b.phase = 0u;
+  b.tx = 0;
 }
 inline void mbar_fence_init() {}
 inline void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
@@ -341,19 +367,15 @@ inline void mbar_arrive(uint64_t* bar) {
 }
 // a phase that never completes is a fault of the kernel: stop after 30 s
 inline void mbar_wait(uint64_t* bar, unsigned parity) {
-  const auto t0 = std::chrono::steady_clock::now();
-  for (;;) {
-    {
-      std::lock_guard<std::mutex> l(emu_mbar_mu);
-      if (emu_mbars.at(bar).phase != parity) return;
-    }
-    if (std::chrono::steady_clock::now() - t0 > std::chrono::seconds(30)) {
-      fprintf(stderr, "mbar_wait: phase %u never completed\n", parity);
-      abort();
-    }
-    std::this_thread::yield();
+  std::unique_lock<std::mutex> l(emu_mbar_mu);
+  EmuMbar& b = emu_mbars.at(bar);
+  if (!b.done.wait_for(l, std::chrono::seconds(30),
+                       [&] { return b.phase != parity; })) {
+    fprintf(stderr, "mbar_wait: phase %u never completed\n", parity);
+    abort();
   }
 }
+inline void prefetch_l2(const void*) {}
 // the PTX's rule: both ends 16-byte aligned, a multiple of 16 bytes
 inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
                           uint64_t* bar) {
@@ -687,20 +709,46 @@ def _scattered_mask(rng, Nd, K):
     return mask
 
 
-@pytest.mark.parametrize("G,C,K,Ns,Nd,Fs,Fd,scattered", [
-    pytest.param(4, 8, 3, 13, 11, 11, 9, False, id="3-11"),
-    pytest.param(4, 8, 16, 13, 4, 11, 9, False, id="16-4"),
+def _attn_case(G, C, K, Ns, Nd, Fs, Fd, scattered, branch, id):
+    return pytest.param(G, C, K, Ns, Nd, Fs, Fd, scattered, branch, id=id)
+
+
+@pytest.mark.parametrize("G,C,K,Ns,Nd,Fs,Fd,scattered,branch", [
+    _attn_case(4, 8, 3, 13, 11, 11, 9, False, "one_wave", "3-11"),
+    _attn_case(4, 8, 16, 13, 4, 11, 9, False, "one_wave", "16-4"),
     # the rollout's widths; 197 rows are 3+ row tiles with a ragged last one
-    pytest.param(4, 96, 3, 70, 197, 107, 104, True, id="rollout-K3"),
-    pytest.param(4, 96, 16, 90, 37, 104, 107, True, id="rollout-K16"),
-    pytest.param(1, 30, 16, 20, 23, 11, 9, True, id="G1-C30"),
-    pytest.param(2, 128, 5, 30, 41, 19, 8, True, id="C128"),
+    _attn_case(4, 96, 3, 70, 197, 107, 104, True, "persistent", "rollout-K3"),
+    _attn_case(4, 96, 16, 90, 37, 104, 107, True, "persistent", "rollout-K16"),
+    _attn_case(1, 30, 16, 20, 23, 11, 9, True, "one_wave", "G1-C30"),
+    _attn_case(2, 128, 5, 30, 41, 19, 8, True, "one_wave", "C128"),
+    # past 8 waves of one-gate blocks (the emulated card's 8 SMs), blocks
+    # of all G gates, 2-3 tiles each, so every stage of both rings is
+    # refilled and its mbarriers go round their phases; ragged last tiles
+    _attn_case(4, 96, 3, 150, 300, 107, 104, True, "persistent",
+               "persistent-K3-C96"),
+    _attn_case(4, 48, 16, 150, 281, 104, 107, True, "persistent",
+               "persistent-K16-C48"),
+    _attn_case(4, 32, 24, 120, 270, 104, 107, True, "persistent",
+               "persistent-K24-C32"),
+    _attn_case(4, 64, 64, 90, 270, 104, 107, True, "persistent",
+               "persistent-K64-C64"),
+    # G = 3 at C = 128, K = 64: one gate a block in one wave (each block's
+    # single tile gathered and multiplied by all its warps); past 8 waves
+    # two gates fit a block, so the gate groups are 2 + 1
+    _attn_case(3, 128, 64, 40, 30, 104, 107, True, "one_wave",
+               "one-wave-G3-C128-K64"),
+    _attn_case(3, 128, 64, 40, 350, 104, 107, True, "persistent",
+               "persistent-G3-C128-K64"),
 ])
 def test_edge_attn_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs, Fd,
-                                        scattered):
+                                        scattered, branch):
     """The edge kernel alone on the plain node projections: gates of
     width not a multiple of 8 and up to 128, rows with no live slot, with
-    all K live, and with live slots scattered over the row."""
+    all K live, and with live slots scattered over the row; each case on
+    the grid the launcher picks for the emulated 8-SM card (one wave of a
+    (tile, gate) a block, or persistent blocks of several tiles, of one
+    gate or of a group of gates), asserted through edge_stage's branch
+    counter."""
     fn = emulated(edge_stage.SOURCE, "edge_attn_forward",
                   edge_stage._ATTN_ARGTYPES)
     conv, rng = _random_conv(K if not scattered else K + C + Nd, Fs, Fd, G, C)
@@ -716,8 +764,11 @@ def test_edge_attn_source_matches_plain(emulated, G, C, K, Ns, Nd, Fs, Fd,
         mask[::3] = 0.0
     mask = t(mask)
     proj = period_conv.node_projections_plain(conv, xs, xd)
+    edge_stage.reset_counts()
     out = edge_stage.launch_edge_attn(fn, 0, conv, xs, xd, nbr, ln, mask,
                                       proj, G, C)
+    assert edge_stage.edge_attn_branches == {
+        b: int(b == branch) for b in edge_stage.BRANCHES}
     ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask, proj,
                                       num_gates=G, out_channels=C)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)

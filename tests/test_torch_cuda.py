@@ -81,13 +81,28 @@ def test_edge_stage_kernel_matches_plain(K, Ns, Nd, Fs, Fd):
     torch.testing.assert_close(again, out, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("K,Ns,Nd,Fs,Fd", [(3, 1043, 2086, 107, 104),
-                                           (3, 2086, 2086, 104, 104),
-                                           (16, 2086, 1043, 104, 107)])
-def test_edge_attn_kernel_matches_plain_on_scattered_masks(K, Ns, Nd, Fs, Fd):
-    """The edge kernel alone at the rollout's three conv shapes, with live
-    slots scattered over each row (not a prefix), rows with none live and
-    rows with all K live."""
+def _ea_case(K, Ns, Nd, Fs, Fd, branch):
+    return pytest.param(K, Ns, Nd, Fs, Fd, branch,
+                        id="-".join(map(str, (K, Ns, Nd, Fs, Fd))))
+
+
+@pytest.mark.parametrize("K,Ns,Nd,Fs,Fd,branch", [
+    _ea_case(3, 1043, 2086, 107, 104, "persistent"),
+    _ea_case(3, 2086, 2086, 104, 104, "persistent"),
+    _ea_case(16, 2086, 1043, 104, 107, "persistent"),
+    _ea_case(16, 234, 117, 104, 107, "one_wave"),
+    # the benchmark's convs push, connect and pull at 64 lanes of 120 um
+    # (fp32-hex64x120: 1047 grains and 2094 junctions a lane, pull ring 32)
+    _ea_case(3, 67008, 134016, 107, 104, "persistent"),
+    _ea_case(3, 134016, 134016, 104, 104, "persistent"),
+    _ea_case(32, 134016, 67008, 104, 107, "persistent")])
+def test_edge_attn_kernel_matches_plain_on_scattered_masks(K, Ns, Nd, Fs, Fd,
+                                                            branch):
+    """The edge kernel alone at the rollout's three conv shapes (one-gate
+    blocks of several tiles), at a 40 um pull conv's (one wave) and at the
+    benchmark's (blocks of all four gates), with live slots scattered over
+    each row (not a prefix), rows with none live and rows with all K live;
+    one launch, its grid asserted through edge_stage's branch counter."""
     dev = card()
     G, C = 4, 96
     rng = np.random.default_rng(Nd + K)
@@ -104,12 +119,15 @@ def test_edge_attn_kernel_matches_plain_on_scattered_masks(K, Ns, Nd, Fs, Fd):
     mask = t(mask)
     proj = period_conv.node_projections_plain(conv, xs, xd)
     before = edge_stage.launches["edge_attn"]
+    branches = dict(edge_stage.edge_attn_branches)
     out = edge_stage.edge_attn_cuda(conv, xs, xd, nbr, ln, mask, proj,
                                     num_gates=G, out_channels=C)
     ref = period_conv.edge_attn_plain(conv, xs, xd, nbr, ln, mask, proj,
                                       num_gates=G, out_channels=C)
     torch.cuda.synchronize()
     assert edge_stage.launches["edge_attn"] == before + 1
+    branches[branch] += 1
+    assert edge_stage.edge_attn_branches == branches
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
 
 
