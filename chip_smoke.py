@@ -10,7 +10,11 @@ timed on each span's own inputs, (4)
 the fused PeriodConv edge stage against its plain version at the
 rollout's three conv shapes (real masks, every 7th row masked, live
 slots dropped at random), and each of its two kernels (node_proj,
-edge_attn) alone against its own plain version, timed beside it, (5) the
+edge_attn) alone against its own plain version, timed beside it, and the
+cells' update kernel (csrc/cell_update.cu, one launch a cell step, 4 a
+span wherever the kernels run on the card, none in a train step) within
+one unit in the last place of its plain version at the decoder's cell
+step, here and in (12), (5) the
 topology-editor kernel against its plain version on the first span's
 editor inputs and on forced scenarios, (6) a CPU reference span, (7) the
 generate path through the port's driver (run_device_resident with
@@ -111,7 +115,7 @@ import torch
 from graingraphnn_torch.cli import train as train_cli_mod
 from graingraphnn_torch.graph import planar, schema, synthetic
 from graingraphnn_torch.graph import state as gstate
-from graingraphnn_torch.kernels import _build, edge_stage, editor_fused
+from graingraphnn_torch.kernels import _build, cell_update, edge_stage, editor_fused
 from graingraphnn_torch.models import cells, grain_nn
 from graingraphnn_torch.ops import period_conv
 from graingraphnn_torch.parallel import halo
@@ -234,6 +238,7 @@ REPLACES = {
     "connect": "graingraphnn_tpu/kernels/edge_stage.py:58",
     "pull": "graingraphnn_tpu/kernels/edge_stage.py:156",
     "editor": "graingraphnn_tpu/kernels/editor_pallas.py:31",
+    "cell_update": "graingraphnn_tpu/models/cells.py:75",
 }
 
 
@@ -283,7 +288,8 @@ def phase_build():
     t0 = time.perf_counter()
     log = _build.build([(edge_stage.SOURCE, edge_stage.NVCC_FLAGS),
                         (edge_stage.SOURCE_BF16, edge_stage.NVCC_FLAGS),
-                        (editor_fused.SOURCE, editor_fused.NVCC_FLAGS)])
+                        (editor_fused.SOURCE, editor_fused.NVCC_FLAGS),
+                        (cell_update.SOURCE, cell_update.NVCC_FLAGS)])
     emit(phase="build", seconds=time.perf_counter() - t0, sources=log)
 
 
@@ -344,6 +350,64 @@ def decoder_conv_inputs(reg, sample, precision="fp32"):
                     s.connect_mask),
         "pull": (cv["pull"], xj, xg, s.pull_nbr, s.pull_len, s.pull_mask),
     }
+
+
+def ulps(a, b):
+    """The largest distance between fp32 a and b in units in the last
+    place (+0 and -0 are one value)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def cell_update_row(reg, sample, launches, suffix="", workload="rollout"):
+    """The cells' update kernel at the decoder's cell step of `sample` (its
+    convs' messages, the encoder's c) against its plain version
+    (cells._gate_update) on the card: within one unit in the last place,
+    both timed, with its byte bound (every message row, c and the biases
+    read once, h and c written once). launches: the counted run's."""
+    C = reg.hp.layer_size
+    h, c = cells.apply_pgclstm(reg.encoder[0], sample, sample.grain_x,
+                               sample.joint_x, cells.zero_state(sample, C), C,
+                               kernels=True)
+    dec = reg.decoder[0]
+    xg, xj = cells._gate_inputs(sample.grain_x, sample.joint_x, h)
+    push, connect, pull = cells._period_convs(dec, sample, xg, xj,
+                                              cells.NUM_GATES, C, True)
+    joint = ((push, connect), dec.bias["joint"], c["joint"])
+    grain = ((pull,), dec.bias["grain"], c["grain"])
+
+    def kernel():
+        return cell_update.cell_update_cuda(joint, grain, C)
+
+    def plain():
+        return cells._gate_update(*joint, C), cells._gate_update(*grain, C)
+
+    pairs = [(g, w) for pg, pw in zip(kernel(), plain())
+             for g, w in zip(pg, pw)]
+    torch.cuda.synchronize()
+    worst = max(ulps(g, w) for g, w in pairs)
+    if worst > 1 or not all(bool(torch.isfinite(g).all()) for g, _ in pairs):
+        raise RuntimeError(f"cell update{suffix}: {worst} ulp from its plain "
+                           "version")
+    NJ, NG = push.shape[0], pull.shape[0]
+    bytes_ = 4 * (NJ * (2 * 4 * C + 3 * C) + NG * (4 * C + 3 * C) + 2 * 4 * C)
+    bound_ms, bound_by = bound(bytes_)
+    ms = cuda_ms(kernel)
+    emit(phase="cell_update", workload=workload, joint_rows=NJ,
+         grain_rows=NG, C=C, max_ulps=worst,
+         bit_equal=all(torch.equal(g, w) for g, w in pairs), ms=ms,
+         bound_ms=bound_ms, bound_pct=100 * bound_ms / ms, launches=launches)
+    return dict(
+        name=f"cell_update{suffix}", route="cuda",
+        source="graingraphnn_torch/csrc/cell_update.cu",
+        replaces=REPLACES["cell_update"],
+        max_abs_err=max((g - w).abs().max().item() for g, w in pairs),
+        ms=ms, plain_ms=cuda_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, launches=launches,
+        check=f"pass: within 1 ulp ({worst}) of the torch formulation")
 
 
 def close(name, out, ref):
@@ -825,12 +889,14 @@ def counted_launches():
     return {"node_proj": edge_stage.launches["node_proj"],
             "edge_attn": edge_stage.launches["edge_attn"],
             "by_shape": dict(edge_stage.shape_launches),
-            "editor": editor_fused.launches}
+            "editor": editor_fused.launches,
+            "cell_update": cell_update.launches}
 
 
 def reset_launches():
     edge_stage.reset_counts()
     editor_fused.launches = 0
+    cell_update.launches = 0
 
 
 def phase_rollout(reg, cls, state, n_spans):
@@ -867,7 +933,7 @@ def phase_rollout(reg, cls, state, n_spans):
             dts.append(time.perf_counter() - t0)
         enqueued.append(rec.enqueue_s)
     want = {"node_proj": 12 * n_spans, "edge_attn": 12 * n_spans,
-            "editor": n_spans}
+            "editor": n_spans, "cell_update": 4 * n_spans}
     if any(launches[k] != v for k, v in want.items()):
         raise RuntimeError(f"launch counts {launches} for {n_spans} spans")
     for name in ("xg", "xj"):
@@ -1053,9 +1119,10 @@ def phase_generate(reg, cls, reg_cpu, cls_cpu, dev):
     peak = torch.cuda.max_memory_allocated()
     launches = {"node_proj": edge_stage.launches["node_proj"],
                 "edge_attn": edge_stage.launches["edge_attn"],
-                "editor": editor_fused.launches}
+                "editor": editor_fused.launches,
+                "cell_update": cell_update.launches}
     want = {"node_proj": 12 * n_spans, "edge_attn": 12 * n_spans,
-            "editor": n_spans}
+            "editor": n_spans, "cell_update": 4 * n_spans}
     if launches != want or rec.spans != n_spans:
         raise RuntimeError(f"generate: launch counts {launches}, "
                            f"{rec.spans} spans; want {want}")
@@ -1429,7 +1496,8 @@ def phase_generate40(traj40, reg, cls, reg_cpu, cls_cpu, dev):
     peak = torch.cuda.max_memory_allocated()
     launches = counted_launches()
     n = rec.spans
-    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n}
+    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n,
+            "cell_update": 4 * n}
     if n != 20 or any(launches[k] != v for k, v in want.items()):
         raise RuntimeError(f"generate40: {n} spans, launches {launches}")
     if set(line) != {"final_layer_error", "mean_layer_error", "events_tp",
@@ -1537,7 +1605,8 @@ def phase_rollout240(traj, reg, cls, reg_cpu, cls_cpu, dev):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = counted_launches()
-    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n}
+    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n,
+            "cell_update": 4 * n}
     if any(launches[k] != v for k, v in want.items()):
         raise RuntimeError(f"rollout240: launches {launches}")
     fin_inc, _ = run(st_inc)
@@ -1862,7 +1931,8 @@ def phase_batched(reg, cls, reg_cpu, cls_cpu, dev, profile=False):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = counted_launches()
-    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n}
+    want = {"node_proj": 12 * n, "edge_attn": 12 * n, "editor": n,
+            "cell_update": 4 * n}
     if any(launches[k] != v for k, v in want.items()):
         raise RuntimeError(f"batched: launches {launches}, want {want}")
     flags = {f: int(aux[f].sum()) for f in
@@ -1909,6 +1979,8 @@ def phase_batched(reg, cls, reg_cpu, cls_cpu, dev, profile=False):
     rows = conv_kernel_rows(decoder_conv_inputs(reg, sample),
                             reg.hp.layer_size, suffix=suffix,
                             workload="batched")
+    update = cell_update_row(reg, sample, launches["cell_update"], suffix,
+                             "batched")
     emit(phase="batched", lanes=B, lxd=cfg["lxd"], seeds=cfg["seeds"],
          G=cfg["G"], R=cfg["R"], spans=n, generation_s=gen_s,
          grains=[int(s.mask_g.sum()) for s in singles],
@@ -1937,7 +2009,7 @@ def phase_batched(reg, cls, reg_cpu, cls_cpu, dev, profile=False):
                                         "forced_grains_deleted")},
          profile=prof)
     return [dict(row, launches=launches["by_shape"].get(key, 0))
-            for key, row in rows.items()] + [editor]
+            for key, row in rows.items()] + [editor, update]
 
 
 # ---------------------------------------------------------------------------
@@ -2050,9 +2122,11 @@ def engine_cli(args):
 
 def engine_launches_ok(launches, n_models, spans, editor):
     """The engine's counts: 6 node_proj and 6 edge_attn launches a model a
-    span, and `editor` editor launches a span."""
+    span, 2 of the cells' update (encoder and decoder) and `editor` editor
+    launches a span."""
     want = {"node_proj": 6 * n_models * spans,
-            "edge_attn": 6 * n_models * spans, "editor": editor * spans}
+            "edge_attn": 6 * n_models * spans, "editor": editor * spans,
+            "cell_update": 2 * n_models * spans}
     if spans < 1 or any(launches[k] != v for k, v in want.items()):
         raise RuntimeError(f"engine: {spans} spans, launches {launches}, "
                            f"want {want}")
@@ -2863,6 +2937,7 @@ def check_partition_run(name, res, n_spans, D, backend):
             raise RuntimeError(f"partition {name}: rank {r['rank']} on "
                                f"{r['backend']}, not {backend}")
         if (l["node_proj"] != 12 * n_spans or l["edge_attn"] != 12 * n_spans
+                or l["cell_update"] != 4 * n_spans
                 or l["editor"] != n_spans + retries or not r["finite"]):
             raise RuntimeError(f"partition {name}: rank {r['rank']} "
                                f"launches {l}, retries {retries}")
@@ -3024,6 +3099,7 @@ def phase_partition(reg, cls, dev, smi, workdir, traj240, pf, pf_line):
     for rank, (_r, launches, retries, digest) in enumerate(out):
         if (launches["node_proj"] != 12 * PF["spans"]
                 or launches["edge_attn"] != 12 * PF["spans"]
+                or launches["cell_update"] != 4 * PF["spans"]
                 or launches["editor"] != PF["spans"] + retries):
             raise RuntimeError(f"partition cli: rank {rank} launches "
                                f"{launches}, retries {retries}")
@@ -3308,8 +3384,8 @@ def phase_dist_train(reg, dev, smi, workdir):
     top = res[0]
     for r in res:
         l = r["forward_launches"]
-        if r["backend"] != "gloo" or (l["node_proj"], l["edge_attn"]) != (
-                12, 12):
+        if r["backend"] != "gloo" or (
+                l["node_proj"], l["edge_attn"], l["cell_update"]) != (12, 12, 4):
             raise RuntimeError(f"dist_train forward: rank {r['rank']} on "
                                f"{r['backend']}, launches {l}")
         for k, v in r["steps"].items():
@@ -3539,8 +3615,12 @@ def step_card_vs_cpu(model, hp, batch):
     model.zero_grad(set_to_none=True)
     cpu_model.zero_grad(set_to_none=True)
     loss_fn = trainer.make_loss_fn(hp)
+    cell_update.launches = 0
     l1, _ = loss_fn(model, batch, kernels=False)
     l1.backward()
+    if cell_update.launches:
+        raise RuntimeError(f"train step: {cell_update.launches} launches of "
+                           "the cells' update kernel")
     l0, _ = loss_fn(cpu_model, batch.to("cpu"), kernels=False)
     l0.backward()
     l1, l0 = l1.item(), l0.item()
@@ -3573,10 +3653,10 @@ def step_card_vs_cpu(model, hp, batch):
 
 def eval_launches(model, hp, batch):
     """The kernel launches of one eval forward (trainer.make_eval_fn)."""
-    edge_stage.reset_counts()
+    reset_launches()
     trainer.make_eval_fn(hp, model)(batch)
     torch.cuda.synchronize()
-    return dict(edge_stage.launches)
+    return dict(edge_stage.launches, cell_update=cell_update.launches)
 
 
 def profile_train_steps(model, hp, batch, n=4, top=8):
@@ -3623,16 +3703,16 @@ def phase_train(state, smi, workdir, profile=False):
     write_train_pickle(data)
     train_ds, valid_ds = train_cli_mod.load_datasets(data, dev)
     n_train, n_valid = len(train_ds), len(valid_ds)
-    runs, want = {}, {"node_proj": 0, "edge_attn": 0}
-    edge_stage.reset_counts()
+    runs, want = {}, {"node_proj": 0, "edge_attn": 0, "cell_update": 0}
+    reset_launches()
     for name in ("regressor0", "classifier1"):
         hp = checkpoint.load_hp(f"artifacts/40um/{name}")
-        # every eval forward launches each kernel 6 times; the train steps
-        # (the torch formulation) none
+        # every eval forward launches each conv kernel 6 times and the
+        # cells' update twice; the train steps (the torch formulation) none
         n_eval = (-(-n_train // hp.batch_size)
                   + (TRAIN["epochs"] + 1) * -(-n_valid // 64))
         for k in want:
-            want[k] += 6 * n_eval
+            want[k] += (2 if k == "cell_update" else 6) * n_eval
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3654,6 +3734,7 @@ def phase_train(state, smi, workdir, profile=False):
             raise RuntimeError(f"train {name}: {len(ms)} steps")
     launches = {"node_proj": edge_stage.launches["node_proj"],
                 "edge_attn": edge_stage.launches["edge_attn"],
+                "cell_update": cell_update.launches,
                 "by_shape": dict(edge_stage.shape_launches)}
     if {k: launches[k] for k in want} != want:
         raise RuntimeError(f"train: launches {launches}, want {want}")
@@ -3683,7 +3764,8 @@ def phase_train(state, smi, workdir, profile=False):
         model, hp_m, _ = checkpoint.load_model(os.path.join(mdir, name), dev)
         checks[name] = step_card_vs_cpu(model, hp_m, batch)
         eval_counts[name] = eval_launches(model, hp_m, batch)
-        if eval_counts[name] != {"node_proj": 6, "edge_attn": 6}:
+        if eval_counts[name] != {"node_proj": 6, "edge_attn": 6,
+                                 "cell_update": 2}:
             raise RuntimeError(f"eval forward of {name}: {eval_counts[name]}")
         models[name] = model
     reset_launches()
@@ -3693,8 +3775,10 @@ def phase_train(state, smi, workdir, profile=False):
     torch.cuda.synchronize()
     span = {"node_proj": edge_stage.launches["node_proj"],
             "edge_attn": edge_stage.launches["edge_attn"],
-            "editor": editor_fused.launches}
-    if span != {"node_proj": 12, "edge_attn": 12, "editor": 1} or not (
+            "editor": editor_fused.launches,
+            "cell_update": cell_update.launches}
+    if span != {"node_proj": 12, "edge_attn": 12, "editor": 1,
+                "cell_update": 4} or not (
             bool(torch.isfinite(s1.xj).all()) and bool(torch.isfinite(s1.xg).all())):
         raise RuntimeError(f"span with the trained checkpoints: {span}")
 
@@ -4000,9 +4084,11 @@ def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev, trajs):
     launches = {"fp32": dict(edge_stage.launches),
                 "bf16": dict(edge_stage.bf16_launches),
                 "by_shape": dict(edge_stage.shape_launches),
-                "editor": editor_fused.launches}
+                "editor": editor_fused.launches,
+                "cell_update": cell_update.launches}
     if (launches["bf16"] != {"node_proj": 12 * n, "edge_attn": 12 * n}
-            or any(launches["fp32"].values()) or launches["editor"] != n):
+            or any(launches["fp32"].values()) or launches["editor"] != n
+            or launches["cell_update"] != 4 * n):
         raise RuntimeError(f"bf16 rollout: launches {launches}")
     for name in ("xg", "xj"):
         if not bool(torch.isfinite(getattr(final, name)).all()):
@@ -4062,8 +4148,10 @@ def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev, trajs):
     blaunch = (dict(edge_stage.launches), dict(edge_stage.bf16_launches))
     nb = BF16["lane_spans"]
     if blaunch != ({"node_proj": 0, "edge_attn": 0},
-                   {"node_proj": 12 * nb, "edge_attn": 12 * nb}):
-        raise RuntimeError(f"bf16 batched: launches {blaunch}")
+                   {"node_proj": 12 * nb, "edge_attn": 12 * nb}) or (
+                       cell_update.launches != 4 * nb):
+        raise RuntimeError(f"bf16 batched: launches {blaunch}, "
+                           f"{cell_update.launches} of the cells' update")
     emit(phase="bf16_span", span=span, batched=dict(
         lanes, B=len(singles), launches_fp32=blaunch[0],
         launches_bf16=blaunch[1], switches=int(
@@ -4086,8 +4174,10 @@ def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev, trajs):
     if (any(cli_launch[0].values())
             or cli_launch[1] != {"node_proj": 12 * rec.spans,
                                  "edge_attn": 12 * rec.spans}
+            or cell_update.launches != 4 * rec.spans
             or "events_pred" not in line):
-        raise RuntimeError(f"cli --pallas: {line}, launches {cli_launch}")
+        raise RuntimeError(f"cli --pallas: {line}, launches {cli_launch}, "
+                           f"{cell_update.launches} of the cells' update")
     err = io.StringIO()
     refused = ["--generate", "--device_resident", "--model_dir",
                "artifacts/40um", "--seed", "3", "--G", "4", "--R", "1",
@@ -4128,7 +4218,7 @@ def phase_bf16(reg, cls, reg_cpu, cls_cpu, state, dev, trajs):
     if (dict(edge_stage.bf16_launches) != {"node_proj": 12 * n240,
                                            "edge_attn": 12 * n240}
             or l240["node_proj"] or l240["edge_attn"]
-            or l240["editor"] != n240):
+            or l240["editor"] != n240 or l240["cell_update"] != 4 * n240):
         raise RuntimeError(f"bf16 240 um: launches {l240}, "
                            f"{edge_stage.bf16_launches}")
     emit(phase="bf16_rollout240", spans=n240,
@@ -4160,6 +4250,8 @@ def main():
     with torch.no_grad():
         launches, editor = phase_rollout(reg, cls, state, N_SPANS)
         conv_rows = phase_edge_stage(reg, state)
+        update_row = cell_update_row(reg, dr.make_sample(state)[0],
+                                     launches["cell_update"])
         editor_row = phase_editor(reg, cls, state)
         if args.profile:
             phase_profile(reg, cls, state, N_SPANS)
@@ -4202,6 +4294,7 @@ def main():
         check=f"{editor_row['check']} and {editor['checked_spans']} "
               "rollout spans",
         bound_ms=bound_ms, bound_by=bound_by, launches=launches["editor"]))
+    kernels.append(update_row)
     kernels.append(generate_row)
     kernels += bf16_rows + gen40_rows + r240_rows + batched_rows + engine_rows
     kernels += list(train_rows.values()) + pf_rows + partition_rows

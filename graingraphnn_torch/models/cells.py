@@ -16,7 +16,11 @@ through); no shipped model uses it.
 Every apply function takes `kernels`, the conv formulation its caller
 chose, and `precision` ("fp32" or "bf16"), its numerics
 (ops.period_conv.apply_period_conv); the SAGE cells have no periodic conv
-and take neither.
+and take neither. With kernels, a PGCLSTM step on the card makes its
+update (gate sums and biases, activations, new h and c of both node types)
+in one launch of kernels/cell_update.py, which like the conv kernels has
+no backward; its plain version is the torch formulation here
+(_gate_update), which every other step takes.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from torch import nn
 
 from ..graph.state import GraphSample
+from ..kernels import cell_update
 from ..ops.period_conv import (
     Dense,
     PeriodConv,
@@ -90,6 +95,19 @@ def _lstm_update(gates: torch.Tensor, c: torch.Tensor, C: int):
     return h_new, c_new
 
 
+def _gate_update(msgs, bias, c, C: int):
+    """One node type's update in the torch formulation, the plain version
+    of kernels/cell_update.py: its messages summed in their order, plus its
+    gate bias [4, C], then _lstm_update; c None is the zero state."""
+    gates = msgs[0]
+    for m in msgs[1:]:
+        gates = gates + m
+    gates = gates + bias.reshape(-1)
+    if c is None:
+        c = gates.new_zeros((gates.shape[0], C))
+    return _lstm_update(gates, c, C)
+
+
 def _sources(xg, xj, src_gather):
     """The source node tables of the convs: (xg, xj) themselves, or
     src_gather(xg, xj) where the node rows are split over ranks (the halo
@@ -99,7 +117,8 @@ def _sources(xg, xj, src_gather):
 
 def _period_convs(cell, sample, xg, xj, num_gates, C, kernels,
                   src_gather=None, precision="fp32"):
-    """(push + connect into joints, pull into grains) of a periodic cell."""
+    """(push, connect) into joints and pull into grains of a periodic
+    cell."""
     kw = dict(num_gates=num_gates, out_channels=C, kernels=kernels,
               precision=precision)
     s = sample
@@ -111,7 +130,7 @@ def _period_convs(cell, sample, xg, xj, num_gates, C, kernels,
                                     s.connect_mask, **kw)
     out_pull = apply_period_conv(cell.conv["pull"], xj_src, xg, s.pull_nbr,
                                  s.pull_len, s.pull_mask, **kw)
-    return out_push + out_connect, out_pull
+    return out_push, out_connect, out_pull
 
 
 def _gate_inputs(grain_in, joint_in, h):
@@ -139,12 +158,17 @@ def apply_pgclstm(
     C = out_channels
     h, c = state
     xg, xj = _gate_inputs(grain_in, joint_in, h)
-    joint_msg, grain_msg = _period_convs(cell, sample, xg, xj, NUM_GATES, C,
-                                         kernels, src_gather, precision)
-    joint_gates = joint_msg + cell.bias["joint"].reshape(-1)
-    grain_gates = grain_msg + cell.bias["grain"].reshape(-1)
-    h_g, c_g = _lstm_update(grain_gates, c["grain"], C)
-    h_j, c_j = _lstm_update(joint_gates, c["joint"], C)
+    out_push, out_connect, out_pull = _period_convs(
+        cell, sample, xg, xj, NUM_GATES, C, kernels, src_gather, precision)
+    b = cell.bias
+    joint = ((out_push, out_connect), b["joint"], c["joint"])
+    grain = ((out_pull,), b["grain"], c["grain"])
+    if kernels and out_push.device.type == "cuda":
+        (h_j, c_j), (h_g, c_g) = cell_update.cell_update_cuda(joint, grain,
+                                                              C)
+    else:
+        h_g, c_g = _gate_update(*grain, C)
+        h_j, c_j = _gate_update(*joint, C)
     return {"grain": h_g, "joint": h_j}, {"grain": c_g, "joint": c_j}
 
 
@@ -266,10 +290,10 @@ def apply_pgc(cell: PGC, sample, grain_in, joint_in, state, out_channels, *,
     C = out_channels
     h, c = state
     xg, xj = _gate_inputs(grain_in, joint_in, h)
-    joint_msg, grain_msg = _period_convs(cell, sample, xg, xj, 1, C, kernels,
-                                         precision=precision)
-    h_j = torch.relu(joint_msg + cell.bias["joint"].reshape(-1))
-    h_g = torch.relu(grain_msg + cell.bias["grain"].reshape(-1))
+    out_push, out_connect, out_pull = _period_convs(
+        cell, sample, xg, xj, 1, C, kernels, precision=precision)
+    h_j = torch.relu(out_push + out_connect + cell.bias["joint"].reshape(-1))
+    h_g = torch.relu(out_pull + cell.bias["grain"].reshape(-1))
     return {"grain": h_g, "joint": h_j}, c
 
 

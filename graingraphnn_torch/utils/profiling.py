@@ -61,8 +61,8 @@ class Recorder:
     id of the enclosing BUILD span, -1 outside every build), tid (the
     thread's native id, as a profiler's trace gives it) and attrs (the
     span's own, plus "index": its rank among its parent's children of the
-    same name). counters: {build id: {name: value}}, filed by count() from
-    inside the build.
+    same name). counters: {build id: {name: value}}, filed by count() and
+    add() from inside the build.
 
     anchor pairs one time.perf_counter_ns() reading with time.time_ns(), so
     a span's times convert to Unix time (unix_ns) and from there to a
@@ -121,12 +121,23 @@ class Recorder:
         if th.open:
             self.spans[th.open[-1]]["attrs"].update(attrs)
 
+    def _build_counters(self) -> Dict[str, int]:
+        """The counters of the build of the innermost span open on this
+        thread (build -1 outside every build)."""
+        th = self._thread()
+        build = self.spans[th.open[-1]]["build"] if th.open else -1
+        return self.counters.setdefault(build, {})
+
     def count(self, values: Dict[str, int]):
         """Files values under the build of the innermost span open on this
         thread (-1 outside every build)."""
-        th = self._thread()
-        build = self.spans[th.open[-1]]["build"] if th.open else -1
-        self.counters.setdefault(build, {}).update(values)
+        self._build_counters().update(values)
+
+    def add(self, name: str, n: int = 1):
+        """Adds n to the counter `name` of that build (from 0 where the
+        build has not filed it)."""
+        mine = self._build_counters()
+        mine[name] = mine.get(name, 0) + n
 
     def unix_ns(self, t: int) -> int:
         """A perf_counter_ns reading as Unix nanoseconds."""

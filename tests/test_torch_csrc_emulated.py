@@ -39,7 +39,9 @@ import pytest
 import torch
 
 import chip_smoke
-from graingraphnn_torch.kernels import _build, edge_stage, editor_fused
+from graingraphnn_torch.kernels import _build, cell_update, edge_stage
+from graingraphnn_torch.kernels import editor_fused
+from graingraphnn_torch.models import cells
 from graingraphnn_torch.ops import period_conv
 from graingraphnn_torch.rollout import device_driver as dd
 from graingraphnn_torch.rollout import topology_jit as tj
@@ -167,6 +169,9 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// the rounded single operations (built with -ffp-contract=off, so never fused)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -1049,6 +1054,81 @@ def test_phase_trace_finds_its_anchors():
     with open(os.path.join(_build.CSRC, edge_stage.SOURCE_BF16 + ".cu")) as f:
         own = f.read()
     assert "#define TRACE_STAMP(k, i, on)\n#define TRACE_END(k, i)\n" in own
+
+
+def _cell_update_inputs(rng, n, C, messages, zero_c, saturated):
+    """One part's messages, bias and c; where saturated, a quarter of the
+    message entries at +-40, where sigmoid and tanh round to their
+    limits."""
+    def msg():
+        m = rng.normal(0, 2, (n, 4 * C)).astype(np.float32)
+        if saturated:
+            hit = rng.uniform(size=m.shape) < 0.25
+            m[hit] = rng.choice([-40.0, 40.0], size=int(hit.sum()))
+        return torch.from_numpy(m)
+
+    bias = torch.from_numpy(rng.normal(0, 0.5, (4, C)).astype(np.float32))
+    c = None if zero_c else torch.from_numpy(
+        rng.normal(0, 1, (n, C)).astype(np.float32))
+    return tuple(msg() for _ in range(messages)), bias, c
+
+
+def _torch_update(msgs, bias, c, C):
+    """The torch formulation of one part (cells._gate_update) in float64.
+    (The CPU's float32 sigmoid and tanh have read up to 6e-5 off in the
+    first call of a process, and exact in the calls after it.)"""
+    return cells._gate_update(tuple(m.double() for m in msgs), bias.double(),
+                              None if c is None else c.double(), C)
+
+
+@pytest.mark.parametrize("C,nj,ng,zero_c,saturated", [
+    (96, 1043, 127, False, False), (96, 127, 1043, True, False),
+    (32, 1, 0, False, False), (32, 0, 1, True, False),
+    (96, 0, 0, False, False), (96, 127, 1, False, True),
+    (32, 1043, 1043, True, True)])
+def test_cell_update_source_matches_torch(emulated, C, nj, ng, zero_c,
+                                          saturated):
+    """csrc/cell_update.cu against the torch formulation it replaces
+    (cells._gate_update, in float64), within 1e-6: the joints' two
+    messages and the grains' one in one launch, at 0, 1, 127 and 1043 rows,
+    c given or null (the zero state), and logits saturated at +-40."""
+    fn = emulated(cell_update.SOURCE, "cell_update_forward",
+                  cell_update.ARGTYPES)
+    rng = np.random.default_rng(C + nj + 7 * ng)
+    joint = _cell_update_inputs(rng, nj, C, 2, zero_c, saturated)
+    grain = _cell_update_inputs(rng, ng, C, 1, zero_c, saturated)
+    outs = cell_update.launch(fn, 0, joint, grain, C)
+    for part, out in zip((joint, grain), outs):
+        for got, want in zip(out, _torch_update(*part, C)):
+            assert got.shape == want.shape and got.dtype == torch.float32
+            torch.testing.assert_close(got.double(), want, atol=1e-6, rtol=0)
+
+
+def test_cell_update_source_refuses_what_it_cannot_take(emulated):
+    """C not a multiple of 4, or a row not 16-byte aligned, is refused
+    before any launch: the wrapper raises, and the C entry returns an
+    error code."""
+    fn = emulated(cell_update.SOURCE, "cell_update_forward",
+                  cell_update.ARGTYPES)
+    rng = np.random.default_rng(0)
+    part = _cell_update_inputs(rng, 5, 6, 1, True, False)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cell_update.launch(fn, 0, part, part, 6)
+    msgs, bias, _ = _cell_update_inputs(rng, 5, 8, 1, True, False)
+    offset = torch.zeros(5 * 32 + 1)[1:].view(5, 32)
+    offset.copy_(msgs[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        cell_update.launch(fn, 0, ((offset,), bias, None),
+                           (msgs, bias, None), 8)
+    out = torch.empty(5, 8)
+
+    def args(msg):
+        return [msg.data_ptr(), 0, bias.data_ptr(), 0, 5, out.data_ptr(),
+                out.data_ptr()] * 2
+
+    assert fn.raw(*args(msgs[0]), 8, None) == 0
+    assert fn.raw(*args(msgs[0]), 6, None) != 0
+    assert fn.raw(*args(offset), 8, None) != 0
 
 
 @functools.lru_cache(maxsize=1)

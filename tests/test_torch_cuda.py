@@ -8,12 +8,16 @@ conftest is skipped: that machine has no JAX):
 Without a card every test here skips (the check is made inside each test,
 so every worker collects the same tests)."""
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from graingraphnn_torch.kernels import edge_stage, editor_fused
+from graingraphnn_torch.kernels import cell_update, edge_stage, editor_fused
+from graingraphnn_torch.models import cells
 from graingraphnn_torch.ops import period_conv
 from graingraphnn_torch.rollout import device_driver as dd
 from graingraphnn_torch.rollout import device_rollout as dr
@@ -865,3 +869,82 @@ def test_partitioned_spans_over_nccl_at_one_rank(tmp_path):
     chip_smoke.check_partition_run("card test", res, 2, 1, "nccl")
     assert res[0]["transport"] == "device buffers over NCCL"
     assert res[0]["bytes_exchanged"] > 0
+
+
+def _cell_update_compare():
+    """scripts/cell_update_compare.py as a module."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "cell_update_compare.py")
+    spec = importlib.util.spec_from_file_location("cell_update_compare",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("nj,ng,null_c", [(134016, 67008, True),
+                                          (134016, 67008, False),
+                                          (66832, 33416, False),
+                                          (2086, 1043, True)])
+def test_cell_update_kernel_matches_the_torch_formulation(nj, ng, null_c):
+    """The update kernel against cells._gate_update on the card at the
+    benchmark's row counts (64 x 120 um, 8 x 240 um) and one 120 um lane,
+    with c read and with a null c (the zero state, unread): within one
+    unit in the last place, one launch, and its bit-equality printed."""
+    dev = card()
+    cmp = _cell_update_compare()
+    joint, grain = cmp.step_inputs(nj, ng, null_c,
+                                   torch.Generator().manual_seed(nj), dev)
+    before = cell_update.launches
+    with torch.no_grad():
+        got = cell_update.cell_update_cuda(joint, grain, cmp.C)
+        want = cmp.formulation(joint, grain)
+    torch.cuda.synchronize()
+    assert cell_update.launches == before + 1
+    pairs = [(g, w) for pg, pw in zip(got, want) for g, w in zip(pg, pw)]
+    worst = max(cmp.ulps(g, w) for g, w in pairs)
+    print(f"cell update {nj}/{ng} null_c={null_c}: max {worst} ulp, bit "
+          f"equal {all(torch.equal(g, w) for g, w in pairs)}")
+    assert worst <= 1
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["regressor0", "classifier1"])
+def test_forward_with_the_update_kernel_matches_the_torch_update(
+        train_batch8, monkeypatch, name, precision):
+    """The eval forward on the kernels at a packed batch of 8: the update
+    kernel once per cell step (encoder and decoder), outputs within 1e-6 of
+    the same forward with the torch formulation's update."""
+    dev = card()
+    model, hp, _ = checkpoint.load_model(f"artifacts/40um/{name}", dev)
+    cell_update.launches = 0
+    with torch.no_grad():
+        fast = model(train_batch8, kernels=True, precision=precision)
+        assert cell_update.launches == 2
+        monkeypatch.setattr(cell_update, "cell_update_cuda",
+                            lambda joint, grain, C: (
+                                cells._gate_update(*joint, C),
+                                cells._gate_update(*grain, C)))
+        slow = model(train_batch8, kernels=True, precision=precision)
+    assert cell_update.launches == 2
+    for k in fast:
+        torch.testing.assert_close(fast[k], slow[k], atol=1e-6, rtol=0)
+
+
+def test_training_and_the_cpu_launch_no_update_kernel(train_batch8):
+    """A forward under autograd, and with kernels=False, takes the torch
+    formulation of the update on the card: no launch. The kernel itself
+    refuses an input that requires grad under autograd."""
+    dev = card()
+    model, hp, _ = checkpoint.load_model("artifacts/40um/regressor0", dev)
+    cell_update.launches = 0
+    out = model(train_batch8, kernels=False)
+    sum(v.float().sum() for v in out.values()).backward()
+    with torch.no_grad():
+        model(train_batch8, kernels=False)
+    cmp = _cell_update_compare()
+    joint, grain = cmp.step_inputs(8, 4, False, torch.Generator(), dev)
+    joint[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        cell_update.cell_update_cuda(joint, grain, cmp.C)
+    assert cell_update.launches == 0

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from graingraphnn_torch.kernels import cell_update
 from graingraphnn_torch.models import cells, grain_nn
 from graingraphnn_torch.rollout import device_rollout as dr
 from graingraphnn_torch.train import checkpoint
@@ -101,3 +102,97 @@ def test_zero_state_shapes(graph40):
     assert c["joint"].shape == (tsample.joint_x.shape[0], 8)
     assert float(h["joint"].abs().sum()) == 0.0
     assert grain_nn.count_params(cells.PGCLSTM(11, 8, 8)) > 0
+
+
+@pytest.mark.parametrize("case,calls", [("cpu", 0), ("kernels_false", 0),
+                                        ("autograd", 0), ("control", 1)])
+def test_fused_update_stays_off_the_cpu_and_autograd(graph40, monkeypatch,
+                                                     case, calls):
+    """apply_pgclstm takes the update kernel only with kernels on the
+    card: on CPU tensors, with kernels and without, and under autograd it
+    reaches no launch, and its outputs and gradients are the torch
+    formulation's, bit for bit. On the card, autograd is kept off the
+    kernel by a refusal, not a quiet fallback: "control" hands the
+    kernel's wrapper the same step under autograd (the cell's biases
+    require grad) and it raises before it calls the kernel."""
+    _, tsample = graph40
+    C = 16
+    cell = cells.init_pgclstm(cells.PGCLSTM(tsample.grain_x.shape[1],
+                                            tsample.joint_x.shape[1], C),
+                              torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    NG, NJ = tsample.grain_x.shape[0], tsample.joint_x.shape[0]
+    state = tuple({k: torch.from_numpy(rng.normal(0, 0.5, (n, C)).astype(
+        np.float32)) for k, n in (("grain", NG), ("joint", NJ))}
+        for _ in range(2))
+    taken = []
+
+    def launched(joint, grain, out_channels):
+        taken.append(out_channels)
+        cell_update.launches += 1
+        return [cells._gate_update(*part, out_channels)
+                for part in (joint, grain)]
+
+    def kernel(*args):
+        raise AssertionError("the kernel was called")
+
+    monkeypatch.setattr(cell_update, "cell_update_cuda", launched)
+    cell_update.launches = 0
+    kernels = case != "kernels_false"
+    grad = case in ("autograd", "control")
+
+    def step(fn):
+        cell.zero_grad()
+        with torch.set_grad_enabled(grad):
+            h, c = fn()
+            if grad:
+                sum(t.square().sum() for d in (h, c) for t in d.values()
+                    ).backward()
+        return h, c, {n: p.grad for n, p in cell.named_parameters()}
+
+    def torch_formulation():
+        xg, xj = cells._gate_inputs(tsample.grain_x, tsample.joint_x,
+                                    state[0])
+        push, connect, pull = cells._period_convs(
+            cell, tsample, xg, xj, cells.NUM_GATES, C, kernels)
+        h_g, c_g = cells._lstm_update(
+            pull + cell.bias["grain"].reshape(-1), state[1]["grain"], C)
+        h_j, c_j = cells._lstm_update(
+            push + connect + cell.bias["joint"].reshape(-1),
+            state[1]["joint"], C)
+        return {"grain": h_g, "joint": h_j}, {"grain": c_g, "joint": c_j}
+
+    if case == "control":
+        xg, xj = cells._gate_inputs(tsample.grain_x, tsample.joint_x,
+                                    state[0])
+        with torch.no_grad():
+            push, connect, pull = cells._period_convs(
+                cell, tsample, xg, xj, cells.NUM_GATES, C, kernels)
+        refused = 0
+        for grad_mode in (True, False):
+            with torch.set_grad_enabled(grad_mode):
+                try:
+                    cell_update.launch(
+                        kernel, 0, ((push, connect), cell.bias["joint"],
+                                    state[1]["joint"]),
+                        ((pull,), cell.bias["grain"], state[1]["grain"]), C)
+                except RuntimeError as e:
+                    assert "no backward" in str(e) and "bias" in str(e)
+                    refused += 1
+                except AssertionError:
+                    assert not grad_mode    # reached the kernel without grad
+        assert refused == calls and cell_update.launches == 0
+        return
+    got = step(lambda: cells.apply_pgclstm(
+        cell, tsample, tsample.grain_x, tsample.joint_x, state, C,
+        kernels=kernels))
+    want = step(torch_formulation)
+    assert taken == [C] * calls and cell_update.launches == calls
+    for a, b in zip(got[:2], want[:2]):
+        for k in ("grain", "joint"):
+            assert torch.equal(a[k], b[k]), k
+    for n in want[2]:
+        if grad:
+            assert torch.equal(got[2][n], want[2][n]), n
+        else:
+            assert got[2][n] is None and want[2][n] is None
